@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``cgat_tpu_torch/csrc/<name>.cu`` is compiled, at first use, into its
+own shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/lib<name>-<hash>.so
+
+The library name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded. ``build()`` starts
+one ``nvcc`` per source, all at once, and keeps each compiler log (with
+ptxas' register and spill report) beside its library. Nothing is built or
+loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+KERNELS = ("segment_attention", "mh_network", "hyper_apply")
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` lives for the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> dict[str, dict]:
+    """Compile every kernel in ``names`` whose library is missing, one
+    ``nvcc`` per source, all started together. Returns, per kernel, the
+    seconds its build took (0 if it was already built) and its compiler
+    log. Raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    running = {}
+    result = {}
+    t0 = time.perf_counter()
+    for name in names:
+        lib = library_path(name)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            result[name] = {"seconds": 0.0,
+                            "log": log.read_text() if log.exists() else ""}
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, lib, log)
+    failed = []
+    for name, (proc, tmp, lib, log) in running.items():
+        out, _ = proc.communicate()
+        result[name] = {"seconds": time.perf_counter() - t0, "log": out}
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
+            tmp.unlink(missing_ok=True)
+            continue
+        log.write_text(out)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return result
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        lib.cgat_error_string.argtypes = [ctypes.c_int]
+        lib.cgat_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of kernel ``name`` with its argument types
+    declared (``c_void_p`` for every pointer and the stream)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if code != 0:
+        msg = load(name).cgat_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{code} ({msg})")

@@ -1,0 +1,122 @@
+"""Segment softmax + weighted aggregation: CUDA kernel wrapper and its plain
+PyTorch version.
+
+Counterpart of the forward of ``cgat_tpu/ops/pallas/segment_attention.py``.
+For destination-sorted edges with CSR pointers ``offn`` (clamped to the
+real-edge count ``n_real``), per node ``n`` and column ``c``::
+
+    out[n, c] = sum_{e -> n} exp(a[e,c] - max_n[c]) * m[e,c]
+                / (sum_{e -> n} exp(a[e,c] - max_n[c]) + 1e-16)
+
+The kernel is ``cgat_tpu_torch/csrc/segment_attention.cu``. CPU tensors go
+through :func:`segment_attention_plain`; CUDA tensors launch the kernel or
+raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..segment import NEG_BIG, SOFTMAX_EPS, segment_max, segment_sum
+from . import build
+
+_P = ctypes.c_void_p
+
+
+@functools.cache
+def _fwd():
+    return build.entry("segment_attention", "cgat_segment_attention_fwd",
+                       [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _P, _P, _P, _P])
+
+
+def _segments(offn, n_real, num_nodes, n_rows):
+    """Per-row segment ids and validity from clamped CSR pointers."""
+    off = torch.clamp(offn[:num_nodes + 1].long(), max=int(n_real))
+    counts = off[1:] - off[:-1]
+    ids = torch.full((n_rows,), num_nodes - 1, dtype=torch.long,
+                     device=offn.device)
+    covered = int(off[-1] - off[0])
+    ids[int(off[0]):int(off[-1])] = torch.repeat_interleave(
+        torch.arange(num_nodes, device=offn.device), counts,
+        output_size=covered)
+    rows = torch.arange(n_rows, device=offn.device)
+    valid = (rows >= off[0]) & (rows < off[-1])
+    return ids, valid
+
+
+def segment_attention_plain(alpha, m, offn, n_real, num_nodes):
+    """The kernel's function in plain torch ops: f32 arithmetic, output in
+    the input dtype. Returns ``(out, max, den)``, the last two f32."""
+    n_rows, hf = alpha.shape
+    ids, valid = _segments(offn, n_real, num_nodes, n_rows)
+    a = torch.where(valid[:, None], alpha.float(),
+                    torch.full((), NEG_BIG, device=alpha.device))
+    mx = segment_max(a, ids, num_nodes)
+    ex = torch.where(valid[:, None], torch.exp(a - mx[ids]),
+                     torch.zeros((), device=alpha.device))
+    den = segment_sum(ex, ids, num_nodes)
+    num = segment_sum(ex * m.float(), ids, num_nodes)
+    return (num / (den + SOFTMAX_EPS)).to(alpha.dtype), mx, den
+
+
+def _check(alpha, m, offn, n_real, num_nodes):
+    if alpha.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"segment_attention takes bf16 or f32, not "
+                        f"{alpha.dtype}")
+    if m.dtype != alpha.dtype or m.shape != alpha.shape or alpha.dim() != 2:
+        raise ValueError(f"alpha {tuple(alpha.shape)} {alpha.dtype} and m "
+                         f"{tuple(m.shape)} {m.dtype} must be one (E, H*F) "
+                         f"shape and dtype")
+    if offn.dtype != torch.int32 or offn.dim() != 1 \
+            or offn.numel() < num_nodes + 1:
+        raise ValueError(f"offn must be int32 with >= {num_nodes + 1} "
+                         f"entries, got {tuple(offn.shape)} {offn.dtype}")
+    if n_real.dtype != torch.int32 or n_real.numel() != 1:
+        raise ValueError("n_real must be a one-element int32 tensor")
+    for name, t in (("alpha", alpha), ("m", m), ("offn", offn),
+                    ("n_real", n_real)):
+        if t.device != alpha.device:
+            raise ValueError(f"{name} is on {t.device}, alpha on "
+                             f"{alpha.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def segment_attention(alpha, m, offn, n_real, num_nodes, *,
+                      return_stats=False):
+    """Softmax-weighted aggregation of ``m`` into ``num_nodes`` segments.
+
+    alpha, m: (E, H*F) bf16 or f32, rows sorted by destination.
+    offn:     (>= num_nodes + 1,) int32 unclamped CSR pointers.
+    n_real:   one-element int32 tensor, the real-row count (rows at or past
+              it never count).
+    Returns (num_nodes, H*F) in the input dtype; with ``return_stats`` also
+    the f32 per-node column max and exp-sum.
+    """
+    if alpha.device.type == "cpu":
+        out, mx, den = segment_attention_plain(alpha, m, offn, n_real,
+                                               num_nodes)
+        return (out, mx, den) if return_stats else out
+    _check(alpha, m, offn, n_real, num_nodes)
+    hf = alpha.shape[1]
+    out = torch.empty((num_nodes, hf), dtype=alpha.dtype, device=alpha.device)
+    mx = den = None
+    if return_stats:
+        mx = torch.empty((num_nodes, hf), dtype=torch.float32,
+                         device=alpha.device)
+        den = torch.empty_like(mx)
+    code = _fwd()(alpha.data_ptr(), m.data_ptr(), offn.data_ptr(),
+                  n_real.data_ptr(), num_nodes, hf,
+                  int(alpha.dtype == torch.bfloat16), out.data_ptr(),
+                  None if mx is None else mx.data_ptr(),
+                  None if den is None else den.data_ptr(),
+                  torch.cuda.current_stream(alpha.device).cuda_stream)
+    build.check("segment_attention", code)
+    segment_attention.launches += 1
+    return (out, mx, den) if return_stats else out
+
+
+segment_attention.launches = 0

@@ -1,0 +1,52 @@
+"""Segment reductions over sorted segment ids, as plain torch ops.
+
+Counterpart of ``cgat_tpu/ops/segment.py``. Segment ids are int tensors
+referring to a static number of segments; padding is a boolean mask whose
+masked rows contribute exactly zero to every reduction, including softmax
+denominators.
+"""
+from __future__ import annotations
+
+import torch
+
+# large-but-finite negative instead of -inf, so fully masked segments give 0
+# rather than NaN after the max subtraction
+NEG_BIG = -1e30
+SOFTMAX_EPS = 1e-16  # torch_geometric.utils.softmax denominator eps
+
+
+def _expand(mask, data):
+    """Broadcast a 1-D mask over the trailing dims of ``data``."""
+    return mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
+
+
+def segment_sum(data, segment_ids, num_segments):
+    """Sum ``data`` rows into ``num_segments`` buckets."""
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add_(0, segment_ids.long(), data)
+
+
+def segment_max(data, segment_ids, num_segments):
+    """Max-reduce ``data`` rows into ``num_segments`` buckets; empty segments
+    give ``NEG_BIG``."""
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), NEG_BIG)
+    idx = _expand(segment_ids.long(), data).expand_as(data)
+    return out.scatter_reduce_(0, idx, data, "amax", include_self=True)
+
+
+def segment_softmax(scores, segment_ids, num_segments, *, mask=None,
+                    eps=SOFTMAX_EPS):
+    """Numerically stable softmax over the rows of each segment, for every
+    trailing position independently (torch_geometric.utils.softmax).
+    Masked rows get weight exactly 0."""
+    if mask is not None:
+        scores = torch.where(_expand(mask, scores), scores,
+                             torch.full_like(scores, NEG_BIG))
+    seg_max = segment_max(scores, segment_ids, num_segments)
+    ids = segment_ids.long()
+    unnorm = torch.exp(scores - seg_max[ids])
+    if mask is not None:
+        unnorm = torch.where(_expand(mask, unnorm), unnorm,
+                             torch.zeros_like(unnorm))
+    denom = segment_sum(unnorm, segment_ids, num_segments)
+    return unnorm / (denom[ids] + eps)

@@ -1,0 +1,166 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and nvcc and skips without them. This
+file imports no JAX, so it also runs where JAX is absent; the directory's
+``conftest.py`` imports JAX, so on such a machine run it without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: f32 results differ from the plain version only in summation
+order (rtol 1e-5); bf16 outputs may differ by one rounding step of the
+f32 result (2**-8 relative), so they are held at 2e-2.
+"""
+import numpy as np
+import pytest
+import torch
+
+from cgat_tpu_torch.data import collate, host_offsets
+from cgat_tpu_torch.data.synthetic import random_graphs
+from cgat_tpu_torch.models import CGATConfig, CGAtNet, init_state_dict
+from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, hyper_apply,
+                                        mh_network, segment_attention)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _launches():
+    return {k.__name__: k.launches for k in KERNEL_WRAPPERS}
+
+
+def _seg_case(rng, hf, num_nodes=300, n_pad=40):
+    """Destination-sorted rows with empty nodes, a 150-row hub and a padded
+    suffix pointing at the last node slot."""
+    deg = rng.integers(0, 6, size=num_nodes)
+    deg[rng.choice(num_nodes, 30, replace=False)] = 0
+    deg[17] = 150
+    deg[-1] = 0
+    dst = np.repeat(np.arange(num_nodes), deg).astype(np.int32)
+    n_real = len(dst)
+    dst = np.concatenate([dst, np.full(n_pad, num_nodes - 1, np.int32)])
+    alpha = rng.standard_normal((len(dst), hf)) * 3
+    m = rng.standard_normal((len(dst), hf))
+    return alpha, m, host_offsets(dst, num_nodes + 8), n_real
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hf", [640, 6])     # 4-wide vector path, scalar path
+def test_segment_attention_kernel(dev, dtype, hf):
+    alpha, m, offn, n_real = _seg_case(np.random.default_rng(0), hf)
+    args = (torch.tensor(alpha, dtype=dtype, device=dev),
+            torch.tensor(m, dtype=dtype, device=dev),
+            torch.from_numpy(offn).to(dev),
+            torch.tensor(n_real, dtype=torch.int32, device=dev), 300)
+    before = segment_attention.segment_attention.launches
+    out, mx, den = segment_attention.segment_attention(*args,
+                                                       return_stats=True)
+    assert segment_attention.segment_attention.launches == before + 1
+    p_out, p_mx, p_den = segment_attention.segment_attention_plain(*args)
+    assert out.dtype == dtype and mx.dtype == den.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), p_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mx, p_mx, rtol=0, atol=0)
+    torch.testing.assert_close(den, p_den, rtol=1e-5, atol=1e-6)
+    empty = torch.from_numpy(np.diff(np.minimum(offn[:301], n_real)) == 0)
+    assert empty.any() and not out[empty.to(dev)].float().abs().any()
+
+
+@pytest.mark.parametrize("rows,cat,hid,f,heads",
+                         [(1000, 384, 256, 128, 5), (37, 48, 32, 16, 2)])
+def test_mh_network_kernel(dev, rows, cat, hid, f, heads):
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                               * scale).bfloat16()
+    args = (r(rows, cat), r(heads * hid, cat, scale=cat ** -0.5),
+            r(heads * hid, scale=0.1), r(heads * f, hid, scale=hid ** -0.5),
+            r(heads * f, scale=0.1), heads)
+    before = _launches()
+    got = mh_network.mh_network(*args)
+    assert _launches()["mh_network"] == before["mh_network"] + 1
+    want = mh_network.mh_network_plain(*args)
+    assert got.shape == (rows, heads * f) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48)])
+def test_hyper_apply_kernel(dev, rows, c, i, o):
+    g = torch.Generator(device=dev).manual_seed(1)
+    hidden = torch.randn(rows, c, generator=g, device=dev).tanh().bfloat16()
+    k = (torch.randn(o * i + o, c, generator=g, device=dev)
+         * (0.1 * (2 / c) ** 0.5)).bfloat16()
+    bias = (torch.rand(o * i + o, generator=g, device=dev) * 0.1).bfloat16()
+    x = torch.randn(rows, i, generator=g, device=dev).bfloat16()
+    before = _launches()
+    got = hyper_apply.hyper_apply(hidden, k, bias, x, o)
+    assert _launches()["hyper_apply"] == before["hyper_apply"] + 1
+    want = hyper_apply.hyper_apply_plain(hidden, k, bias, x, o)
+    assert got.shape == (rows, o) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(64, 48, device=dev)
+    w_in, w_out = torch.zeros(64, 48, device=dev), torch.zeros(32, 32, device=dev)
+    b_in, b_out = torch.zeros(64, device=dev), torch.zeros(32, device=dev)
+    with pytest.raises(ValueError):       # f32 is not a kernel dtype
+        mh_network.mh_network(x, w_in, b_in, w_out, b_out, 2)
+    h = torch.zeros(8, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(32 * 16 + 16, 64, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(32 * 16 + 16, device=dev, dtype=torch.bfloat16)
+    xt = torch.zeros(32, 8, device=dev, dtype=torch.bfloat16).T
+    with pytest.raises(ValueError):       # non-contiguous input
+        hyper_apply.hyper_apply(h, k, b, xt, 16)
+    a = torch.zeros(10, 8, device=dev)
+    with pytest.raises(ValueError):       # int64 CSR pointers
+        segment_attention.segment_attention(
+            a, a, torch.zeros(5, dtype=torch.int64, device=dev),
+            torch.tensor(10, dtype=torch.int32, device=dev), 4)
+
+
+# 128-wide, 2 layers, 5 heads: every kernel engages in bf16
+SMALL = dict(orig_elem_fea_len=16, elem_fea_len=128, n_graph=2,
+             nbr_embedding_size=128, neighbor_number=16, msg_heads=5,
+             n_graph_roost=1, out_hidden=(64, 32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_model_on_card_matches_cpu(dev, dtype):
+    """The forward on the card against the same forward on the CPU (plain
+    versions). bf16: all three kernels, 2 + 1 + 4 launches per layer plus
+    the crystal pool; f32: the segment-attention kernel only."""
+    cfg = CGATConfig(**SMALL, compute_dtype=dtype)
+    cpu = CGAtNet(cfg)
+    cpu.load_state_dict(init_state_dict(cpu, seed=0), strict=True)
+    cpu.to_compute_dtype().eval()
+    card = CGAtNet(cfg)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    card = card.to_compute_dtype().to(dev).eval()
+    batch = collate(random_graphs(0, 6, n_atoms_range=(5, 9), max_nbr=16,
+                                  orig_fea=16, full_degree=True),
+                    max_nbr=16, node_bucket=16)
+    before = _launches()
+    with torch.inference_mode():
+        got = card(batch.to(dev)).cpu()
+        want = cpu(batch)
+    n = cfg.n_graph
+    per_layer = ({"mh_network": 2 * n, "segment_attention": n + 1,
+                  "hyper_apply": 4 * n} if dtype == "bfloat16" else
+                 {"mh_network": 0, "segment_attention": n + 1,
+                  "hyper_apply": 0})
+    assert {k: v - before[k] for k, v in _launches().items()} == per_layer
+    assert torch.isfinite(got).all()
+    if dtype == "bfloat16":
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)

@@ -1,0 +1,214 @@
+"""Each kernel module's plain version against the JAX function it ports.
+
+The JAX side runs its Pallas kernels in interpret mode (and the XLA path);
+the port's wrappers run their plain PyTorch versions because the tensors
+lie on the CPU. The CUDA kernels themselves are checked on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cgat_tpu.ops import attention as jatt
+from cgat_tpu.ops import segment as jseg
+from cgat_tpu.ops.pallas import hyper_apply as jhyper
+from cgat_tpu.ops.pallas import mh_network as jmh
+from cgat_tpu.ops.pallas import segment_attention as jsa
+from cgat_tpu_torch.data import host_offsets
+from cgat_tpu_torch.ops import attention, segment
+from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, build, hyper_apply,
+                                        mh_network, segment_attention)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def _edges(rng, num_nodes=300, n_pad=40):
+    """Destination-sorted edges with empty nodes, a hub node and a padded
+    suffix pointing at the last node slot."""
+    deg = rng.integers(0, 6, size=num_nodes)
+    deg[rng.choice(num_nodes, 30, replace=False)] = 0     # empty nodes
+    deg[17] = 150                                         # hub
+    deg[-1] = 0
+    dst = np.repeat(np.arange(num_nodes), deg).astype(np.int32)
+    n_real = len(dst)
+    dst = np.concatenate([dst, np.full(n_pad, num_nodes - 1, np.int32)])
+    mask = np.arange(len(dst)) < n_real
+    return dst, mask
+
+
+def _seg_inputs(dtype, heads=2, feat=64, seed=0):
+    rng = np.random.default_rng(seed)
+    dst, mask = _edges(rng)
+    e = len(dst)
+    alpha = (rng.standard_normal((e, heads, feat)) * 3).astype(np.float32)
+    m = rng.standard_normal((e, heads, feat)).astype(np.float32)
+    if dtype == "bfloat16":       # identical bf16 values on both sides
+        alpha = np.asarray(jnp.asarray(alpha, jnp.bfloat16), np.float32)
+        m = np.asarray(jnp.asarray(m, jnp.bfloat16), np.float32)
+    return alpha, m, dst, mask
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("with_offn", [True, False])
+def test_segment_attention_matches_jax(dtype, tol, with_offn):
+    alpha, m, dst, mask = _seg_inputs(dtype)
+    n = 300
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    offn = host_offsets(dst, n + 64)
+    want_k = np.asarray(jsa.edge_softmax_aggregate(
+        jnp.asarray(alpha, jdt), jnp.asarray(m, jdt), jnp.asarray(dst), n,
+        edge_mask=jnp.asarray(mask), offn=jnp.asarray(offn),
+        interpret=True), np.float32)
+    want_x = np.asarray(jatt.edge_softmax_aggregate(
+        jnp.asarray(alpha, jdt), jnp.asarray(m, jdt), jnp.asarray(dst), n,
+        edge_mask=jnp.asarray(mask), backend="xla"), np.float32)
+    tdt = getattr(torch, dtype)
+    got = attention.edge_softmax_aggregate(
+        torch.tensor(alpha, dtype=tdt), torch.tensor(m, dtype=tdt),
+        torch.from_numpy(dst), n, edge_mask=torch.from_numpy(mask),
+        offn=torch.from_numpy(offn) if with_offn else None)
+    assert got.dtype == tdt and got.shape == (n, 2, 64)
+    got = got.float().numpy()
+    for want in (want_k, want_x):
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    # empty nodes and the padded tail's node get exactly 0
+    empty = np.bincount(dst[mask], minlength=n) == 0
+    assert empty.any() and not np.abs(got[empty]).any()
+
+
+def test_segment_attention_plain_stats_and_flat_layout():
+    alpha, m, dst, mask = _seg_inputs("float32", seed=1)
+    e, n = len(dst), 300
+    a2 = torch.from_numpy(alpha.reshape(e, -1))
+    m2 = torch.from_numpy(m.reshape(e, -1))
+    offn = torch.from_numpy(host_offsets(dst, n))
+    n_real = torch.tensor(int(mask.sum()), dtype=torch.int32)
+    before = segment_attention.segment_attention.launches
+    out, mx, den = segment_attention.segment_attention(
+        a2, m2, offn, n_real, n, return_stats=True)
+    assert segment_attention.segment_attention.launches == before
+    # numpy reference with the exact per-node max
+    for node in (0, 17, 299):
+        rows = np.flatnonzero((dst == node) & mask)
+        if len(rows) == 0:
+            assert (out[node] == 0).all() and (den[node] == 0).all()
+            continue
+        a = alpha.reshape(e, -1)[rows]
+        ex = np.exp(a - a.max(0))
+        np.testing.assert_array_equal(mx[node].numpy(), a.max(0))
+        np.testing.assert_allclose(den[node].numpy(), ex.sum(0), rtol=1e-5)
+        np.testing.assert_allclose(
+            out[node].numpy(),
+            (ex * m.reshape(e, -1)[rows]).sum(0) / (ex.sum(0) + 1e-16),
+            rtol=1e-5, atol=1e-6)
+    flat = attention.edge_softmax_aggregate(
+        a2, m2, torch.from_numpy(dst), n, edge_mask=torch.from_numpy(mask))
+    torch.testing.assert_close(flat, out)
+
+
+def test_scalar_attention_matches_jax_xla():
+    alpha, m, dst, mask = _seg_inputs("float32", seed=2)
+    alpha = alpha[:, :, :1]                                   # (E, H, 1)
+    want = np.asarray(jatt.edge_softmax_aggregate(
+        jnp.asarray(alpha), jnp.asarray(m), jnp.asarray(dst), 300,
+        edge_mask=jnp.asarray(mask), backend="xla"))
+    got = attention.edge_softmax_aggregate(
+        torch.from_numpy(alpha), torch.from_numpy(m), torch.from_numpy(dst),
+        300, edge_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_segment_ops_match_jax():
+    rng = np.random.default_rng(4)
+    dst, mask = _edges(rng, num_nodes=50, n_pad=7)
+    x = rng.standard_normal((len(dst), 3)).astype(np.float32)
+    tx, tid = torch.from_numpy(x), torch.from_numpy(dst)
+    np.testing.assert_allclose(
+        segment.segment_sum(tx, tid, 50).numpy(),
+        np.asarray(jseg.segment_sum(x, dst, 50)), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        segment.segment_max(tx, tid, 50).numpy(),
+        np.maximum(np.asarray(jseg.segment_max(x, dst, 50)), jseg.NEG_BIG))
+    np.testing.assert_allclose(
+        segment.segment_softmax(tx, tid, 50,
+                                mask=torch.from_numpy(mask)).numpy(),
+        np.asarray(jseg.segment_softmax(x, dst, 50, mask=mask)),
+        rtol=1e-5, atol=1e-7)
+
+
+def _mh_inputs(rng, e=1024, cat=384, hid=256, f=128, heads=5):
+    """bf16 inputs of test_mh_kernel.py, in the JAX flat layout and in the
+    port's grouped-Conv1d layout."""
+    bf = jnp.bfloat16
+    x = jnp.asarray(rng.standard_normal((e, cat)), bf)
+    w_in = jnp.asarray(rng.standard_normal((heads, hid, cat)) * 0.05, bf)
+    b_in = jnp.asarray(rng.standard_normal((heads, hid)) * 0.05, bf)
+    w_out = jnp.asarray(rng.standard_normal((heads, f, hid)) * 0.05, bf)
+    b_out = jnp.asarray(rng.standard_normal((heads, f)) * 0.05, bf)
+    jax_args = (x, w_in.transpose(2, 0, 1).reshape(cat, -1), b_in.reshape(-1),
+                w_out.transpose(0, 2, 1).reshape(-1, f), b_out.reshape(-1))
+    t = lambda a: torch.tensor(np.asarray(a, np.float32),
+                               dtype=torch.bfloat16)
+    port_args = (t(x), t(w_in).reshape(heads * hid, cat), t(b_in).reshape(-1),
+                 t(w_out).reshape(heads * f, hid), t(b_out).reshape(-1))
+    return jax_args, port_args
+
+
+def test_mh_network_matches_jax(rng):
+    jax_args, port_args = _mh_inputs(rng)
+    want = np.asarray(jmh.mh_network(*jax_args, heads=5, hid=256, f=128,
+                                     interpret=True), np.float32)
+    got = mh_network.mh_network(*port_args, 5)
+    assert got.dtype == torch.bfloat16 and got.shape == (1024, 640)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-2,
+                               atol=2e-2 * np.abs(want).max())
+
+
+def test_mh_network_gate():
+    assert mh_network.supported(384, 256, 128, 5, torch.bfloat16)
+    assert mh_network.supported(48, 32, 16, 2, torch.bfloat16)
+    assert not mh_network.supported(384, 256, 128, 5, torch.float32)
+    assert not mh_network.supported(384, 250, 128, 5, torch.bfloat16)
+    assert not mh_network.supported(8192, 4096, 128, 5, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b", [96, 100])
+def test_hyper_apply_matches_jax(rng, b):
+    c = i = o = 128
+    f = o * i + o
+    bf = jnp.bfloat16
+    hidden = jnp.asarray(np.tanh(rng.standard_normal((b, c))), bf)
+    kernel = jnp.asarray(rng.standard_normal((c, f)) * np.sqrt(2 / c) * 0.1,
+                         bf)
+    bias = jnp.asarray(rng.uniform(-1, 1, f) / np.sqrt(c), bf)
+    x = jnp.asarray(rng.standard_normal((b, i)), bf)
+    want = np.asarray(jhyper.hyper_apply(hidden, kernel, bias, x, out_ch=o,
+                                         interpret=True), np.float32)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32),
+                               dtype=torch.bfloat16)
+    got = hyper_apply.hyper_apply(t(hidden), t(kernel).T.contiguous(),
+                                  t(bias), t(x), o)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, o)
+    got = got.float().numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 2e-2
+
+
+def test_hyper_apply_gate():
+    assert hyper_apply.supported(128, 128, 128, torch.bfloat16)
+    assert not hyper_apply.supported(128, 128, 128, torch.float32)
+    assert not hyper_apply.supported(128, 128, 120, torch.bfloat16)
+
+
+def test_build_targets_hopper():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    for name in build.KERNELS:
+        assert (build.CSRC / f"{name}.cu").exists()
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR and name in path.name
+    assert {k.__name__ for k in KERNEL_WRAPPERS} == set(build.KERNELS)
+
