@@ -3,8 +3,11 @@
 Parameters keep the reference ``state_dict`` layout (reference
 CGAT/message_changed.py:31-138, CGAT/CGAT.py:65-112), so a reference
 checkpoint, or a JAX parameter tree through ``models/convert.py``, loads
-with ``strict=True``. Every layer computes in the dtype of its weights: the
-input is cast to it, as the JAX package casts to its compute dtype.
+with ``strict=True``. Every layer with weights computes in its
+``compute_dtype``: the input and the weights are cast to it at each use, as
+flax casts to the JAX package's compute dtype, so f32 master weights train
+under bf16 compute and their grads arrive in f32. ``compute_dtype`` None
+(a layer used on its own) means the weights' own dtype.
 """
 from __future__ import annotations
 
@@ -12,17 +15,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.mh_network import mh_network
+from ..ops.kernels.mh_network import mh_network_op
 from ..ops.kernels.mh_network import supported as mh_supported
 
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU default negative_slope
 
 
 class TorchLinear(nn.Linear):
-    """``nn.Linear`` computing in its weight's dtype."""
+    """``nn.Linear`` computing in its ``compute_dtype``."""
+    compute_dtype: torch.dtype | None = None
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class SimpleNetwork(nn.Module):
@@ -95,6 +101,7 @@ class MultiHeadNetwork(nn.Module):
       kernel takes);
     * otherwise two batched matmuls returning ``(B, H, out)``.
     """
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, input_dim, output_dim, hidden_layer_dim, nb_heads):
         super().__init__()
@@ -108,23 +115,27 @@ class MultiHeadNetwork(nn.Module):
         self.fc_out = nn.Conv1d(hidden_layer_dim * nb_heads,
                                 output_dim * nb_heads, 1, groups=nb_heads)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.fc_in.weight.dtype
+
     def flat_supported(self) -> bool:
         return mh_supported(self.input_dim, self.hidden_layer_dim,
-                            self.output_dim, self.nb_heads,
-                            self.fc_in.weight.dtype)
+                            self.output_dim, self.nb_heads, self.dtype)
 
     def forward(self, x, *, flat=False):
         """``x`` of shape (B, ..., input_dim) is flattened to
         (B', input_dim) like the reference's ``reshape(-1, input_dim, 1)``.
         Callers of ``flat=True`` check :meth:`flat_supported` first."""
         H, hid, out = self.nb_heads, self.hidden_layer_dim, self.output_dim
-        w_in = self.fc_in.weight.view(H * hid, self.input_dim)
-        w_out = self.fc_out.weight.view(H * out, hid)
-        x = x.reshape(-1, self.input_dim).to(w_in.dtype)
+        dt = self.dtype
+        w_in = self.fc_in.weight.view(H * hid, self.input_dim).to(dt)
+        w_out = self.fc_out.weight.view(H * out, hid).to(dt)
+        b_in, b_out = self.fc_in.bias.to(dt), self.fc_out.bias.to(dt)
+        x = x.reshape(-1, self.input_dim).to(dt)
         if flat:
-            return mh_network(x.contiguous(), w_in, self.fc_in.bias, w_out,
-                              self.fc_out.bias, H)
+            return mh_network_op(x.contiguous(), w_in, b_in, w_out, b_out, H)
         h = torch.einsum("bi,hji->bhj", x, w_in.view(H, hid, -1))
-        h = F.leaky_relu(h + self.fc_in.bias.view(H, hid), LEAKY_SLOPE)
+        h = F.leaky_relu(h + b_in.view(H, hid), LEAKY_SLOPE)
         y = torch.einsum("bhj,hoj->bho", h, w_out.view(H, out, hid))
-        return y + self.fc_out.bias.view(H, out)
+        return y + b_out.view(H, out)

@@ -10,7 +10,15 @@ the JAX package's production kernels engaged wherever they engage there:
 
 Per forward at the reference defaults in bf16 that is 2 ``mh_network``,
 1 ``segment_attention`` and 4 ``hyper_apply`` launches per message-passing
-layer plus one ``segment_attention`` for the crystal pool.
+layer plus one ``segment_attention`` for the crystal pool. Each of those
+ops is an autograd Function whose backward is a kernel too, and the two
+node gathers per layer and the pool's crystal gather take the segment-sum
+kernel as their backward (``ops/gather.py``), so a training step launches
+as many backward kernels per op, plus 11 segment sums.
+
+The parameters stay in their own dtype (f32 masters for training) and
+every layer casts them to ``config.dtype`` at use; ``to_compute_dtype()``
+casts them once for serving, which makes those casts no-ops.
 
 Not ported yet: the edge-sharded (halo) layout, dropout, ``no_hyper=False``
 and ``update_edges=False``.
@@ -24,9 +32,10 @@ from torch import nn
 
 from ..data.batching import CrystalBatch
 from ..ops.attention import edge_softmax_aggregate
+from ..ops.gather import GatherPlan, gather_rows
 from .blocks import (MultiHeadNetwork, ResidualNetwork, SimpleNetwork,
                      TorchLinear)
-from .hyper import HNet, HNet0
+from .hyper import HNet, HNet0, HyperLinear
 from .roost import Roost
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -93,9 +102,13 @@ class GATConvNodes(nn.Module):
         self.Pooling_NN = hnet(*_hnet_args(out_channels))
 
     def forward(self, x, edge_src, edge_dst, edge_attr, x_0, edge_mask,
-                dst_offn=None):
+                dst_offn, plans):
+        """``plans``: the :class:`GatherPlan` of ``edge_dst`` and of
+        ``edge_src``, which route the gathers' backward through the
+        segment-sum kernel."""
         n = x.shape[0]
-        m_cat = torch.cat([x[edge_dst], edge_attr, x[edge_src]], dim=-1)
+        m_cat = torch.cat([gather_rows(x, edge_dst, plans[0]), edge_attr,
+                           gather_rows(x, edge_src, plans[1])], dim=-1)
         if (self.vector_attention and self.MH_A.flat_supported()
                 and self.MH_M.flat_supported()):
             # flat path: (E, H*F) head-major tensors straight from the MH
@@ -163,9 +176,10 @@ class MHAttention(nn.Module):
             in_channels, heads)
 
     def forward(self, fea, cry_fea, node2graph, node_mask, num_graphs,
-                offn=None):
+                offn, plan):
         m = self.MH_M(fea)
-        alpha = self.MH_A(torch.cat([fea, cry_fea[node2graph]], dim=-1))
+        alpha = self.MH_A(torch.cat([fea, gather_rows(cry_fea, node2graph,
+                                                      plan)], dim=-1))
         agg = edge_softmax_aggregate(alpha, m, node2graph, num_graphs,
                                      edge_mask=node_mask, offn=offn)
         return agg.reshape(-1, self.heads * self.out_channels)
@@ -199,12 +213,15 @@ class CGAtNet(nn.Module):
         self.output_nn = ResidualNetwork(cfg.embedding_dim, 2,
                                          list(cfg.out_hidden),
                                          if_rezero=cfg.rezero)
+        for mod in self.modules():
+            if isinstance(mod, (TorchLinear, MultiHeadNetwork, HyperLinear)):
+                mod.compute_dtype = cfg.dtype
 
     def to_compute_dtype(self) -> "CGAtNet":
-        """Cast the weights to the config's compute dtype, as the JAX model
-        casts them at each use. The scalar gates (``damping``, ``pow``, the
-        ReZero ``alpha``) stay f32 because the JAX model computes with them
-        in f32."""
+        """Cast the weights to the config's compute dtype once, for serving;
+        the forward's casts at use then do nothing. The scalar gates
+        (``damping``, ``pow``, the ReZero ``alpha``) stay f32 because the
+        JAX model computes with them in f32."""
         for name, p in self.named_parameters():
             if name.rsplit(".", 1)[-1] not in ("damping", "pow", "alpha"):
                 p.data = p.data.to(self.config.dtype)
@@ -213,21 +230,27 @@ class CGAtNet(nn.Module):
     def embed(self, batch: CrystalBatch) -> torch.Tensor:
         """Graph embeddings (C, embedding_dim): everything before the head."""
         cfg = self.config
-        dt = self.embedding.weight.dtype
+        dt = cfg.dtype
+        # one gather plan per index array, shared by all layers
+        plans = (GatherPlan(batch.edge_dst, None, batch.edge_dst_offn),
+                 GatherPlan(batch.edge_src_sorted, batch.edge_src_perm,
+                            batch.edge_src_offn))
         edge_attr = self.nbr_embedding(batch.edge_shell).to(dt)
         elem_fea = self.embedding(batch.nodes)
         elem_fea_0 = elem_fea
         for layer in self.graphs:
             node_update = layer.Node(
                 elem_fea, batch.edge_src, batch.edge_dst, edge_attr,
-                elem_fea_0, batch.edge_mask, dst_offn=batch.edge_dst_offn)
+                elem_fea_0, batch.edge_mask, dst_offn=batch.edge_dst_offn,
+                plans=plans)
             edge_attr = edge_attr + layer.Edge(edge_attr)
             elem_fea = elem_fea + node_update
         crys_fea = self.roost(batch.comp_weight, batch.comp_fea.to(dt),
                               batch.comp_mask)
-        crys_fea = self.cry_pool(elem_fea, crys_fea, batch.node2graph,
-                                 batch.node_mask, batch.num_graphs,
-                                 offn=batch.node2graph_offn)
+        crys_fea = self.cry_pool(
+            elem_fea, crys_fea, batch.node2graph, batch.node_mask,
+            batch.num_graphs, offn=batch.node2graph_offn,
+            plan=GatherPlan(batch.node2graph, None, batch.node2graph_offn))
         if cfg.mean_pooling:
             crys_fea = crys_fea.view(-1, cfg.msg_heads,
                                      cfg.elem_fea_len).mean(dim=1)

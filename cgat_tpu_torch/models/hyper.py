@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.hyper_apply import hyper_apply
+from ..ops.kernels.hyper_apply import hyper_apply_op
 from ..ops.kernels.hyper_apply import supported as hyper_supported
 from .blocks import TorchLinear
 
@@ -59,6 +59,7 @@ class HyperLinear(nn.Module):
     With kernel-eligible widths the last hypernetwork Linear and the apply
     run as the fused ``hyper_apply`` kernel, which never writes the
     (B, out*in + out) predicted parameters to device memory."""
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, in_ch, out_ch, hyper_in_ch, hyper_num_hidden_layers,
                  hyper_hidden_ch):
@@ -71,12 +72,13 @@ class HyperLinear(nn.Module):
 
     def forward(self, cond, x):
         last = self.hypo_params.net[-1]
+        dt = self.compute_dtype or last.weight.dtype
         hidden = self.hypo_params.hidden(cond)
-        x = x.to(last.weight.dtype)
-        if hyper_supported(hidden.shape[-1], self.in_ch, self.out_ch,
-                           last.weight.dtype):
-            return hyper_apply(hidden.contiguous(), last.weight, last.bias,
-                               x.contiguous(), self.out_ch)
+        x = x.to(dt)
+        if hyper_supported(hidden.shape[-1], self.in_ch, self.out_ch, dt):
+            return hyper_apply_op(hidden.to(dt).contiguous(),
+                                  last.weight.to(dt), last.bias.to(dt),
+                                  x.contiguous(), self.out_ch)
         params = last(hidden)
         w = params[:, :self.in_ch * self.out_ch]
         w = w.reshape(-1, self.out_ch, self.in_ch)
@@ -137,8 +139,11 @@ class HNet0(nn.Module):
 class HNet(nn.Module):
     """H_Net: conditioning ``d * h_0 + (1 - d) * x`` with the learnable
     ``damping`` clamped into [0, 1] in the forward pass, as the reference
-    clamps it in place each forward (Hypernetworksmp.py:288-313). ``h_t`` is
-    unused, as in the reference. ``damping`` stays f32, so the mix is f32."""
+    clamps it in place each forward (Hypernetworksmp.py:288-313): a
+    straight-through clip, the value clamped and the gradient unit, as in
+    the JAX package (the trainer projects the stored value after each
+    update). ``h_t`` is unused, as in the reference. ``damping`` stays f32,
+    so the mix is f32."""
 
     def __init__(self, hyper_in_ch, hyper_num_hidden_layers, hyper_hidden_ch,
                  hidden_ch, num_hidden_layers, in_ch, out_ch):
@@ -149,5 +154,6 @@ class HNet(nn.Module):
                              in_ch, out_ch)
 
     def forward(self, h_0, h_t, x):
-        d = torch.clamp(self.damping, 0.0, 1.0)
+        d = self.damping + (torch.clamp(self.damping, 0.0, 1.0)
+                            - self.damping).detach()
         return self.Hyper(d * h_0 + (1.0 - d) * x, x)

@@ -3,13 +3,15 @@
 Counterpart of ``cgat_tpu/ops/attention.py`` with the JAX package's
 ``pallas`` backend: every call goes through the segment-attention kernel
 wrapper, which launches the CUDA kernel for CUDA tensors and runs its plain
-version for CPU tensors.
+version for CPU tensors. When a gradient is wanted the call goes through
+the autograd Function, whose backward is the segment-attention backward
+kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernels.segment_attention import segment_attention
+from .kernels.segment_attention import SegmentAttention, segment_attention
 
 
 def edge_softmax_aggregate(alpha, m, edge_dst, num_nodes, *, edge_mask=None,
@@ -43,5 +45,10 @@ def edge_softmax_aggregate(alpha, m, edge_dst, num_nodes, *, edge_mask=None,
         offn = torch.searchsorted(
             edge_dst, torch.arange(num_nodes + 1, dtype=edge_dst.dtype,
                                    device=edge_dst.device)).to(torch.int32)
-    out = segment_attention(a2, m2, offn.to(torch.int32), n_real, num_nodes)
+    offn = offn.to(torch.int32)
+    if torch.is_grad_enabled() and (a2.requires_grad or m2.requires_grad):
+        out = SegmentAttention.apply(a2, m2, edge_dst.to(torch.int32), offn,
+                                     n_real, num_nodes)
+    else:
+        out = segment_attention(a2, m2, offn, n_real, num_nodes)
     return out.reshape((num_nodes,) + tuple(m.shape[1:])).to(alpha.dtype)

@@ -1,11 +1,15 @@
 """Hand-written CUDA kernels of the port (sources in ``cgat_tpu_torch/csrc``),
-each module holding a kernel's wrapper, its launch count and its plain
-PyTorch version. Importing builds nothing."""
-from . import hyper_apply, mh_network, segment_attention
+each module holding its kernels' wrappers, their launch counts, their plain
+PyTorch versions and the autograd Function that joins a forward kernel to
+its backward. Importing builds nothing."""
+from . import hyper_apply, mh_network, segment_attention, segment_sum
 
-# the launch wrappers, each with its ``launches`` count
+# the launch wrappers, forwards first, each with its ``launches`` count
 KERNEL_WRAPPERS = (segment_attention.segment_attention,
-                   mh_network.mh_network, hyper_apply.hyper_apply)
+                   mh_network.mh_network, hyper_apply.hyper_apply,
+                   segment_attention.segment_attention_bwd,
+                   mh_network.mh_network_bwd,
+                   hyper_apply.hyper_apply_bwd_dhdx,
+                   hyper_apply.hyper_apply_bwd_dk, segment_sum.segment_sum)
 
-__all__ = ["KERNEL_WRAPPERS", "hyper_apply", "mh_network",
-           "segment_attention"]
+__all__ = ["KERNEL_WRAPPERS", "hyper_apply", "mh_network", "segment_attention", "segment_sum"]

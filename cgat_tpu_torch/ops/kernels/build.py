@@ -22,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-KERNELS = ("segment_attention", "mh_network", "hyper_apply")
+KERNELS = ("segment_attention", "mh_network", "hyper_apply", "segment_sum")
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"

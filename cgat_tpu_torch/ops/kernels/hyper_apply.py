@@ -1,17 +1,24 @@
-"""Fused hypernetwork predict + apply: CUDA kernel wrapper and its plain
-PyTorch version.
+"""Fused hypernetwork predict + apply: CUDA kernel wrappers, their plain
+PyTorch versions and the autograd Function that joins them.
 
-Counterpart of the forward of ``cgat_tpu/ops/pallas/hyper_apply.py``. With
-``k`` the last hypernetwork Linear's weight (O*I + O, C) and ``bias`` its
-bias::
+Counterpart of ``cgat_tpu/ops/pallas/hyper_apply.py``. With ``k`` the last
+hypernetwork Linear's weight (O*I + O, C) and ``bias`` its bias::
 
     P = bf16(hidden @ k^T + bias)                       (B, O*I + O)
     out[b, o] = bf16(sum_i P[b, o*I + i] * x[b, i] + P[b, O*I + o])
 
-with f32 products and sums. The kernel is
-``cgat_tpu_torch/csrc/hyper_apply.cu``; it never writes P to device memory.
-CPU tensors go through :func:`hyper_apply_plain`; CUDA tensors launch the
-kernel or raise.
+with f32 products and sums. The backward, for the cotangent g (B, O), has
+``dP[b, o*I + i] = g[b, o] * x[b, i]`` (rounded to the io dtype) and
+``dP[b, O*I + o] = g[b, o]``::
+
+    dh = bf16(dP @ k)        dx[b, i] = bf16(sum_o bf16(g[b, o] * P[b, o*I + i]))
+    dk = dP^T @ hidden       dbias = sum_b dP
+
+The kernels are in ``cgat_tpu_torch/csrc/hyper_apply.cu``; none writes P to
+device memory (the backward recomputes it from k). The bias-tail rows of
+dk and dbias are plain torch sums, as the JAX package computes them outside
+Pallas. CPU tensors go through the plain versions; CUDA tensors launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -23,30 +30,33 @@ import torch
 from . import build
 
 SMEM_LIMIT = 232448  # shared memory one H100 block may use
+OUT_GROUP = 16       # outputs per block of the forward and dh/dx kernels
 
 
 def smem_bytes(c_dim: int, in_ch: int) -> int:
-    """Shared memory of one block (mirrors ``smem_bytes`` in the .cu):
-    per-warp scratch, partial sums, bias tail, 64-row hidden and x tiles."""
+    """Shared memory of one forward block (mirrors ``smem_bytes`` in the
+    .cu): per-warp scratch, partial sums, bias tail, 64-row hidden and x
+    tiles. The backward blocks need less at every width."""
     return (8 * 16 * 20 * 4 + 8 * 64 * 16 * 4 + 64 * 16 * 4
             + 64 * (c_dim + 8) * 2 + 64 * (in_ch + 8) * 2)
 
 
 def supported(hidden_dim: int, in_ch: int, out_ch: int, dtype) -> bool:
-    """Whether the kernel takes these widths: bf16, 16-multiple widths (the
+    """Whether the kernels take these widths: bf16, 16-multiple widths (the
     tensor-core fragment and the 16 outputs of a block), and tiles that fit
-    one block's shared memory."""
+    one forward block's shared memory. The backward kernels take every
+    width the forward takes."""
     return (dtype == torch.bfloat16 and hidden_dim % 16 == 0
             and in_ch % 16 == 0 and out_ch % 16 == 0 and out_ch > 0
             and smem_bytes(hidden_dim, in_ch) <= SMEM_LIMIT)
 
 
 @functools.cache
-def _fwd():
+def _entry(symbol, n_ptr_in, n_int, n_ptr_out):
     p = ctypes.c_void_p
     i = ctypes.c_int
-    return build.entry("hyper_apply", "cgat_hyper_apply_fwd",
-                       [p, p, p, p, p, i, i, i, i, p])
+    return build.entry("hyper_apply", symbol,
+                       [p] * n_ptr_in + [i] * n_int + [p] * n_ptr_out + [p])
 
 
 def hyper_apply_plain(hidden, k, bias, x, out_ch):
@@ -60,35 +70,152 @@ def hyper_apply_plain(hidden, k, bias, x, out_ch):
     return (y + p[:, w:]).to(hidden.dtype)
 
 
-def hyper_apply(hidden, k, bias, x, out_ch):
-    """hidden (B, C); k (O*I + O, C); bias (O*I + O,); x (B, I).
-    Returns (B, O) in ``hidden``'s dtype."""
-    if hidden.device.type == "cpu":
-        return hyper_apply_plain(hidden, k, bias, x, out_ch)
+def _check(hidden, x, out_ch, **others):
+    """Validate the kernels' inputs; ``others`` maps further input names to
+    ``(tensor, expected shape)``. Returns (B, C, I)."""
     n, c_dim = hidden.shape
     in_ch = x.shape[1]
     if not supported(c_dim, in_ch, out_ch, hidden.dtype):
         raise ValueError(f"hyper_apply kernel does not take C={c_dim} "
                          f"I={in_ch} O={out_ch} {hidden.dtype}")
-    f = out_ch * in_ch + out_ch
-    shapes = {"hidden": (n, c_dim), "k": (f, c_dim), "bias": (f,),
-              "x": (n, in_ch)}
-    for name, t in (("hidden", hidden), ("k", k), ("bias", bias), ("x", x)):
-        if tuple(t.shape) != shapes[name]:
+    want = {"hidden": (hidden, (n, c_dim)), "x": (x, (n, in_ch)), **others}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shapes[name]}")
+                             f"{shape}")
         if t.device != hidden.device or t.dtype != hidden.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; hidden is "
                              f"{hidden.dtype} on {hidden.device}")
         if not t.is_contiguous() or t.data_ptr() % 32:
             raise ValueError(f"{name} must be contiguous and 32-byte aligned")
+    return n, c_dim, in_ch
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def hyper_apply(hidden, k, bias, x, out_ch):
+    """hidden (B, C); k (O*I + O, C); bias (O*I + O,); x (B, I).
+    Returns (B, O) in ``hidden``'s dtype."""
+    if hidden.device.type == "cpu":
+        return hyper_apply_plain(hidden, k, bias, x, out_ch)
+    f = out_ch * x.shape[1] + out_ch
+    n, c_dim, in_ch = _check(hidden, x, out_ch, k=(k, (f, hidden.shape[1])),
+                             bias=(bias, (f,)))
     out = torch.empty((n, out_ch), dtype=hidden.dtype, device=hidden.device)
-    code = _fwd()(hidden.data_ptr(), k.data_ptr(), bias.data_ptr(),
-                  x.data_ptr(), out.data_ptr(), n, c_dim, in_ch, out_ch,
-                  torch.cuda.current_stream(hidden.device).cuda_stream)
+    code = _entry("cgat_hyper_apply_fwd", 5, 4, 0)(
+        hidden.data_ptr(), k.data_ptr(), bias.data_ptr(), x.data_ptr(),
+        out.data_ptr(), n, c_dim, in_ch, out_ch, _stream(hidden))
     build.check("hyper_apply", code)
     hyper_apply.launches += 1
     return out
 
 
 hyper_apply.launches = 0
+
+
+def _dp_w(g, x):
+    """dP's weight columns: dP[b, o*I + i] = g[b, o] * x[b, i], rounded to
+    the io dtype as the TPU kernels' bf16 products are."""
+    b, in_ch = x.shape
+    return (g[:, :, None] * x[:, None, :]).reshape(b, -1)
+
+
+def hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, g, out_ch):
+    """The dh/dx kernel's function in plain torch ops: (dh, dx) in the io
+    dtype, P recomputed from k."""
+    b, in_ch = x.shape
+    w = out_ch * in_ch
+    p = (hidden.float() @ k.float().T + bias.float()).to(hidden.dtype)
+    dp = torch.cat([_dp_w(g, x), g], dim=1)
+    dh = (dp.float() @ k.float()).to(hidden.dtype)
+    t = g[:, :, None] * p[:, :w].reshape(b, out_ch, in_ch)
+    return dh, t.float().sum(1).to(x.dtype)
+
+
+def hyper_apply_bwd_dhdx(hidden, k, bias, x, g, out_ch):
+    """dh (B, C) and dx (B, I) of :func:`hyper_apply` for the cotangent
+    g (B, O)."""
+    if hidden.device.type == "cpu":
+        return hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, g, out_ch)
+    f = out_ch * x.shape[1] + out_ch
+    n, c_dim, in_ch = _check(hidden, x, out_ch, k=(k, (f, hidden.shape[1])),
+                             bias=(bias, (f,)), g=(g, (hidden.shape[0], out_ch)))
+    groups = out_ch // OUT_GROUP
+    rows = -(-n // 64) * 64
+    part_dh = torch.empty((groups, rows, c_dim), dtype=torch.float32,
+                          device=hidden.device)
+    part_dx = torch.empty((groups, rows, in_ch), dtype=torch.float32,
+                          device=hidden.device)
+    dh = torch.empty_like(hidden)
+    dx = torch.empty_like(x)
+    code = _entry("cgat_hyper_apply_bwd_dhdx", 5, 4, 4)(
+        hidden.data_ptr(), k.data_ptr(), bias.data_ptr(), x.data_ptr(),
+        g.data_ptr(), n, c_dim, in_ch, out_ch, part_dh.data_ptr(),
+        part_dx.data_ptr(), dh.data_ptr(), dx.data_ptr(), _stream(hidden))
+    build.check("hyper_apply", code)
+    hyper_apply_bwd_dhdx.launches += 1
+    return dh, dx
+
+
+hyper_apply_bwd_dhdx.launches = 0
+
+
+def hyper_apply_bwd_dk_plain(hidden, x, g, out_ch):
+    """The dK kernel's function in plain torch ops: the weight rows of dk
+    (O*I, C) in the io dtype and of dbias (O*I,) in f32."""
+    dp = _dp_w(g, x).float()
+    return (dp.T @ hidden.float()).to(hidden.dtype), dp.sum(0)
+
+
+def hyper_apply_bwd_dk(hidden, x, g, out_ch):
+    """dk's and dbias' weight rows of :func:`hyper_apply` for the cotangent
+    g (B, O): (O*I, C) in the io dtype and (O*I,) f32."""
+    if hidden.device.type == "cpu":
+        return hyper_apply_bwd_dk_plain(hidden, x, g, out_ch)
+    n, c_dim, in_ch = _check(hidden, x, out_ch,
+                             g=(g, (hidden.shape[0], out_ch)))
+    dk = torch.empty((out_ch * in_ch, c_dim), dtype=hidden.dtype,
+                     device=hidden.device)
+    db = torch.empty((out_ch * in_ch,), dtype=torch.float32,
+                     device=hidden.device)
+    code = _entry("cgat_hyper_apply_bwd_dk", 3, 4, 2)(
+        hidden.data_ptr(), x.data_ptr(), g.data_ptr(), n, c_dim, in_ch,
+        out_ch, dk.data_ptr(), db.data_ptr(), _stream(hidden))
+    build.check("hyper_apply", code)
+    hyper_apply_bwd_dk.launches += 1
+    return dk, db
+
+
+hyper_apply_bwd_dk.launches = 0
+
+
+class HyperApply(torch.autograd.Function):
+    """:func:`hyper_apply` with the dh/dx and dK kernels as its backward."""
+
+    @staticmethod
+    def forward(ctx, hidden, k, bias, x, out_ch):
+        ctx.save_for_backward(hidden, k, bias, x)
+        ctx.out_ch = out_ch
+        return hyper_apply(hidden, k, bias, x, out_ch)
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, k, bias, x = ctx.saved_tensors
+        g = g.contiguous()
+        dh, dx = hyper_apply_bwd_dhdx(hidden, k, bias, x, g, ctx.out_ch)
+        dk_w, db_w = hyper_apply_bwd_dk(hidden, x, g, ctx.out_ch)
+        # the predicted-bias tail: dP[:, O*I:] is g itself
+        dk_b = (g.float().T @ hidden.float()).to(k.dtype)
+        db = torch.cat([db_w, g.float().sum(0)]).to(bias.dtype)
+        return dh, torch.cat([dk_w, dk_b]), db, dx, None
+
+
+def hyper_apply_op(hidden, k, bias, x, out_ch):
+    """:func:`hyper_apply` through the autograd Function when a gradient is
+    wanted, else the plain launch."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (hidden, k, bias, x)):
+        return HyperApply.apply(hidden, k, bias, x, out_ch)
+    return hyper_apply(hidden, k, bias, x, out_ch)

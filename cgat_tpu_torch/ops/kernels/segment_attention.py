@@ -1,16 +1,21 @@
-"""Segment softmax + weighted aggregation: CUDA kernel wrapper and its plain
-PyTorch version.
+"""Segment softmax + weighted aggregation: CUDA kernel wrappers, their plain
+PyTorch versions and the autograd Function that joins them.
 
-Counterpart of the forward of ``cgat_tpu/ops/pallas/segment_attention.py``.
-For destination-sorted edges with CSR pointers ``offn`` (clamped to the
+Counterpart of ``cgat_tpu/ops/pallas/segment_attention.py``. For
+destination-sorted edges with CSR pointers ``offn`` (clamped to the
 real-edge count ``n_real``), per node ``n`` and column ``c``::
 
     out[n, c] = sum_{e -> n} exp(a[e,c] - max_n[c]) * m[e,c]
                 / (sum_{e -> n} exp(a[e,c] - max_n[c]) + 1e-16)
 
-The kernel is ``cgat_tpu_torch/csrc/segment_attention.cu``. CPU tensors go
-through :func:`segment_attention_plain`; CUDA tensors launch the kernel or
-raise.
+and its backward, per real edge ``e -> n`` with ``q = g / (den + 1e-16)``::
+
+    dm[e] = exp(a[e] - max_n) * q[n]      dalpha[e] = dm[e] * (m[e] - out[n])
+
+(padded edges get 0), from the f32 per-node max and exp-sum the forward
+returns. The kernels are in ``cgat_tpu_torch/csrc/segment_attention.cu``.
+CPU tensors go through the plain versions; CUDA tensors launch the kernels
+or raise.
 """
 from __future__ import annotations
 
@@ -30,6 +35,13 @@ def _fwd():
     return build.entry("segment_attention", "cgat_segment_attention_fwd",
                        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _P, _P, _P, _P])
+
+
+@functools.cache
+def _bwd():
+    return build.entry("segment_attention", "cgat_segment_attention_bwd",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, _P, _P, _P])
 
 
 def _segments(offn, n_real, num_nodes, n_rows):
@@ -120,3 +132,79 @@ def segment_attention(alpha, m, offn, n_real, num_nodes, *,
 
 
 segment_attention.launches = 0
+
+
+def segment_attention_bwd_plain(alpha, m, ids, n_real, g, out, mx, den):
+    """The backward kernel's function in plain torch ops: f32 arithmetic,
+    ``(dalpha, dm)`` in the input dtype."""
+    rows = torch.arange(alpha.shape[0], device=alpha.device)
+    valid = (rows < n_real.to(rows.dtype))[:, None]
+    ids = ids.long()
+    q = g.float() / (den + SOFTMAX_EPS)
+    zero = torch.zeros((), device=alpha.device)
+    dm = torch.where(valid, torch.exp(alpha.float() - mx[ids]) * q[ids], zero)
+    dalpha = dm * (m.float() - out.float()[ids])
+    return dalpha.to(alpha.dtype), dm.to(alpha.dtype)
+
+
+def segment_attention_bwd(alpha, m, ids, n_real, g, out, mx, den):
+    """Gradients of :func:`segment_attention` with respect to ``alpha`` and
+    ``m``. ids: (E,) int32 destination per row (sorted); g, out: (N, H*F)
+    in the input dtype; mx, den: (N, H*F) f32 from ``return_stats``."""
+    if alpha.device.type == "cpu":
+        return segment_attention_bwd_plain(alpha, m, ids, n_real, g, out,
+                                           mx, den)
+    n_rows, hf = alpha.shape
+    num_nodes = out.shape[0]
+    if alpha.dtype not in (torch.bfloat16, torch.float32) \
+            or m.dtype != alpha.dtype or m.shape != alpha.shape:
+        raise TypeError(f"alpha {tuple(alpha.shape)} {alpha.dtype} and m "
+                        f"{tuple(m.shape)} {m.dtype} must be one bf16 or f32 "
+                        f"(E, H*F) shape and dtype")
+    node = (num_nodes, hf)
+    want = {"alpha": (alpha.shape, alpha.dtype), "m": (alpha.shape, alpha.dtype),
+            "ids": ((n_rows,), torch.int32), "n_real": ((1,), torch.int32),
+            "g": (node, alpha.dtype), "out": (node, alpha.dtype),
+            "mx": (node, torch.float32), "den": (node, torch.float32)}
+    for name, t in (("alpha", alpha), ("m", m), ("ids", ids),
+                    ("n_real", n_real.reshape(1)), ("g", g), ("out", out),
+                    ("mx", mx), ("den", den)):
+        shape, dtype = want[name]
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(shape)} {dtype}")
+        if t.device != alpha.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {alpha.device}")
+    dalpha = torch.empty_like(alpha)
+    dm = torch.empty_like(alpha)
+    code = _bwd()(alpha.data_ptr(), m.data_ptr(), ids.data_ptr(),
+                  n_real.data_ptr(), g.data_ptr(), out.data_ptr(),
+                  mx.data_ptr(), den.data_ptr(), n_rows, hf,
+                  int(alpha.dtype == torch.bfloat16), dalpha.data_ptr(),
+                  dm.data_ptr(),
+                  torch.cuda.current_stream(alpha.device).cuda_stream)
+    build.check("segment_attention", code)
+    segment_attention_bwd.launches += 1
+    return dalpha, dm
+
+
+segment_attention_bwd.launches = 0
+
+
+class SegmentAttention(torch.autograd.Function):
+    """:func:`segment_attention` with :func:`segment_attention_bwd` as its
+    backward; the forward keeps the f32 max and exp-sum for it."""
+
+    @staticmethod
+    def forward(ctx, alpha, m, ids, offn, n_real, num_nodes):
+        out, mx, den = segment_attention(alpha, m, offn, n_real, num_nodes,
+                                         return_stats=True)
+        ctx.save_for_backward(alpha, m, ids, n_real, out, mx, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, m, ids, n_real, out, mx, den = ctx.saved_tensors
+        dalpha, dm = segment_attention_bwd(alpha, m, ids, n_real,
+                                           g.contiguous(), out, mx, den)
+        return dalpha, dm, None, None, None, None

@@ -17,23 +17,13 @@ import numpy as np
 import torch
 
 from ..data.batching import collate
+from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.convert import state_dict_from_jax
 
 _MANIFEST = "manifest.json"
 _PARAMS = "params.npz"
 _FORMAT = 2        # the manifest layout cgat_tpu's export_artifact writes
-
-
-def _resolve_device(device=None) -> torch.device:
-    """``device``, or the first CUDA card when it is None. Raises rather
-    than dropping to the CPU when there is no card."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return torch.device("cuda")
 
 
 def config_from_manifest(manifest: dict) -> CGATConfig:
@@ -106,7 +96,7 @@ class ServingModel:
 def load_artifact(artifact_dir: str, device=None) -> ServingModel:
     """Load an artifact directory onto ``device`` (the CUDA card when None;
     raises if there is none)."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     with open(os.path.join(artifact_dir, _MANIFEST)) as f:
         manifest = json.load(f)
     if manifest.get("format") != _FORMAT:

@@ -3,23 +3,35 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Four phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Five phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
-2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving forward gives it, and time both with CUDA events;
+2. hold each forward kernel against its plain PyTorch version on the card
+   at the shapes the serving forward gives it, and time both with CUDA
+   events;
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
    answers 3 requests of 64 crystals through ``ServingModel.predict``; each
    forward must launch mh_network x10, segment_attention x6 and
-   hyper_apply x20, give finite outputs, and (first request) agree with the
-   port's own bf16 forward on the CPU; then one request's time is broken
-   down into collate, copy, forward and the card's busy time;
-4. report the card, and the kernels as one JSON line; the last line is
-   ``{"ok": true, "device": {...}}``.
+   hyper_apply x20 and no backward kernel, give finite outputs, and (first
+   request) agree with the port's own bf16 forward on the CPU; then one
+   request's time is broken down into collate, copy, forward and the card's
+   busy time;
+4. train: ``cgat_tpu_torch.training.Trainer`` takes 3 checked and 10 timed
+   AdamW steps of the same model (f32 master weights, bf16 compute, bf16
+   first moment) on batches of 64 crystals. Each checked step must give a
+   finite loss and finite grads and launch exactly 10/6/20 forward and
+   10/6/20/20/11 backward kernels; the first step's loss must agree with
+   the port's own bf16 CPU step. Each backward kernel is then held against
+   its plain version on the inputs and cotangents it got in the first step,
+   and timed; one step is broken down into collate, copy, forward, backward
+   and optimizer, and the card's busy time;
+5. report the card, and the eight kernels as one JSON line; the last line
+   is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -32,17 +44,34 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 
-N_GRAPHS = 64                  # crystals per request
+N_GRAPHS = 64                  # crystals per request and per batch
 N_REQUESTS = 3
 N_TIMED = 10                   # extra timed requests after the checked ones
+N_TRAIN_GRAPHS = 320           # 256 in the training split: 4 batches of 64
+N_CHECKED_STEPS = 3
+N_TIMED_STEPS = 10
 KERNEL_TOL = 2e-2              # kernel vs plain, times max|plain| (bf16 I/O)
+NORM_TOL = 1e-2                # ||kernel - plain|| / ||plain|| per output
 MODEL_RTOL = 5e-2              # card vs CPU forward (bf16 end to end)
 PER_FORWARD = {"mh_network": 10, "segment_attention": 6, "hyper_apply": 20}
+PER_BACKWARD = {"mh_network_bwd": 10, "segment_attention_bwd": 6,
+                "hyper_apply_bwd_dhdx": 20, "hyper_apply_bwd_dk": 20,
+                "segment_sum": 11}
 REPLACES = {
     "segment_attention": "cgat_tpu/ops/pallas/segment_attention.py:82",
     "mh_network": "cgat_tpu/ops/pallas/mh_network.py:63",
     "hyper_apply": "cgat_tpu/ops/pallas/hyper_apply.py:82",
+    "segment_attention_bwd": "cgat_tpu/ops/pallas/segment_attention.py:197",
+    "mh_network_bwd": "cgat_tpu/ops/pallas/mh_network.py:87",
+    "hyper_apply_bwd_dhdx": "cgat_tpu/ops/pallas/hyper_apply.py:182",
+    "hyper_apply_bwd_dk": "cgat_tpu/ops/pallas/hyper_apply.py:221",
+    "segment_sum": "cgat_tpu/ops/pallas/segment_sum.py:38",
 }
+SOURCES = {"segment_attention": "segment_attention", "mh_network": "mh_network",
+           "hyper_apply": "hyper_apply",
+           "segment_attention_bwd": "segment_attention",
+           "mh_network_bwd": "mh_network", "hyper_apply_bwd_dhdx": "hyper_apply",
+           "hyper_apply_bwd_dk": "hyper_apply", "segment_sum": "segment_sum"}
 
 
 def fail(msg: str) -> None:
@@ -73,16 +102,53 @@ def bound(n_bytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want) -> float:
+def launch_counts() -> dict[str, int]:
+    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    return {k.__name__: k.launches for k in KERNEL_WRAPPERS}
+
+
+def reset_counts() -> None:
+    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    for k in KERNEL_WRAPPERS:
+        k.launches = 0
+
+
+def compare(name: str, got, want) -> dict:
+    """One output of a kernel against its plain version: elementwise within
+    KERNEL_TOL x max|plain| and, so that small entries count too, norm-wise
+    within NORM_TOL of the plain version's norm. Returns the numbers and
+    their scales."""
     got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite kernel output")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
+    diff_norm = float(torch.linalg.vector_norm(got - want))
+    norm = float(torch.linalg.vector_norm(want))
+    rel = diff_norm / norm if norm > 0 else (0.0 if diff_norm == 0 else
+                                              float("inf"))
     if err > KERNEL_TOL * scale:
         fail(f"{name}: max |kernel - plain| {err:.3e} > {KERNEL_TOL} * "
              f"max|plain| ({scale:.3e})")
-    return err
+    if rel > NORM_TOL:
+        fail(f"{name}: ||kernel - plain|| / ||plain|| {rel:.3e} > {NORM_TOL} "
+             f"(||plain|| {norm:.3e})")
+    return {"max_abs_err": err, "max_abs_plain": scale, "rel_norm_err": rel,
+            "norm_plain": norm}
+
+
+def checks_row(checks: list[dict]) -> dict:
+    """A kernel's comparisons (one per output and input case) for its row:
+    the largest errors, and every comparison with its scale."""
+    return {"max_abs_err": max(c["max_abs_err"] for c in checks),
+            "rel_norm_err": max(c["rel_norm_err"] for c in checks),
+            "checks": checks}
+
+
+def scales(row: dict) -> str:
+    return ", ".join(f"{c['max_abs_plain']:.3e}" for c in row["checks"])
 
 
 def build_kernels() -> None:
@@ -122,8 +188,8 @@ def check_kernels(model, batch) -> list[dict]:
         args_a, args_m = mh_args(node.MH_A), mh_args(node.MH_M)
         alpha = mk.mh_network(*args_a)
         msg = mk.mh_network(*args_m)
-        err = max(compare("mh_network", alpha, mk.mh_network_plain(*args_a)),
-                  compare("mh_network", msg, mk.mh_network_plain(*args_m)))
+        checks = [compare("mh_network", alpha, mk.mh_network_plain(*args_a)),
+                  compare("mh_network", msg, mk.mh_network_plain(*args_m))]
         H, hid, f = node.MH_A.nb_heads, node.MH_A.hidden_layer_dim, \
             node.MH_A.output_dim
         flops = 2.0 * n_edges * (cat * H * hid + H * hid * f)
@@ -132,7 +198,7 @@ def check_kernels(model, batch) -> list[dict]:
         b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
         rows.append({"name": "mh_network", "shape": [n_edges, cat, H * hid,
                                                      H * f],
-                     "max_abs_err": err,
+                     **checks_row(checks),
                      "ms": time_ms(lambda: mk.mh_network(*args_a)),
                      "plain_ms": time_ms(lambda: mk.mh_network_plain(*args_a)),
                      "bound_ms": b_ms, "bound_by": b_by})
@@ -143,7 +209,7 @@ def check_kernels(model, batch) -> list[dict]:
         seg_args = (alpha, msg, batch.edge_dst_offn, n_real, n_nodes)
         out, mx, den = sk.segment_attention(*seg_args, return_stats=True)
         p_out, p_mx, p_den = sk.segment_attention_plain(*seg_args)
-        err = compare("segment_attention", out, p_out)
+        checks = [compare("segment_attention", out, p_out)]
         if not torch.equal(mx, p_mx):
             fail("segment_attention: per-node max differs from the plain "
                  "version")
@@ -158,16 +224,16 @@ def check_kernels(model, batch) -> list[dict]:
         pool_args = (pa, pm, batch.node2graph_offn,
                      batch.node_mask.sum(dtype=torch.int32),
                      batch.num_graphs)
-        err = max(err, compare("segment_attention",
-                               sk.segment_attention(*pool_args),
-                               sk.segment_attention_plain(*pool_args)[0]))
+        checks.append(compare("segment_attention",
+                              sk.segment_attention(*pool_args),
+                              sk.segment_attention_plain(*pool_args)[0]))
         real_e = int(n_real)
         flops = 6.0 * real_e * hf          # max, sub, exp, add, fma (2)
         nbytes = 2.0 * 2 * real_e * hf + 4.0 * (n_nodes + 1) \
             + 2.0 * n_nodes * hf
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
         rows.append({"name": "segment_attention",
-                     "shape": [n_edges, hf, n_nodes], "max_abs_err": err,
+                     "shape": [n_edges, hf, n_nodes], **checks_row(checks),
                      "ms": time_ms(lambda: sk.segment_attention(*seg_args)),
                      "plain_ms": time_ms(
                          lambda: sk.segment_attention_plain(*seg_args)),
@@ -180,21 +246,23 @@ def check_kernels(model, batch) -> list[dict]:
         last = hl.hypo_params.net[-1]
         hidden = hl.hypo_params.hidden(x).contiguous()
         h_args = (hidden, last.weight, last.bias, x.contiguous(), hl.out_ch)
-        err = compare("hyper_apply", hk.hyper_apply(*h_args),
-                      hk.hyper_apply_plain(*h_args))
+        checks = [compare("hyper_apply", hk.hyper_apply(*h_args),
+                          hk.hyper_apply_plain(*h_args))]
         C, I, O = hidden.shape[1], hl.in_ch, hl.out_ch
         F = O * I + O
         flops = 2.0 * n_nodes * C * F + 2.0 * n_nodes * O * I
         nbytes = 2.0 * (n_nodes * C + F * C + F + n_nodes * I + n_nodes * O)
         b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
         rows.append({"name": "hyper_apply", "shape": [n_nodes, C, I, O],
-                     "max_abs_err": err,
+                     **checks_row(checks),
                      "ms": time_ms(lambda: hk.hyper_apply(*h_args)),
                      "plain_ms": time_ms(lambda: hk.hyper_apply_plain(*h_args)),
                      "bound_ms": b_ms, "bound_by": b_by})
     for r in rows:
         print(f"[kernels] {r['name']} {r['shape']}: max_abs_err "
-              f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|), "
+              f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
+              f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
+              f"(tol {NORM_TOL}), "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
               + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
@@ -205,7 +273,6 @@ def check_kernels(model, batch) -> list[dict]:
 def serve(model, requests) -> tuple[dict, dict]:
     """Phase 3: answer the requests through ServingModel.predict."""
     from cgat_tpu_torch.data import pad_to_bucket
-    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
     from cgat_tpu_torch.serving import ServingModel
 
     max_atoms = max(sum(g.n_atoms for g in r) for r in requests)
@@ -216,19 +283,18 @@ def serve(model, requests) -> tuple[dict, dict]:
     manifest = {"mean": 0.0, "std": 1.0, "signatures": sigs,
                 "collate": {"max_nbr": 24, "orig_fea": 200}}
     server = ServingModel(manifest, model)
-    for k in KERNEL_WRAPPERS:
-        k.launches = 0
+    want = {**dict.fromkeys(launch_counts(), 0), **PER_FORWARD}
+    reset_counts()
     ms = []
     for i, graphs in enumerate(requests):
-        before = {k.__name__: k.launches for k in KERNEL_WRAPPERS}
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred, log_std = server.predict(graphs)
         ms.append((time.perf_counter() - t0) * 1e3)
-        got = {k.__name__: k.launches - before[k.__name__]
-               for k in KERNEL_WRAPPERS}
-        if got != PER_FORWARD:
-            fail(f"request {i}: kernel launches {got} != {PER_FORWARD}")
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        if got != want:
+            fail(f"request {i}: kernel launches {got} != {want}")
         if pred.shape != (len(graphs),) or not (
                 np.isfinite(pred).all() and np.isfinite(log_std).all()):
             fail(f"request {i}: predictions not finite with shape "
@@ -236,7 +302,7 @@ def serve(model, requests) -> tuple[dict, dict]:
         print(f"[serve] request {i}: {len(graphs)} crystals, "
               f"{sum(g.n_atoms for g in graphs)} atoms, {ms[-1]:.2f} ms, "
               f"launches {got}")
-    launches = {k.__name__: k.launches for k in KERNEL_WRAPPERS}
+    launches = launch_counts()
     timed = []
     for _ in range(N_TIMED):
         torch.cuda.synchronize()
@@ -251,6 +317,27 @@ def serve(model, requests) -> tuple[dict, dict]:
     return launches, stats
 
 
+def device_ms(fn, n_runs: int) -> dict[str, list[float]]:
+    """Device time and event count per run of ``fn`` by kernel name, from
+    torch.profiler's device events over ``n_runs`` runs (empty if it
+    recorded none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_runs):
+            fn()
+        torch.cuda.synchronize()
+    per_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = per_name.get(e.name, (0.0, 0.0))
+            per_name[e.name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
+                                count + 1.0 / n_runs]
+    return per_name
+
+
 def breakdown(model, graphs, rows, reps: int = 10) -> dict:
     """Where one request's time goes. The steps of ``ServingModel.predict``
     (collate on the host, copy to the card, forward, copy back) are timed
@@ -258,9 +345,6 @@ def breakdown(model, graphs, rows, reps: int = 10) -> dict:
     ``reps`` requests. Then the card's busy time in one forward, from
     torch.profiler's device events, and the three kernels' part of the
     forward (phase 2 times x launches)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cgat_tpu_torch.data import collate, pad_to_bucket
 
     n = pad_to_bucket(sum(g.n_atoms for g in graphs), 64)
@@ -291,23 +375,14 @@ def breakdown(model, graphs, rows, reps: int = 10) -> dict:
     res = {k: float(np.median(v)) for k, v in steps.items()}
     res["kernels_ms"] = sum(r["ms"] * PER_FORWARD[r["name"]] for r in rows)
 
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            forward(batch)
-        torch.cuda.synchronize()
-    per_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = (per_name.get(e.name, 0.0)
-                                + e.time_range.elapsed_us() / 1e3 / n_prof)
+    per_name = device_ms(lambda: forward(batch), 3)
     if per_name:
-        busy = sum(per_name.values())
+        busy = sum(v[0] for v in per_name.values())
         res.update(device_busy_ms=busy,
                    device_idle_share=1.0 - busy / res["forward_ms"],
-                   top_device_ms=[[k[:70], v] for k, v in sorted(
-                       per_name.items(), key=lambda kv: -kv[1])[:8]])
+                   device_events=sum(v[1] for v in per_name.values()),
+                   top_device_ms=[[k[:70], v[0]] for k, v in sorted(
+                       per_name.items(), key=lambda kv: -kv[1][0])[:8]])
     else:           # the profiler saw no device activity on this machine
         res.update(device_busy_ms=None, device_idle_share=None,
                    top_device_ms=None)
@@ -317,14 +392,316 @@ def breakdown(model, graphs, rows, reps: int = 10) -> dict:
           f"{res['to_host_ms']:.2f} ms; the three kernels "
           f"{res['kernels_ms']:.2f} ms of the forward")
     if per_name:
-        print(f"[breakdown] device busy {busy:.2f} ms per forward, idle "
-              f"share {res['device_idle_share']:.3f}")
+        print(f"[breakdown] device busy {busy:.2f} ms per forward in "
+              f"{res['device_events']:.0f} device events, idle share "
+              f"{res['device_idle_share']:.3f}")
         for name, ms in res["top_device_ms"]:
             print(f"[breakdown]   {ms:8.4f} ms  {name}")
     else:
         print("[breakdown] device busy time: not measured (the profiler "
               "recorded no device events)")
     return res
+
+
+@contextlib.contextmanager
+def capture_backward_inputs():
+    """Record, per autograd Function, what its first backward call got: the
+    saved tensors, the cotangent and the Function's own settings. The
+    segment attention and the gather are recorded once per node count
+    (edges -> nodes and atoms -> crystals), since backward runs the crystal
+    pool first."""
+    from cgat_tpu_torch.ops import gather
+    from cgat_tpu_torch.ops.kernels import hyper_apply as hk
+    from cgat_tpu_torch.ops.kernels import mh_network as mk
+    from cgat_tpu_torch.ops.kernels import segment_attention as sk
+    seen: dict[str, dict] = {}
+    classes = {"segment_attention": sk.SegmentAttention,
+               "mh_network": mk.MHNetwork, "hyper_apply": hk.HyperApply,
+               "gather": gather._GatherRows}
+    originals = {key: cls.backward for key, cls in classes.items()}
+
+    def recording(key, orig):
+        def backward(ctx, g):
+            name = key
+            if key == "gather":
+                name = f"gather_{ctx.num_rows}"
+            elif key == "segment_attention":
+                name = f"segment_attention_{g.shape[0]}"
+            seen.setdefault(name, {
+                "saved": ctx.saved_tensors, "g": g.contiguous(),
+                **{a: getattr(ctx, a) for a in ("heads", "out_ch", "num_rows")
+                   if hasattr(ctx, a)}})
+            return orig(ctx, g)
+        return staticmethod(backward)
+
+    for key, cls in classes.items():
+        cls.backward = recording(key, originals[key])
+    try:
+        yield seen
+    finally:
+        for key, cls in classes.items():
+            cls.backward = staticmethod(originals[key])
+
+
+def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
+    """Each backward kernel against its plain version on the inputs and
+    cotangents of the first training step, timed beside its bound."""
+    from cgat_tpu_torch.ops.kernels import hyper_apply as hk
+    from cgat_tpu_torch.ops.kernels import mh_network as mk
+    from cgat_tpu_torch.ops.kernels import segment_attention as sk
+    from cgat_tpu_torch.ops.kernels import segment_sum as ssk
+
+    rows = []
+
+    def row(name, fn, plain, outs, wants, shape, nbytes, flops, peak,
+            **extra):
+        if len(outs) != len(wants):
+            fail(f"{name}: {len(outs)} outputs, {len(wants)} plain ones")
+        checks = [compare(name, a, b) for a, b in zip(outs, wants)]
+        b_ms, b_by = bound(nbytes, flops, peak)
+        rows.append({"name": name, "shape": shape, **checks_row(checks),
+                     "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                     "bound_ms": b_ms, "bound_by": b_by, **extra})
+
+    with torch.no_grad():
+        def seg_args(num_nodes):
+            rec = seen[f"segment_attention_{num_nodes}"]
+            alpha, m, ids, n_real, out, mx, den = rec["saved"]
+            return alpha, m, ids, n_real, rec["g"], out, mx, den
+
+        args, pool = seg_args(n_nodes), seg_args(n_graphs)
+        e, hf = args[0].shape
+        real = int(args[3])
+        row("segment_attention_bwd", lambda: sk.segment_attention_bwd(*args),
+            lambda: sk.segment_attention_bwd_plain(*args),
+            sk.segment_attention_bwd(*args) + sk.segment_attention_bwd(*pool),
+            sk.segment_attention_bwd_plain(*args)
+            + sk.segment_attention_bwd_plain(*pool), [e, hf, n_nodes],
+            nbytes=2.0 * 2 * real * hf + 2.0 * 2 * e * hf + 4.0 * real
+            + (2.0 + 2.0 + 4.0 + 4.0) * n_nodes * hf,
+            flops=7.0 * real * hf, peak=F32_FLOPS,
+            pool_ms=time_ms(lambda: sk.segment_attention_bwd(*pool)))
+
+        rec = seen["mh_network"]
+        x, h, win, wout = rec["saved"]
+        heads = rec["heads"]
+        args = (x, h, rec["g"], win, wout, heads)
+        e, cat = x.shape
+        hh, hf = win.shape[0], wout.shape[0]
+        hid = hh // heads
+        row("mh_network_bwd", lambda: mk.mh_network_bwd(*args),
+            lambda: mk.mh_network_bwd_plain(*args), mk.mh_network_bwd(*args),
+            mk.mh_network_bwd_plain(*args), [e, cat, hh, hf],
+            nbytes=2.0 * (e * cat + e * hh + e * hf + e * cat
+                          + 2 * (hh * cat + hh + hf * hid + hf)),
+            flops=4.0 * e * hh * (hf // heads + cat), peak=BF16_TENSOR_FLOPS)
+
+        rec = seen["hyper_apply"]
+        hidden, k, bias, xh = rec["saved"]
+        o = rec["out_ch"]
+        g = rec["g"]
+        b, c = hidden.shape
+        i = xh.shape[1]
+        f = k.shape[0]
+        args = (hidden, k, bias, xh, g, o)
+        row("hyper_apply_bwd_dhdx", lambda: hk.hyper_apply_bwd_dhdx(*args),
+            lambda: hk.hyper_apply_bwd_dhdx_plain(*args),
+            hk.hyper_apply_bwd_dhdx(*args),
+            hk.hyper_apply_bwd_dhdx_plain(*args), [b, c, i, o],
+            nbytes=2.0 * (2 * b * c + 2 * b * i + b * o + f * c + f),
+            flops=4.0 * b * f * c + 2.0 * b * o * i, peak=BF16_TENSOR_FLOPS)
+        args = (hidden, xh, g, o)
+        row("hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args),
+            lambda: hk.hyper_apply_bwd_dk_plain(*args),
+            hk.hyper_apply_bwd_dk(*args), hk.hyper_apply_bwd_dk_plain(*args),
+            [b, c, i, o],
+            nbytes=2.0 * (b * c + b * i + b * o + o * i * c) + 4.0 * o * i,
+            flops=2.0 * b * o * i * c, peak=BF16_TENSOR_FLOPS)
+
+        def segsum_args(num_rows):
+            rec = seen[f"gather_{num_rows}"]
+            sorted_idx, perm, offn = rec["saved"]
+            vals = rec["g"] if perm is None else rec["g"][perm]
+            return vals, sorted_idx, offn, num_rows
+
+        args = segsum_args(n_nodes)
+        pool = segsum_args(n_graphs)
+        e, f = args[0].shape
+        lib_out = torch.zeros((n_nodes, f), dtype=args[0].dtype,
+                              device=args[0].device)
+        lib_idx = args[1].long()
+        row("segment_sum", lambda: ssk.segment_sum(*args),
+            lambda: ssk.segment_sum_plain(args[0], args[1], n_nodes),
+            [ssk.segment_sum(*args), ssk.segment_sum(*pool)],
+            [ssk.segment_sum_plain(args[0], args[1], n_nodes),
+             ssk.segment_sum_plain(pool[0], pool[1], n_graphs)],
+            [e, f, n_nodes],
+            nbytes=2.0 * (e * f + n_nodes * f) + 4.0 * (n_nodes + 1),
+            flops=1.0 * e * f, peak=F32_FLOPS,
+            library_ms=time_ms(lambda: lib_out.index_add_(0, lib_idx,
+                                                          args[0])),
+            pool_ms=time_ms(lambda: ssk.segment_sum(*pool)))
+    for r in rows:
+        print(f"[kernels] {r['name']} {r['shape']}: max_abs_err "
+              f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
+              f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
+              f"(tol {NORM_TOL}), "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+              + (f", index_add_ {r['library_ms']:.4f} ms" if "library_ms" in r
+                 else "")
+              + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
+                 else ""))
+    return rows
+
+
+def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
+    """Phase 4: checked and timed training steps; returns the backward
+    kernels' rows, the step statistics and the launch counts of the
+    training run."""
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+
+    graphs = random_graphs(100, N_TRAIN_GRAPHS, n_atoms_range=(8, 16),
+                           max_nbr=24, full_degree=True)
+    tcfg = TrainerConfig(batch_size=N_GRAPHS, moment_dtype="bfloat16")
+    trainer = Trainer(tcfg, cfg, graphs, device="cuda")
+    trainer.init_state(state_dict)
+    loader = trainer.loader(trainer.train_graphs, shuffle=True)
+    batches = iter(loader)
+    want = {**PER_FORWARD, **PER_BACKWARD}
+
+    def next_batch():
+        nonlocal batches
+        try:
+            return next(batches)
+        except StopIteration:
+            batches = iter(loader)
+            return next(batches)
+
+    def step(check: bool, seen=None) -> dict:
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        batch_cpu = next_batch()
+        t.append(time.perf_counter())
+        batch = batch_cpu.to("cuda")
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss, _ = trainer.forward_loss(batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        trainer.backward(loss)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        res = {"batch": batch_cpu, "loss": loss.detach()}
+        if check:
+            grads = [p.grad for p in trainer.model.parameters()
+                     if p.grad is not None]
+            norms = torch.stack(torch._foreach_norm(grads))
+            if not (torch.isfinite(loss) and torch.isfinite(norms).all()):
+                fail(f"non-finite loss {float(loss)} or grads")
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        trainer.apply_update()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        names = ("collate_ms", "to_card_ms", "forward_ms", "backward_ms",
+                 None, "optimizer_ms")
+        res.update({k: (b - a) * 1e3 for k, a, b in zip(names, t[:-1], t[1:])
+                    if k is not None})
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = []
+    with capture_backward_inputs() as seen:
+        for i in range(N_CHECKED_STEPS):
+            before = launch_counts()
+            steps.append(step(True))
+            got = {k: v - before[k] for k, v in launch_counts().items()}
+            if got != want:
+                fail(f"train step {i}: kernel launches {got} != {want}")
+            print(f"[train] step {i}: loss {float(steps[-1]['loss']):.5f}, "
+                  f"launches {got}")
+    timed = [step(False) for _ in range(N_TIMED_STEPS)]
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = N_CHECKED_STEPS + N_TIMED_STEPS
+    for name, count in want.items():
+        if launches[name] != count * n_steps:
+            fail(f"{name} launched {launches[name]} times in {n_steps} "
+                 f"training steps")
+
+    # the first step's loss against the port's own bf16 step on the CPU
+    cpu = Trainer(tcfg, cfg, graphs, device="cpu")
+    cpu.init_state(state_dict)
+    with torch.no_grad():
+        want_loss = float(cpu.forward_loss(steps[0]["batch"])[0])
+    got_loss = float(steps[0]["loss"])
+    if not abs(got_loss - want_loss) <= MODEL_RTOL * 2 * abs(want_loss):
+        fail(f"first step loss {got_loss} on the card vs {want_loss} on the "
+             f"CPU")
+    print(f"[train] first step loss: card {got_loss:.6f}, CPU bf16 "
+          f"{want_loss:.6f} (rtol {MODEL_RTOL}, atol {MODEL_RTOL} x |loss|)")
+
+    keys = ("collate_ms", "to_card_ms", "forward_ms", "backward_ms",
+            "optimizer_ms")
+    split = {k: float(np.median([s[k] for s in timed])) for k in keys}
+    step_ms = [sum(s[k] for k in keys) for s in timed]
+    stats = {"steps": n_steps, "crystals_per_step": N_GRAPHS,
+             "step_ms_median": float(np.median(step_ms)),
+             "step_ms_min": float(np.min(step_ms)), **split,
+             "first_loss_card": got_loss, "first_loss_cpu": want_loss,
+             "peak_memory_gib": peak_gib,
+             "losses": [float(s["loss"]) for s in steps + timed]}
+
+    batch = next_batch().to("cuda")
+
+    def one_step():
+        loss, _ = trainer.forward_loss(batch)
+        trainer.backward(loss)
+        trainer.apply_update()
+
+    one_step()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    per_name = device_ms(one_step, 3)
+    stats.update(device_step_ms=wall, device_busy_ms=None,
+                 device_idle_share=None, device_events=None,
+                 top_device_ms=None)
+    if per_name:
+        busy = sum(v[0] for v in per_name.values())
+        stats.update(device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
+                     device_events=sum(v[1] for v in per_name.values()),
+                     top_device_ms=[[k[:70], v[0], v[1]] for k, v in sorted(
+                         per_name.items(), key=lambda kv: -kv[1][0])[:12]])
+    print(f"[train] {N_TIMED_STEPS} timed steps of {N_GRAPHS} crystals: "
+          f"median {stats['step_ms_median']:.2f} ms (min "
+          f"{stats['step_ms_min']:.2f}): collate {split['collate_ms']:.2f}, "
+          f"to card {split['to_card_ms']:.2f}, forward "
+          f"{split['forward_ms']:.2f}, backward {split['backward_ms']:.2f}, "
+          f"optimizer {split['optimizer_ms']:.2f} ms; peak device memory "
+          f"{peak_gib:.2f} GiB")
+    if per_name:
+        print(f"[train] one step on a resident batch, no syncs in between: "
+              f"median {wall:.2f} ms of 5, device busy {busy:.2f} ms in "
+              f"{stats['device_events']:.0f} device events, idle share "
+              f"{stats['device_idle_share']:.3f}")
+        for name, ms, count in stats["top_device_ms"]:
+            print(f"[train]   {ms:8.4f} ms  {count:5.0f} x  {name}")
+    else:
+        print("[train] device busy time: not measured (the profiler "
+              "recorded no device events)")
+    rows = check_backward_kernels(seen, int(steps[0]["batch"].num_node_slots),
+                                  N_GRAPHS)
+    return rows, stats, launches
+
 
 
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
@@ -368,7 +745,8 @@ def main() -> int:
     cfg = CGATConfig(compute_dtype="bfloat16")
     t0 = time.perf_counter()
     cpu_model = CGAtNet(cfg)
-    cpu_model.load_state_dict(init_state_dict(cpu_model, seed=0), strict=True)
+    state_dict = init_state_dict(cpu_model, seed=0)      # f32 weights
+    cpu_model.load_state_dict(state_dict, strict=True)
     cpu_model.to_compute_dtype().eval()
     model = CGAtNet(cfg)
     model.load_state_dict(cpu_model.state_dict(), strict=True)
@@ -388,9 +766,10 @@ def main() -> int:
     launches, stats = serve(model, requests)
     stats["breakdown"] = breakdown(model, requests[1], rows)
     for name, count in launches.items():
-        if count != PER_FORWARD[name] * N_REQUESTS:
-            fail(f"{name} launched {count} times on the main path")
+        if count != PER_FORWARD.get(name, 0) * N_REQUESTS:
+            fail(f"{name} launched {count} times on the serving path")
     check_against_cpu(model, cpu_model, requests[0], n0)
+    train_rows, train_stats, train_launches = train(cfg, state_dict)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -400,14 +779,23 @@ def main() -> int:
                                   "edge_slots": int(batch0.num_edge_slots),
                                   "node_slots": int(batch0.num_node_slots),
                                   **stats}}))
+    print(json.dumps({"training": train_stats}))
+    # launches: a forward kernel's count on the serving path (3 requests),
+    # a backward kernel's on the training path (13 steps); train_launches
+    # is every kernel's count on the training path
     kernels = [{"name": r["name"], "route": "cuda",
-                "source": f"cgat_tpu_torch/csrc/{r['name']}.cu",
+                "source": f"cgat_tpu_torch/csrc/{SOURCES[r['name']]}.cu",
                 "replaces": REPLACES[r["name"]],
-                "launches": launches[r["name"]],
+                "launches": (launches if r["name"] in PER_FORWARD
+                             else train_launches)[r["name"]],
+                "train_launches": train_launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "tolerance": KERNEL_TOL,
+                "rel_norm_err": r["rel_norm_err"], "norm_tolerance": NORM_TOL,
+                "checks": r["checks"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None} for r in rows]
+                "library_ms": r.get("library_ms")}
+               for r in rows + train_rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ file imports no JAX, so it also runs where JAX is absent; the directory's
 
 Tolerances: f32 results differ from the plain version only in summation
 order (rtol 1e-5); bf16 outputs may differ by one rounding step of the
-f32 result (2**-8 relative), so they are held at 2e-2.
+f32 result (2**-8 relative), so they are held at 2e-2 of the largest entry
+elementwise and, so that small entries count too, at 1e-2 norm-wise.
 """
 import numpy as np
 import pytest
@@ -18,7 +19,9 @@ from cgat_tpu_torch.data import collate, host_offsets
 from cgat_tpu_torch.data.synthetic import random_graphs
 from cgat_tpu_torch.models import CGATConfig, CGAtNet, init_state_dict
 from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, hyper_apply,
-                                        mh_network, segment_attention)
+                                        mh_network, segment_attention,
+                                        segment_sum)
+from cgat_tpu_torch.training import Trainer, TrainerConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -108,6 +111,119 @@ def test_hyper_apply_kernel(dev, rows, c, i, o):
                                atol=2e-2 * float(want.float().abs().max()))
 
 
+def _close(got, want, dtype):
+    """f32: summation order only; bf16: one rounding step of the f32 value
+    relative to the largest entry, and 1e-2 of the norm."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, rtol=2e-2,
+                                   atol=2e-2 * float(want.abs().max()))
+        assert float(torch.linalg.vector_norm(got - want)) <= 1e-2 * float(
+            torch.linalg.vector_norm(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hf", [640, 6])
+def test_segment_attention_bwd_kernel(dev, dtype, hf):
+    """Empty nodes, a 150-edge hub and a padded suffix, which gets 0."""
+    alpha, m, offn, n_real = _seg_case(np.random.default_rng(2), hf)
+    dst = np.repeat(np.arange(300), np.diff(offn[:301])).astype(np.int32)
+    t = lambda a, dt=dtype: torch.tensor(a, dtype=dt, device=dev)
+    a, mm = t(alpha), t(m)
+    nr = torch.tensor(n_real, dtype=torch.int32, device=dev)
+    out, mx, den = segment_attention.segment_attention(
+        a, mm, torch.from_numpy(offn).to(dev), nr, 300, return_stats=True)
+    g = t(np.random.default_rng(3).standard_normal((300, hf)))
+    args = (a, mm, torch.from_numpy(dst).to(dev), nr, g, out, mx, den)
+    before = segment_attention.segment_attention_bwd.launches
+    got = segment_attention.segment_attention_bwd(*args)
+    assert segment_attention.segment_attention_bwd.launches == before + 1
+    want = segment_attention.segment_attention_bwd_plain(*args)
+    for x, y in zip(got, want):
+        _close(x, y, dtype)
+        assert not x[n_real:].float().abs().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f", [128, 6])
+def test_segment_sum_kernel(dev, dtype, f):
+    """Sorted ids with empty segments; every row counts, padding included."""
+    rng = np.random.default_rng(4)
+    ids = np.sort(rng.integers(0, 99, size=3000) * 2).astype(np.int32)
+    ids = np.concatenate([ids, np.full(40, 199, np.int32)])
+    offn = host_offsets(ids, 200 + 8)
+    vals = torch.tensor(rng.standard_normal((len(ids), f)), dtype=dtype,
+                        device=dev)
+    tid = torch.from_numpy(ids).to(dev)
+    before = segment_sum.segment_sum.launches
+    got = segment_sum.segment_sum(vals, tid, torch.from_numpy(offn).to(dev),
+                                  200)
+    assert segment_sum.segment_sum.launches == before + 1
+    _close(got, segment_sum.segment_sum_plain(vals, tid, 200), dtype)
+    empty = torch.from_numpy(np.bincount(ids, minlength=200) == 0).to(dev)
+    assert empty.any() and not got[empty].float().abs().any()
+
+
+@pytest.mark.parametrize("rows,cat,hid,f,heads",
+                         [(1000, 384, 256, 128, 5), (37, 48, 32, 16, 2),
+                          (100, 144, 272, 160, 8)])
+def test_mh_network_bwd_kernel(dev, rows, cat, hid, f, heads):
+    """Ragged row counts (not a multiple of the 64-row tile); the last case
+    has widths that are no multiple of the kernels' 128-column steps and
+    8 x 272 hidden columns, wider than one block's shared memory holds."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                               * scale).bfloat16()
+    x, win, b_in = (r(rows, cat), r(heads * hid, cat, scale=cat ** -0.5),
+                    r(heads * hid, scale=0.1))
+    wout, b_out = r(heads * f, hid, scale=hid ** -0.5), r(heads * f, scale=0.1)
+    out, h = mh_network.mh_network(x, win, b_in, wout, b_out, heads,
+                                   return_hidden=True)
+    p_out, p_h = mh_network.mh_network_plain(x, win, b_in, wout, b_out,
+                                             heads, return_hidden=True)
+    _close(out, p_out, torch.bfloat16)
+    _close(h, p_h, torch.bfloat16)
+    cot = r(rows, heads * f)
+    before = mh_network.mh_network_bwd.launches
+    got = mh_network.mh_network_bwd(x, h, cot, win, wout, heads)
+    assert mh_network.mh_network_bwd.launches == before + 1
+    want = mh_network.mh_network_bwd_plain(x, h, cot, win, wout, heads)
+    for a, b in zip(got, want):
+        _close(a, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48),
+                                        (70, 48, 16, 16), (70, 512, 160, 32),
+                                        (100, 384, 384, 384)])
+def test_hyper_apply_bwd_kernels(dev, rows, c, i, o):
+    """The last two cases take several column jobs and dK column blocks:
+    every width the forward takes."""
+    assert hyper_apply.supported(c, i, o, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(6)
+    hidden = torch.randn(rows, c, generator=g, device=dev).tanh().bfloat16()
+    k = (torch.randn(o * i + o, c, generator=g, device=dev)
+         * (0.1 * (2 / c) ** 0.5)).bfloat16()
+    bias = (torch.rand(o * i + o, generator=g, device=dev) * 0.1).bfloat16()
+    x = torch.randn(rows, i, generator=g, device=dev).bfloat16()
+    cot = torch.randn(rows, o, generator=g, device=dev).bfloat16()
+    before = _launches()
+    got = hyper_apply.hyper_apply_bwd_dhdx(hidden, k, bias, x, cot, o)
+    got_k = hyper_apply.hyper_apply_bwd_dk(hidden, x, cot, o)
+    after = _launches()
+    assert after["hyper_apply_bwd_dhdx"] == before["hyper_apply_bwd_dhdx"] + 1
+    assert after["hyper_apply_bwd_dk"] == before["hyper_apply_bwd_dk"] + 1
+    want = hyper_apply.hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, cot, o)
+    want_k = hyper_apply.hyper_apply_bwd_dk_plain(hidden, x, cot, o)
+    for a, b in zip(got, want):
+        _close(a, b, torch.bfloat16)
+    _close(got_k[0], want_k[0], torch.bfloat16)
+    torch.testing.assert_close(got_k[1], want_k[1], rtol=1e-5, atol=1e-4)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(64, 48, device=dev)
     w_in, w_out = torch.zeros(64, 48, device=dev), torch.zeros(32, 32, device=dev)
@@ -125,6 +241,24 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         segment_attention.segment_attention(
             a, a, torch.zeros(5, dtype=torch.int64, device=dev),
             torch.tensor(10, dtype=torch.int32, device=dev), 4)
+    ids = torch.zeros(10, dtype=torch.int32, device=dev)
+    nr = torch.tensor(10, dtype=torch.int32, device=dev)
+    node = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError):       # a bf16 max, not the f32 one
+        segment_attention.segment_attention_bwd(
+            a, a, ids, nr, node, node, node.bfloat16(), node)
+    with pytest.raises(ValueError):       # int64 CSR pointers
+        segment_sum.segment_sum(a, ids, torch.zeros(5, dtype=torch.int64,
+                                                    device=dev), 4)
+    with pytest.raises(ValueError):       # f32 is not a kernel dtype
+        mh_network.mh_network_bwd(x, torch.zeros(64, 64, device=dev),
+                                  torch.zeros(64, 32, device=dev), w_in,
+                                  w_out, 2)
+    odd = torch.zeros(8, 40, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):       # no 16-multiple width
+        hyper_apply.hyper_apply_bwd_dk(odd, h[:, :32].contiguous(),
+                                       torch.zeros(8, 16, device=dev,
+                                                   dtype=torch.bfloat16), 16)
 
 
 # 128-wide, 2 layers, 5 heads: every kernel engages in bf16
@@ -153,10 +287,10 @@ def test_model_on_card_matches_cpu(dev, dtype):
         got = card(batch.to(dev)).cpu()
         want = cpu(batch)
     n = cfg.n_graph
-    per_layer = ({"mh_network": 2 * n, "segment_attention": n + 1,
-                  "hyper_apply": 4 * n} if dtype == "bfloat16" else
-                 {"mh_network": 0, "segment_attention": n + 1,
-                  "hyper_apply": 0})
+    per_layer = dict.fromkeys(_launches(), 0)     # no backward in inference
+    per_layer.update({"mh_network": 2 * n, "segment_attention": n + 1,
+                      "hyper_apply": 4 * n} if dtype == "bfloat16" else
+                     {"segment_attention": n + 1})
     assert {k: v - before[k] for k, v in _launches().items()} == per_layer
     assert torch.isfinite(got).all()
     if dtype == "bfloat16":
@@ -164,3 +298,37 @@ def test_model_on_card_matches_cpu(dev, dtype):
         torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2 * scale)
     else:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One bf16 training step of the 2-layer model on the card against the
+    same step on the CPU (plain versions): the loss before the update
+    agrees, every backward kernel runs its count, the grads are finite."""
+    graphs = random_graphs(1, 30, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    cfg = TrainerConfig(batch_size=6, node_bucket=16, max_nbr=16,
+                        moment_dtype="bfloat16")
+    mcfg = CGATConfig(**SMALL, compute_dtype="bfloat16")
+    cpu = Trainer(cfg, mcfg, graphs, device="cpu")
+    card = Trainer(cfg, mcfg, graphs, device=dev)
+    sd = init_state_dict(cpu.init_state(), seed=0)
+    cpu.init_state(sd)
+    card.init_state(sd)
+    batch = next(iter(cpu.loader(cpu.train_graphs, shuffle=True)))
+    with torch.no_grad():
+        want, _ = cpu.forward_loss(batch)
+    before = _launches()
+    loss, _ = card.forward_loss(batch.to(dev))
+    card.backward(loss)
+    n = mcfg.n_graph
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        "segment_attention": n + 1, "mh_network": 2 * n,
+        "hyper_apply": 4 * n, "segment_attention_bwd": n + 1,
+        "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
+        "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1}
+    grads = [p.grad for p in card.model.parameters() if p.grad is not None]
+    assert all(g.dtype == torch.float32 for g in grads)
+    assert torch.isfinite(torch.stack(torch._foreach_norm(grads))).all()
+    card.apply_update()
+    torch.testing.assert_close(loss.detach().cpu(), want, rtol=5e-2,
+                               atol=5e-2)

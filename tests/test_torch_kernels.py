@@ -210,5 +210,7 @@ def test_build_targets_hopper():
         assert (build.CSRC / f"{name}.cu").exists()
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and name in path.name
-    assert {k.__name__ for k in KERNEL_WRAPPERS} == set(build.KERNELS)
+    # every source holds the kernels of one wrapper module
+    assert {k.__module__.rsplit(".", 1)[-1]
+            for k in KERNEL_WRAPPERS} == set(build.KERNELS)
 

@@ -118,7 +118,7 @@ def _port_files():
 
 
 def test_port_imports_nothing_of_jax():
-    banned = ("jax", "flax", "cgat_tpu")
+    banned = ("jax", "flax", "optax", "sklearn", "cgat_tpu")
     bad = []
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -136,9 +136,11 @@ def test_port_imports_nothing_of_jax():
 
 def test_port_runs_without_jax_loaded():
     code = ("import sys, cgat_tpu_torch.serving, cgat_tpu_torch.models, "
-            "cgat_tpu_torch.data.synthetic, cgat_tpu_torch.ops; "
+            "cgat_tpu_torch.data.synthetic, cgat_tpu_torch.data.dataset, "
+            "cgat_tpu_torch.ops, cgat_tpu_torch.training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'cgat_tpu')]; print(bad); sys.exit(bool(bad))")
+            "('jax', 'flax', 'optax', 'sklearn', 'cgat_tpu')]; print(bad); "
+            "sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
