@@ -38,27 +38,35 @@
 //
 // with f32 accumulation and bf16 weight grads, as the TPU kernel rounds
 // them. Bound: operations. At the flagship shape the four products are
-// 52 GFLOP (twice the forward), ~53 us at 989 TFLOP/s, against ~130 MB of
-// x, h, g, dx and weights, ~39 us at 3.35 TB/s. Design, three steps, none
-// with atomics, so the sums are deterministic:
-//   1. a row kernel per (64-edge tile, head, 128 columns of hid) computes
-//      its slice of dpre with WMMA from g_k, staged 128 columns at a time,
-//      writes bf16 dpre to a scratch array and adds the tile's column sums
-//      of dpre and g to per-tile partials; a second row kernel per
-//      (64-edge tile, 128 columns of cat) forms dx = bf16(dpre) @ Win from
-//      that array, again 128 columns at a time. Both use a fixed, small
-//      shared memory, so every width the forward takes fits;
-//   2. the weight grads are reductions over all E rows, which the TPU
-//      kernel carries across its sequential grid. Here a split-K kernel
-//      gives each 64x64 tile of dWin (dpre^T x) and of each head's dWout
-//      (g_k^T h_k) a block per split of the rows; the block stages 32-row
-//      slices of both operands in shared memory (zero past E) and writes
-//      its f32 partial tile;
-//   3. a reduce kernel adds the partials in split order and rounds to bf16.
-// Ragged E needs no fallback: every step masks the rows past E.
+// 48 GFLOP, ~49 us at 989 TFLOP/s, against ~130 MB of x, h, g, dx and
+// weights, ~39 us at 3.35 TB/s.
+//
+// Design: the four products run on one Hopper mainloop (gemm_sm90.cuh:
+// TMA into a 4-stage shared-memory ring, a producer thread, two consumer
+// warpgroups on wgmma, 128 x 128 tiles), each with its own epilogue, then
+// one reduce. No atomics, so two launches give the same bits:
+//   1. dpre, per head (M = E, N = hid, K = F): TMA brings the tile of h_k
+//      into a shared-memory buffer (two, so the next tile's arrives during
+//      this epilogue); the epilogue masks by its sign, writes bf16 dpre
+//      over it, which TMA stores to a scratch array, and writes the tile's
+//      f32 column sums of dpre (db_in) and, in the first column tile, of
+//      g_k (db_out, read back from L2) as per-tile partials;
+//   2. dx = dpre @ Win (M = E, N = cat, K = H*hid), bf16 store;
+//   3. dWin = dpre^T x (M = H*hid, N = cat) and dWout_k = g_k^T h_k
+//      (M = F, N = hid) reduce over the E rows, which the TPU kernel
+//      carries across its sequential grid. Both operands are E-major, so A
+//      is MN-major and wgmma reads it transposed from shared memory. E is
+//      split into ranges of at least 1024 rows (a multiple of 64) so that
+//      about one wave fills the 132 SMs (the wrapper plans them); each
+//      split writes its f32 partial tile;
+//   4. one reduce adds the split partials and the per-tile bias partials
+//      in order and rounds to bf16.
+// Ragged E, F, hid and cat need no masked loads (TMA fills zeros past
+// every edge, a head's included); stores are masked.
 #include <mma.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace nvcuda;
 
@@ -197,235 +205,219 @@ mh_network_fwd(const bf16* __restrict__ x, const bf16* __restrict__ win,
   }
 }
 
-constexpr int JW = WARPS * 16;   // output columns of a backward job: a 16-column tile per warp
-constexpr int GK = 128;          // product columns staged per step
-constexpr int GK_LD = GK + 8;
+// Epilogue of step 1 (dpre of head z): the tile of h_k arrives in the tile
+// buffer (TMA); mask by its sign, write bf16 dpre over it in place (stored
+// by TMA after the epilogue), and write per-tile f32 column sums of dpre
+// (db_in) and of g_k (db_out).
+struct DpreEpi {
+  static constexpr bool kTileIO = true;
+  const bf16* g;
+  float* part_bin;    // (row tiles, heads*hid)
+  float* part_bout;   // (row tiles, heads*f)
+  int n_rows, hid, f, heads;
 
-// Step 1a of the backward, grid (row tiles, heads, ceil(hid / JW)): block
-// (t, k, c) computes dpre_k's columns [c JW, c JW + JW) for the 64 rows of
-// tile t, g_k staged GK columns at a time; warp w owns column tile w. It
-// writes bf16 dpre and the tile's f32 column sums of dpre (db_in) and, in
-// the first column job, of g_k (db_out). Shared memory is fixed, so every
-// width the forward takes fits.
-__global__ void __launch_bounds__(THREADS)
-mh_network_bwd_dpre(const bf16* __restrict__ h, const bf16* __restrict__ g,
-                    const bf16* __restrict__ wout, bf16* __restrict__ dpre,
-                    float* __restrict__ part_bin,
-                    float* __restrict__ part_bout, int n_rows, int hid,
-                    int f, int heads) {
-  __shared__ __align__(128) float scratch[WARPS * 16 * SCR_LD];
-  __shared__ __align__(128) bf16 gs[BM * GK_LD];
-  const int hh = heads * hid;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = scratch + warp * 16 * SCR_LD;
-  const int tile = blockIdx.x;
-  const int k = blockIdx.y;
-  const int row0 = tile * BM;
-  const int nt = blockIdx.z * (JW / 16) + warp;
-  const bool active = nt < hid / 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
+  __device__ void operator()(float (&acc)[64], const sm90::Tile& t,
+                             float* scratch, unsigned char* tile) const {
+    const int hh = heads * hid;
+    const int lane = t.thread % 32, warp = t.thread / 32;
+    float cs[32];   // this thread's column sums, (i, e) at 2*i + e
 #pragma unroll
-  for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  // dh_k = g_k @ Wout_k, Wout_k (f, hid) row-major
-  const bf16* wk = wout + static_cast<size_t>(k) * f * hid;
-  for (int kc = 0; kc < f; kc += GK) {
-    const int kw = min(GK, f - kc);
-    stage_tile(gs, GK_LD, g, heads * f, k * f + kc, kw, row0, n_rows);
-    __syncthreads();
-    // db_out partial: the tile's column sums of g_k, in row order
-    if (blockIdx.z == 0)
-      for (int c = threadIdx.x; c < kw; c += THREADS) {
-        float sum = 0.f;
-        for (int r = 0; r < BM; ++r) sum += __bfloat162float(gs[r * GK_LD + c]);
-        part_bout[static_cast<size_t>(tile) * heads * f + k * f + kc + c] = sum;
+    for (int v = 0; v < 32; ++v) cs[v] = 0.f;
+    // rows past E and columns past hid hold h = 0 and acc = 0: dpre 0
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = t.wg * 64 + warp * 16 + lane / 4 + half * 8;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+            tile + sm90::tile_offset(r, i * 8 + (lane % 4) * 2));
+        const float2 hv = __bfloat1622float2(*p);
+        float d0 = acc[i * 4 + half * 2], d1 = acc[i * 4 + half * 2 + 1];
+        d0 = hv.x > 0.f ? d0 : LEAKY_SLOPE * d0;
+        d1 = hv.y > 0.f ? d1 : LEAKY_SLOPE * d1;
+        *p = __floats2bfloat162_rn(d0, d1);
+        cs[2 * i] += d0;
+        cs[2 * i + 1] += d1;
       }
-    if (active)
-      for (int kk = 0; kk < kw; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wk + static_cast<size_t>(kc + kk) * hid + nt * 16, hid);
+    }
+    // the warp's 16 rows: lanes of one column pair differ in bits 2..4
 #pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, gs + i * 16 * GK_LD + kk, GK_LD);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
+    for (int v = 0; v < 32; ++v) {
+      cs[v] += __shfl_xor_sync(0xffffffffu, cs[v], 4);
+      cs[v] += __shfl_xor_sync(0xffffffffu, cs[v], 8);
+      cs[v] += __shfl_xor_sync(0xffffffffu, cs[v], 16);
+    }
+    if (lane < 4) {
+      float* mine = scratch + (t.wg * 4 + warp) * 128;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mine[i * 8 + lane * 2] = cs[2 * i];
+        mine[i * 8 + lane * 2 + 1] = cs[2 * i + 1];
+      }
+    }
+    sm90::consumer_sync();
+    // the 8 warps' sums in warp order
+    if (t.wg == 0 && t.n0 + t.thread < hid) {
+      float tot = 0.f;
+      for (int w = 0; w < 8; ++w) tot += scratch[w * 128 + t.thread];
+      part_bin[static_cast<size_t>(t.m_tile) * hh + t.z * hid + t.n0 +
+               t.thread] = tot;
+    }
+    if (t.n0 != 0) return;
+    // db_out: the tile's column sums of g_k, 128 columns a round; thread
+    // (rg, chunk) sums 8 columns over rows [8 rg, 8 rg + 8) in row order,
+    // its 8 rows' 16-byte loads in flight at once
+    float* red = scratch + 8 * 128;
+    const int tid = t.wg * 128 + t.thread;
+    const int chunk = tid % 16, rg = tid / 16;
+    for (int c0 = 0; c0 < f; c0 += 128) {
+      const int c = c0 + chunk * 8;
+      float sum[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum[e] = 0.f;
+      if (c < f) {
+        uint4 v[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int row = t.m0 + rg * 8 + r;
+          v[r] = row < n_rows
+                     ? *reinterpret_cast<const uint4*>(
+                           g + static_cast<size_t>(row) * heads * f +
+                           t.z * f + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const unsigned int w[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+            sum[2 * e] += x.x;
+            sum[2 * e + 1] += x.y;
+          }
         }
       }
-    // the next step overwrites gs
-    __syncthreads();
-  }
-  if (!active) return;
-  float colsum = 0.f;   // lane c < 16 sums column nt*16 + c
-  for (int i = 0; i < RT; ++i) {
-    wmma::store_matrix_sync(ws, acc[i], SCR_LD, wmma::mem_row_major);
-    __syncwarp();
-    for (int t = lane; t < 256; t += 32) {
-      const int r = t / 16, c = t % 16;
-      const int row = row0 + i * 16 + r;
-      const size_t j = static_cast<size_t>(row) * hh + k * hid + nt * 16 + c;
-      const float hv = row < n_rows ? __bfloat162float(h[j]) : 0.f;
-      const float dh = ws[r * SCR_LD + c];
-      const float dp = hv > 0.f ? dh : LEAKY_SLOPE * dh;
-      ws[r * SCR_LD + c] = dp;
-      if (row < n_rows) dpre[j] = __float2bfloat16(dp);
-    }
-    __syncwarp();
-    if (lane < 16)
-      for (int r = 0; r < 16; ++r) colsum += ws[r * SCR_LD + lane];
-    __syncwarp();
-  }
-  if (lane < 16)
-    part_bin[static_cast<size_t>(tile) * hh + k * hid + nt * 16 + lane] = colsum;
-}
-
-// Step 1b, grid (row tiles, ceil(cat / JW)): dx[:, c JW : c JW + JW] =
-// bf16(dpre @ Win[:, c JW : c JW + JW]) for the 64 rows of a tile, dpre
-// staged GK columns at a time; warp w owns column tile w.
-__global__ void __launch_bounds__(THREADS)
-mh_network_bwd_dx(const bf16* __restrict__ dpre, const bf16* __restrict__ win,
-                  bf16* __restrict__ dx, int n_rows, int cat, int hh) {
-  __shared__ __align__(128) float scratch[WARPS * 16 * SCR_LD];
-  __shared__ __align__(128) bf16 ds[BM * GK_LD];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = scratch + warp * 16 * SCR_LD;
-  const int row0 = blockIdx.x * BM;
-  const int nt = blockIdx.y * (JW / 16) + warp;
-  const bool active = nt < cat / 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
+      sm90::consumer_sync();    // the previous round's sums are read
 #pragma unroll
-  for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int kc = 0; kc < hh; kc += GK) {
-    const int kw = min(GK, hh - kc);
-    stage_tile(ds, GK_LD, dpre, hh, kc, kw, row0, n_rows);
-    __syncthreads();
-    // Win (heads*hid, cat) row-major
-    if (active)
-      for (int kk = 0; kk < kw; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, win + static_cast<size_t>(kc + kk) * cat + nt * 16, cat);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, ds + i * 16 * GK_LD + kk, GK_LD);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
-    // the next step overwrites ds
-    __syncthreads();
-  }
-  if (!active) return;
-  for (int i = 0; i < RT; ++i) {
-    wmma::store_matrix_sync(ws, acc[i], SCR_LD, wmma::mem_row_major);
-    __syncwarp();
-    for (int t = lane; t < 256; t += 32) {
-      const int r = t / 16, c = t % 16;
-      const int row = row0 + i * 16 + r;
-      if (row < n_rows)
-        dx[static_cast<size_t>(row) * cat + nt * 16 + c] =
-            __float2bfloat16(ws[r * SCR_LD + c]);
-    }
-    __syncwarp();
-  }
-}
-
-// Step 2: part[s, z*m + i, j] = sum over the rows of split s of
-// a[e, z*a_head + i] * b[e, z*b_head + j], for an (m, n) output per head z;
-// grid (n/64, m/64, splits*heads). m and n are multiples of 16; 64-wide
-// tiles past them are zero-filled and their fragments not stored.
-constexpr int AT = 64;          // output tile
-constexpr int AK = 32;          // rows staged per step
-constexpr int AT_LD = AT + 8;
-
-__global__ void __launch_bounds__(THREADS)
-atb_partial(const bf16* __restrict__ a, int lda, int a_head,
-            const bf16* __restrict__ b, int ldb, int b_head, int m, int n,
-            int n_rows, int rows_per_split, int heads,
-            float* __restrict__ part) {
-  __shared__ __align__(128) bf16 a_s[AK * AT_LD];
-  __shared__ __align__(128) bf16 b_s[AK * AT_LD];
-  const int warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * AT, m0 = blockIdx.y * AT;
-  const int z = blockIdx.z % heads, split = blockIdx.z / heads;
-  const int e_begin = split * rows_per_split;
-  const int e_end = min(n_rows, e_begin + rows_per_split);
-  const int fm = warp / 2;            // fragment row of this warp
-  const int fn0 = (warp % 2) * 2;     // its two fragment columns
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int e0 = e_begin; e0 < e_end; e0 += AK) {
-    // one 16-byte chunk of each operand per thread: (32 rows) x (8 chunks)
-    const int r = threadIdx.x / 8;
-    const int c = (threadIdx.x % 8) * 8;
-    uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-    if (e0 + r < e_end) {
-      const size_t row = static_cast<size_t>(e0 + r);
-      if (m0 + c < m)
-        va = *reinterpret_cast<const uint4*>(a + row * lda + z * a_head + m0 + c);
-      if (n0 + c < n)
-        vb = *reinterpret_cast<const uint4*>(b + row * ldb + z * b_head + n0 + c);
-    }
-    *reinterpret_cast<uint4*>(a_s + r * AT_LD + c) = va;
-    *reinterpret_cast<uint4*>(b_s + r * AT_LD + c) = vb;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < AK; kk += 16) {
-      // a^T: element (i, e) of the fragment is a_s[(kk + e) * AT_LD + i]
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, a_s + kk * AT_LD + fm * 16, AT_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, b_s + kk * AT_LD + (fn0 + j) * 16, AT_LD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      for (int e = 0; e < 8; ++e) red[rg * 128 + chunk * 8 + e] = sum[e];
+      sm90::consumer_sync();
+      if (tid < 128 && c0 + tid < f) {
+        float tot = 0.f;
+        for (int i = 0; i < 16; ++i) tot += red[i * 128 + tid];
+        part_bout[static_cast<size_t>(t.m_tile) * heads * f + t.z * f + c0 +
+                  tid] = tot;
       }
     }
-    __syncthreads();
   }
-  const int i0 = m0 + fm * 16;
-  if (i0 >= m) return;
-  float* out = part + (static_cast<size_t>(split) * heads + z) * m * n;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int j0 = n0 + (fn0 + j) * 16;
-    if (j0 < n)
-      wmma::store_matrix_sync(out + static_cast<size_t>(i0) * n + j0, acc[j], n,
-                              wmma::mem_row_major);
-  }
-}
+};
 
-// Step 3: out[i] = bf16(sum_s part[s * len + i]), s in order.
-__global__ void reduce_splits(const float* __restrict__ part, int splits,
-                              int64_t len, bf16* __restrict__ out) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < len; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+// Epilogue of step 2: bf16 store of an (m, n) output, row stride ld
+struct Bf16Epi {
+  static constexpr bool kTileIO = false;
+  bf16* out;
+  int m, n, ld;
+
+  __device__ void operator()(float (&acc)[64], const sm90::Tile& t, float*,
+                             unsigned char*) const {
+    const int lane = t.thread % 32, warp = t.thread / 32;
+    const int row0 = t.m0 + t.wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = t.n0 + i * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + half * 8;
+        if (row < m && col < n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(row) * ld + col) =
+              __floats2bfloat162_rn(acc[i * 4 + half * 2],
+                                    acc[i * 4 + half * 2 + 1]);
+      }
+    }
+  }
+};
+
+// Epilogue of step 3: the split's f32 partial of head z, at
+// part[(split * heads + z) * m * n + row * n + col]
+struct PartEpi {
+  static constexpr bool kTileIO = false;
+  float* part;
+  int m, n, heads;
+
+  __device__ void operator()(float (&acc)[64], const sm90::Tile& t, float*,
+                             unsigned char*) const {
+    const int lane = t.thread % 32, warp = t.thread / 32;
+    const int row0 = t.m0 + t.wg * 64 + warp * 16 + lane / 4;
+    float* out = part + static_cast<size_t>(t.split * heads + t.z) * m * n;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = t.n0 + i * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + half * 8;
+        if (row < m && col < n)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * n +
+                                     col) =
+              make_float2(acc[i * 4 + half * 2], acc[i * 4 + half * 2 + 1]);
+      }
+    }
+  }
+};
+
+// Step 4: out[i] = bf16(sum_s part[s * len + i]), s in order, for the four
+// outputs of one backward in one launch. Blocks [0, short_blocks) take the
+// weight grads, whose few splits a thread loads all at once; the rest take
+// the bias grads, whose per-tile partials (~150) 16 threads share: thread l
+// sums parts l, l + 16, ... in order, and the 16 meet in a fixed tree.
+struct ReduceJob {
+  const float* part;
+  int parts;
+  int64_t len;
+  bf16* out;
+};
+
+__global__ void reduce_parts(ReduceJob w_in, ReduceJob w_out, ReduceJob b_in,
+                             ReduceJob b_out, int short_blocks) {
+  if (static_cast<int>(blockIdx.x) < short_blocks) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+    const bool first = i < w_in.len;
+    const ReduceJob j = first ? w_in : w_out;
+    const int64_t k = first ? i : i - w_in.len;
+    if (k >= j.len) return;
+    // 16 loads in flight, added in split order (a split past the last adds
+    // 0, which changes no sum)
     float sum = 0.f;
-    for (int s = 0; s < splits; ++s) sum += part[s * len + i];
-    out[i] = __float2bfloat16(sum);
+    for (int s = 0; s < j.parts; s += 16) {
+      float v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        v[u] = s + u < j.parts ? j.part[(s + u) * j.len + k] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) sum += v[u];
+    }
+    j.out[k] = __float2bfloat16(sum);
+    return;
   }
-}
-
-cudaError_t launch_atb(const bf16* a, int lda, int a_head, const bf16* b,
-                       int ldb, int b_head, int m, int n, int n_rows,
-                       int splits, int heads, float* part,
-                       cudaStream_t stream) {
-  const int rows_per_split = ((n_rows + splits - 1) / splits + AK - 1) / AK * AK;
-  const dim3 grid((n + AT - 1) / AT, (m + AT - 1) / AT, splits * heads);
-  atb_partial<<<grid, THREADS, 0, stream>>>(a, lda, a_head, b, ldb, b_head, m,
-                                            n, n_rows, rows_per_split, heads,
-                                            part);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_reduce(const float* part, int splits, int64_t len,
-                          bf16* out, cudaStream_t stream) {
-  const int64_t want = (len + THREADS - 1) / THREADS;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  reduce_splits<<<blocks, THREADS, 0, stream>>>(part, splits, len, out);
-  return cudaGetLastError();
+  const int64_t q =
+      static_cast<int64_t>(blockIdx.x - short_blocks) * blockDim.x +
+      threadIdx.x;
+  const int64_t i = q / 16;
+  const int l = static_cast<int>(q % 16);
+  const bool first = i < b_in.len;
+  const ReduceJob j = first ? b_in : b_out;
+  const int64_t k = first ? i : i - b_in.len;
+  float sum = 0.f;
+  if (k < j.len) {
+#pragma unroll 4
+    for (int s = l; s < j.parts; s += 16) sum += j.part[s * j.len + k];
+  }
+  // every lane of the warp takes part in the tree
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (l == 0 && k < j.len) j.out[k] = __float2bfloat16(sum);
 }
 
 }  // namespace
@@ -456,47 +448,84 @@ CGAT_EXPORT int cgat_mh_network_fwd(const void* x, const void* win,
 // heads*f) cotangent; win, wout as in the forward. Outputs: dx (n_rows,
 // cat), dwin (heads*hid, cat), dbin (heads*hid,), dwout (heads*f, hid),
 // dbout (heads*f,), all bf16. Scratch: dpre (n_rows, heads*hid) bf16;
-// part_bin (tiles, heads*hid) and part_bout (tiles, heads*f) f32 with
-// tiles = ceil(n_rows / 64); part_win (s_win, heads*hid, cat) and part_wout
-// (s_wout, heads*f, hid) f32. Same layout rules as the forward.
+// part_bin (tiles, heads*hid) and part_bout (tiles, heads*f) f32, tiles
+// the count of sm90::BM-row tiles; part_win (s_win, heads*hid, cat) and
+// part_wout (s_wout, heads*f, hid) f32, the splits r_win and r_wout rows
+// long (multiples of sm90::BK). The wrapper's bwd_plan makes the plan;
+// one made for another tiling is refused. Same layout rules as the
+// forward.
 CGAT_EXPORT int cgat_mh_network_bwd(
     const void* x, const void* h, const void* g, const void* win,
     const void* wout, int n_rows, int cat, int hid, int f, int heads,
-    void* dx, void* dpre, float* part_bin, float* part_bout, int s_win,
-    float* part_win, int s_wout, float* part_wout, void* dwin, void* dbin,
-    void* dwout, void* dbout, void* stream) {
-  if (n_rows <= 0) return 0;
+    void* dx, void* dpre, int tiles, float* part_bin, float* part_bout,
+    int s_win, int r_win, float* part_win, int s_wout, int r_wout,
+    float* part_wout, void* dwin, void* dbin, void* dwout, void* dbout,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (n_rows + BM - 1) / BM;
-  const int hh = heads * hid;
-  mh_network_bwd_dpre<<<dim3(tiles, heads, (hid + JW - 1) / JW), THREADS, 0, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wout), static_cast<bf16*>(dpre), part_bin,
-      part_bout, n_rows, hid, f, heads);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mh_network_bwd_dx<<<dim3(tiles, (cat + JW - 1) / JW), THREADS, 0, st>>>(
-      static_cast<const bf16*>(dpre), static_cast<const bf16*>(win),
-      static_cast<bf16*>(dx), n_rows, cat, hh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // dWin = dpre^T x (one head of width heads*hid); dWout_k = g_k^T h_k
-  if ((err = launch_atb(static_cast<const bf16*>(dpre), hh, 0,
-                        static_cast<const bf16*>(x), cat, 0, hh, cat, n_rows,
-                        s_win, 1, part_win, st)) != cudaSuccess)
+  const int hh = heads * hid, hf = heads * f;
+  cudaError_t err;
+  if (n_rows <= 0) {   // no rows: every gradient is zero
+    if ((err = cudaMemsetAsync(dwin, 0, sizeof(bf16) * hh * cat, st)) ||
+        (err = cudaMemsetAsync(dbin, 0, sizeof(bf16) * hh, st)) ||
+        (err = cudaMemsetAsync(dwout, 0, sizeof(bf16) * hf * hid, st)) ||
+        (err = cudaMemsetAsync(dbout, 0, sizeof(bf16) * hf, st)))
+      return static_cast<int>(err);
+    return 0;
+  }
+  if (tiles != (n_rows + sm90::BM - 1) / sm90::BM || s_win < 1 ||
+      s_wout < 1 || r_win % sm90::BK || r_wout % sm90::BK ||
+      static_cast<int64_t>(s_win) * r_win < n_rows ||
+      static_cast<int64_t>(s_wout) * r_wout < n_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap g_k, wout_mn, h_tile, dpre_tile, dpre_k, win_mn, dpre_mn, x_mn,
+      g_mn, h_mn;
+  if ((err = sm90::map_k_major(&g_k, g, f, heads, n_rows, hf)) ||
+      (err = sm90::map_k_major(&h_tile, h, hid, heads, n_rows, hh)) ||
+      (err = sm90::map_k_major(&dpre_tile, dpre, hid, heads, n_rows, hh)) ||
+      (err = sm90::map_mn_major(&wout_mn, wout, hid, heads, f, hid,
+                                static_cast<uint64_t>(f) * hid, false)) ||
+      (err = sm90::map_k_major(&dpre_k, dpre, hh, 1, n_rows, hh)) ||
+      (err = sm90::map_mn_major(&win_mn, win, cat, 1, hh, cat,
+                                static_cast<uint64_t>(hh) * cat, false)) ||
+      (err = sm90::map_mn_major(&dpre_mn, dpre, hh, 1, n_rows, hh, 0, true)) ||
+      (err = sm90::map_mn_major(&x_mn, x, cat, 1, n_rows, cat, 0, true)) ||
+      (err = sm90::map_mn_major(&g_mn, g, f, heads, n_rows, hf, 0, true)) ||
+      (err = sm90::map_mn_major(&h_mn, h, hid, heads, n_rows, hh, 0, true)))
     return static_cast<int>(err);
-  if ((err = launch_atb(static_cast<const bf16*>(g), heads * f, f,
-                        static_cast<const bf16*>(h), hh, hid, f, hid, n_rows,
-                        s_wout, heads, part_wout, st)) != cudaSuccess)
+
+  // 1. dpre_k = mask(h_k) (g_k @ Wout_k) per head, with the bias partials
+  const DpreEpi dpre_epi{static_cast<const bf16*>(g), part_bin, part_bout,
+                         n_rows, hid, f, heads};
+  if ((err = sm90::launch<false>(
+           g_k, wout_mn, sm90::Shape{n_rows, hid, f, f, heads, 1, 0, 0},
+           dpre_epi, st, &h_tile, &dpre_tile)))
     return static_cast<int>(err);
-  if ((err = launch_reduce(part_win, s_win, static_cast<int64_t>(hh) * cat,
-                           static_cast<bf16*>(dwin), st)) != cudaSuccess ||
-      (err = launch_reduce(part_wout, s_wout,
-                           static_cast<int64_t>(heads) * f * hid,
-                           static_cast<bf16*>(dwout), st)) != cudaSuccess ||
-      (err = launch_reduce(part_bin, tiles, hh, static_cast<bf16*>(dbin),
-                           st)) != cudaSuccess ||
-      (err = launch_reduce(part_bout, tiles, heads * f,
-                           static_cast<bf16*>(dbout), st)) != cudaSuccess)
+  // 2. dx = bf16(dpre @ Win)
+  if ((err = sm90::launch<false>(
+           dpre_k, win_mn, sm90::Shape{n_rows, cat, hh, hh, 1, 1, 0, 0},
+           Bf16Epi{static_cast<bf16*>(dx), n_rows, cat, cat}, st)))
     return static_cast<int>(err);
-  return 0;
+  // 3. split-K partials of dWin = dpre^T x and dWout_k = g_k^T h_k
+  if ((err = sm90::launch<true>(
+           dpre_mn, x_mn, sm90::Shape{hh, cat, n_rows, r_win, 1, s_win, 1, 1},
+           PartEpi{part_win, hh, cat, 1}, st)) ||
+      (err = sm90::launch<true>(
+           g_mn, h_mn,
+           sm90::Shape{f, hid, n_rows, r_wout, heads, s_wout, 1, 1},
+           PartEpi{part_wout, f, hid, heads}, st)))
+    return static_cast<int>(err);
+  // 4. the four sums in order, rounded to bf16
+  const ReduceJob w_in{part_win, s_win, static_cast<int64_t>(hh) * cat,
+                       static_cast<bf16*>(dwin)};
+  const ReduceJob w_out{part_wout, s_wout, static_cast<int64_t>(hf) * hid,
+                        static_cast<bf16*>(dwout)};
+  const ReduceJob b_in{part_bin, tiles, hh, static_cast<bf16*>(dbin)};
+  const ReduceJob b_out{part_bout, tiles, hf, static_cast<bf16*>(dbout)};
+  const int short_blocks =
+      static_cast<int>((w_in.len + w_out.len + 255) / 256);
+  const int long_blocks = static_cast<int>((16 * (b_in.len + b_out.len) +
+                                            255) / 256);
+  reduce_parts<<<short_blocks + long_blocks, 256, 0, st>>>(
+      w_in, w_out, b_in, b_out, short_blocks);
+  return static_cast<int>(cudaGetLastError());
 }

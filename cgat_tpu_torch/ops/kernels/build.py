@@ -6,8 +6,9 @@ own shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/lib<name>-<hash>.so
 
-The library name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded. ``build()`` starts
+The library name carries a hash of the source, of every header in
+``csrc/`` and of the flags (include paths among them), so an edited source
+or header is rebuilt and a stale library is never loaded. ``build()`` starts
 one ``nvcc`` per source, all at once, and keeps each compiler log (with
 ptxas' register and spill report) beside its library. Nothing is built or
 loaded when this module is imported.
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 KERNELS = ("segment_attention", "mh_network", "hyper_apply", "segment_sum")
 
@@ -46,8 +49,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` lives for the current sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
-        h.update(src.read_bytes())
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -110,6 +113,16 @@ def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def stream(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``device``, which
+    every launch uses. ``torch.cuda.current_stream(device).cuda_stream``
+    gives the same handle but builds a Stream object on the way: ~9 us of
+    host time a call on the H100's host, more than a small kernel runs."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(name: str, code: int) -> None:

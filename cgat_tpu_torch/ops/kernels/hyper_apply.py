@@ -91,10 +91,6 @@ def _check(hidden, x, out_ch, **others):
     return n, c_dim, in_ch
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def hyper_apply(hidden, k, bias, x, out_ch):
     """hidden (B, C); k (O*I + O, C); bias (O*I + O,); x (B, I).
     Returns (B, O) in ``hidden``'s dtype."""
@@ -106,7 +102,8 @@ def hyper_apply(hidden, k, bias, x, out_ch):
     out = torch.empty((n, out_ch), dtype=hidden.dtype, device=hidden.device)
     code = _entry("cgat_hyper_apply_fwd", 5, 4, 0)(
         hidden.data_ptr(), k.data_ptr(), bias.data_ptr(), x.data_ptr(),
-        out.data_ptr(), n, c_dim, in_ch, out_ch, _stream(hidden))
+        out.data_ptr(), n, c_dim, in_ch, out_ch,
+        build.stream(hidden.device))
     build.check("hyper_apply", code)
     hyper_apply.launches += 1
     return out
@@ -153,7 +150,8 @@ def hyper_apply_bwd_dhdx(hidden, k, bias, x, g, out_ch):
     code = _entry("cgat_hyper_apply_bwd_dhdx", 5, 4, 4)(
         hidden.data_ptr(), k.data_ptr(), bias.data_ptr(), x.data_ptr(),
         g.data_ptr(), n, c_dim, in_ch, out_ch, part_dh.data_ptr(),
-        part_dx.data_ptr(), dh.data_ptr(), dx.data_ptr(), _stream(hidden))
+        part_dx.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+        build.stream(hidden.device))
     build.check("hyper_apply", code)
     hyper_apply_bwd_dhdx.launches += 1
     return dh, dx
@@ -182,7 +180,7 @@ def hyper_apply_bwd_dk(hidden, x, g, out_ch):
                      device=hidden.device)
     code = _entry("cgat_hyper_apply_bwd_dk", 3, 4, 2)(
         hidden.data_ptr(), x.data_ptr(), g.data_ptr(), n, c_dim, in_ch,
-        out_ch, dk.data_ptr(), db.data_ptr(), _stream(hidden))
+        out_ch, dk.data_ptr(), db.data_ptr(), build.stream(hidden.device))
     build.check("hyper_apply", code)
     hyper_apply_bwd_dk.launches += 1
     return dk, db

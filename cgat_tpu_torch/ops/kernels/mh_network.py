@@ -31,14 +31,20 @@ from . import build
 
 LEAKY_SLOPE = 0.01
 SMEM_LIMIT = 232448  # shared memory one H100 block may use
-ROWS = 64       # edge rows per block of the forward and backward kernels
-SPLIT_BLOCKS = 528   # blocks the weight-grad reductions aim for (4 per SM)
+ROWS = 64       # edge rows per block of the forward kernel
+# The backward's GEMM tiling, sm90::BM and sm90::BK of csrc/gemm_sm90.cuh:
+# the library refuses a plan (bwd_plan) made with other values.
+TILE = 128      # output tile (rows and columns) of the backward's GEMMs
+K_STEP = 64     # rows a backward GEMM stage loads; splits are multiples
+MIN_SPLIT = 1024  # rows of a weight-grad split, at least
 
 
 def smem_bytes(cat: int, hid: int) -> int:
     """Shared memory of one forward block (mirrors ``smem_bytes`` in the
     .cu): per-warp scratch + 64-row x and hidden tiles, rows padded by 8.
-    The backward kernels use a fixed 27 KB."""
+    The backward's GEMMs take a fixed amount whatever the widths, given by
+    ``sm90::smem_bytes`` in ``csrc/gemm_sm90.cuh``: 210,016 bytes for the
+    dpre GEMM (two tile buffers), 144,480 for the others."""
     return 8 * 16 * 20 * 4 + ROWS * (cat + 8) * 2 + ROWS * (hid + 8) * 2
 
 
@@ -65,7 +71,13 @@ def _bwd():
     i = ctypes.c_int
     return build.entry("mh_network", "cgat_mh_network_bwd",
                        [p, p, p, p, p, i, i, i, i, i,
-                        p, p, p, p, i, p, i, p, p, p, p, p, p])
+                        p, p, i, p, p, i, i, p, i, i, p, p, p, p, p, p])
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    """SM count of card ``index``: the weight-grad GEMMs aim at one wave."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def mh_network_plain(x, win, b_in, wout, b_out, heads, *,
@@ -123,7 +135,7 @@ def mh_network(x, win, b_in, wout, b_out, heads, *, return_hidden=False):
     code = _fwd()(x.data_ptr(), win.data_ptr(), b_in.data_ptr(),
                   wout.data_ptr(), b_out.data_ptr(), out.data_ptr(),
                   None if h is None else h.data_ptr(), n, cat, hid, f, heads,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  build.stream(x.device))
     build.check("mh_network", code)
     mh_network.launches += 1
     return (out, h) if return_hidden else out
@@ -152,10 +164,25 @@ def mh_network_bwd_plain(x, h, g, win, wout, heads):
             dwout.to(wout.dtype), g3.sum(0).reshape(-1).to(wout.dtype))
 
 
-def _splits(n_rows: int, out_tiles: int) -> int:
-    """Row splits of a weight-grad reduction: enough blocks to fill the
-    card, at least 256 rows each."""
-    return max(1, min(-(-n_rows // 256), -(-SPLIT_BLOCKS // out_tiles)))
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(n_rows: int, cat: int, hid: int, f: int, heads: int,
+             sms: int) -> dict:
+    """How the backward kernel cuts its work, planned on the host: the
+    128-row tiles of the row products (dpre, dx), whose bias partials the
+    reduce adds, and the E-row splits of the two weight-grad products. A
+    split is a multiple of 64 rows and, where E allows, at least 1024;
+    there are about enough of them for one wave of ``sms`` SMs, and none is
+    empty. ``win`` and ``wout`` are (splits, rows per split)."""
+    def split(out_tiles):
+        want = max(1, min(sms // out_tiles, n_rows // MIN_SPLIT))
+        rows = _cdiv(_cdiv(max(n_rows, 1), want), K_STEP) * K_STEP
+        return _cdiv(max(n_rows, 1), rows), rows
+    return {"tiles": _cdiv(n_rows, TILE),
+            "win": split(_cdiv(heads * hid, TILE) * _cdiv(cat, TILE)),
+            "wout": split(heads * _cdiv(f, TILE) * _cdiv(hid, TILE))}
 
 
 def mh_network_bwd(x, h, g, win, wout, heads):
@@ -167,29 +194,27 @@ def mh_network_bwd(x, h, g, win, wout, heads):
                             h=(h, (x.shape[0], win.shape[0])),
                             g=(g, (x.shape[0], wout.shape[0])))
     dev, dt = x.device, x.dtype
-    tiles = -(-n // ROWS)
-    s_win = _splits(n, -(-heads * hid // 64) * -(-cat // 64))
-    s_wout = _splits(n, heads * -(-f // 64) * -(-hid // 64))
+    plan = bwd_plan(n, cat, hid, f, heads, _sms(dev.index))
+    (s_win, r_win), (s_wout, r_wout) = plan["win"], plan["wout"]
+    f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, cat), dtype=dt, device=dev)
     dpre = torch.empty((n, heads * hid), dtype=dt, device=dev)
-    part_bin = torch.empty((tiles, heads * hid), dtype=torch.float32,
-                           device=dev)
-    part_bout = torch.empty((tiles, heads * f), dtype=torch.float32,
-                            device=dev)
-    part_win = torch.empty((s_win, heads * hid, cat), dtype=torch.float32,
-                           device=dev)
-    part_wout = torch.empty((s_wout, heads * f, hid), dtype=torch.float32,
-                            device=dev)
+    part_bin = torch.empty((plan["tiles"], heads * hid), **f32)
+    part_bout = torch.empty((plan["tiles"], heads * f), **f32)
+    part_win = torch.empty((s_win, heads * hid, cat), **f32)
+    part_wout = torch.empty((s_wout, heads * f, hid), **f32)
     dwin = torch.empty_like(win)
     dbin = torch.empty((heads * hid,), dtype=dt, device=dev)
     dwout = torch.empty_like(wout)
     dbout = torch.empty((heads * f,), dtype=dt, device=dev)
     code = _bwd()(x.data_ptr(), h.data_ptr(), g.data_ptr(), win.data_ptr(),
                   wout.data_ptr(), n, cat, hid, f, heads, dx.data_ptr(),
-                  dpre.data_ptr(), part_bin.data_ptr(), part_bout.data_ptr(),
-                  s_win, part_win.data_ptr(), s_wout, part_wout.data_ptr(),
-                  dwin.data_ptr(), dbin.data_ptr(), dwout.data_ptr(),
-                  dbout.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                  dpre.data_ptr(), plan["tiles"], part_bin.data_ptr(),
+                  part_bout.data_ptr(),
+                  s_win, r_win, part_win.data_ptr(), s_wout, r_wout,
+                  part_wout.data_ptr(), dwin.data_ptr(), dbin.data_ptr(),
+                  dwout.data_ptr(), dbout.data_ptr(),
+                  build.stream(dev))
     build.check("mh_network", code)
     mh_network_bwd.launches += 1
     return dx, dwin, dbin, dwout, dbout

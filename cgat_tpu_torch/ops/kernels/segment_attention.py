@@ -125,7 +125,7 @@ def segment_attention(alpha, m, offn, n_real, num_nodes, *,
                   int(alpha.dtype == torch.bfloat16), out.data_ptr(),
                   None if mx is None else mx.data_ptr(),
                   None if den is None else den.data_ptr(),
-                  torch.cuda.current_stream(alpha.device).cuda_stream)
+                  build.stream(alpha.device))
     build.check("segment_attention", code)
     segment_attention.launches += 1
     return (out, mx, den) if return_stats else out
@@ -182,7 +182,7 @@ def segment_attention_bwd(alpha, m, ids, n_real, g, out, mx, den):
                   mx.data_ptr(), den.data_ptr(), n_rows, hf,
                   int(alpha.dtype == torch.bfloat16), dalpha.data_ptr(),
                   dm.data_ptr(),
-                  torch.cuda.current_stream(alpha.device).cuda_stream)
+                  build.stream(alpha.device))
     build.check("segment_attention", code)
     segment_attention_bwd.launches += 1
     return dalpha, dm

@@ -24,8 +24,12 @@ failure exits non-zero:
    10/6/20/20/11 backward kernels; the first step's loss must agree with
    the port's own bf16 CPU step. Each backward kernel is then held against
    its plain version on the inputs and cotangents it got in the first step,
-   and timed; one step is broken down into collate, copy, forward, backward
-   and optimizer, and the card's busy time;
+   and timed (CUDA events around back-to-back calls, and device time from
+   the profiler); mh_network_bwd and segment_sum must give bit-identical
+   results in two launches, and mh_network_bwd is timed beside the same
+   four products as bf16 cuBLAS calls (a yardstick the port never calls);
+   one step is broken down into collate, copy, forward, backward and
+   optimizer, and the card's busy time;
 5. report the card, and the eight kernels as one JSON line; the last line
    is ``{"ok": true, "device": {...}}``.
 """
@@ -200,6 +204,8 @@ def check_kernels(model, batch) -> list[dict]:
                                                      H * f],
                      **checks_row(checks),
                      "ms": time_ms(lambda: mk.mh_network(*args_a)),
+                     "device_ms": kernel_device_ms(
+                         lambda: mk.mh_network(*args_a)),
                      "plain_ms": time_ms(lambda: mk.mh_network_plain(*args_a)),
                      "bound_ms": b_ms, "bound_by": b_by})
 
@@ -235,6 +241,8 @@ def check_kernels(model, batch) -> list[dict]:
         rows.append({"name": "segment_attention",
                      "shape": [n_edges, hf, n_nodes], **checks_row(checks),
                      "ms": time_ms(lambda: sk.segment_attention(*seg_args)),
+                     "device_ms": kernel_device_ms(
+                         lambda: sk.segment_attention(*seg_args)),
                      "plain_ms": time_ms(
                          lambda: sk.segment_attention_plain(*seg_args)),
                      "bound_ms": b_ms, "bound_by": b_by,
@@ -256,6 +264,8 @@ def check_kernels(model, batch) -> list[dict]:
         rows.append({"name": "hyper_apply", "shape": [n_nodes, C, I, O],
                      **checks_row(checks),
                      "ms": time_ms(lambda: hk.hyper_apply(*h_args)),
+                     "device_ms": kernel_device_ms(
+                         lambda: hk.hyper_apply(*h_args)),
                      "plain_ms": time_ms(lambda: hk.hyper_apply_plain(*h_args)),
                      "bound_ms": b_ms, "bound_by": b_by})
     for r in rows:
@@ -263,8 +273,9 @@ def check_kernels(model, batch) -> list[dict]:
               f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
               f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
               f"(tol {NORM_TOL}), "
-              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+              f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms"
               + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
                  else ""))
     return rows
@@ -336,6 +347,23 @@ def device_ms(fn, n_runs: int) -> dict[str, list[float]]:
             per_name[e.name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
                                 count + 1.0 / n_runs]
     return per_name
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def kernel_device_ms(fn, n_runs: int = 10, split: bool = False):
+    """Device time of one call of ``fn``: the sum of its device events, per
+    call, over ``n_runs`` calls (None if the profiler recorded none). Unlike
+    ``time_ms`` it leaves out the host's time to issue the call. ``split``
+    returns the time per kernel name instead."""
+    fn()
+    torch.cuda.synchronize()
+    per_name = device_ms(fn, n_runs)
+    if split:
+        return {k[:60]: v[0] for k, v in per_name.items()}
+    return sum(v[0] for v in per_name.values()) if per_name else None
 
 
 def breakdown(model, graphs, rows, reps: int = 10) -> dict:
@@ -460,8 +488,16 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
         checks = [compare(name, a, b) for a, b in zip(outs, wants)]
         b_ms, b_by = bound(nbytes, flops, peak)
         rows.append({"name": name, "shape": shape, **checks_row(checks),
-                     "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                     "ms": time_ms(fn), "device_ms": kernel_device_ms(fn),
+                     "plain_ms": time_ms(plain),
                      "bound_ms": b_ms, "bound_by": b_by, **extra})
+
+    def deterministic(name, fn):
+        """Two launches on the same inputs must give the same bits."""
+        first, second = fn(), fn()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"{name}: two launches on the same inputs differ")
+        return True
 
     with torch.no_grad():
         def seg_args(num_nodes):
@@ -489,12 +525,28 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
         e, cat = x.shape
         hh, hf = win.shape[0], wout.shape[0]
         hid = hh // heads
+        # the same four products as bf16 cuBLAS calls: an informative
+        # yardstick (four calls, not one), never called by the port
+        g3 = rec["g"].view(e, heads, hf // heads)
+        h3 = h.view(e, heads, hid)
+        dpre = torch.randn(e, hh, device=x.device).to(x.dtype)
+
+        def cublas():
+            torch.matmul(g3.transpose(0, 1), wout.view(heads, -1, hid))
+            torch.matmul(dpre, win)
+            torch.matmul(dpre.T, x)
+            torch.matmul(g3.permute(1, 2, 0), h3.transpose(0, 1))
         row("mh_network_bwd", lambda: mk.mh_network_bwd(*args),
             lambda: mk.mh_network_bwd_plain(*args), mk.mh_network_bwd(*args),
             mk.mh_network_bwd_plain(*args), [e, cat, hh, hf],
             nbytes=2.0 * (e * cat + e * hh + e * hf + e * cat
                           + 2 * (hh * cat + hh + hf * hid + hf)),
-            flops=4.0 * e * hh * (hf // heads + cat), peak=BF16_TENSOR_FLOPS)
+            flops=4.0 * e * hh * (hf // heads + cat), peak=BF16_TENSOR_FLOPS,
+            deterministic=deterministic(
+                "mh_network_bwd", lambda: mk.mh_network_bwd(*args)),
+            cublas_ms=time_ms(cublas),
+            device_split=kernel_device_ms(lambda: mk.mh_network_bwd(*args),
+                                          split=True))
 
         rec = seen["hyper_apply"]
         hidden, k, bias, xh = rec["saved"]
@@ -540,18 +592,34 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             flops=1.0 * e * f, peak=F32_FLOPS,
             library_ms=time_ms(lambda: lib_out.index_add_(0, lib_idx,
                                                           args[0])),
-            pool_ms=time_ms(lambda: ssk.segment_sum(*pool)))
+            library_device_ms=kernel_device_ms(
+                lambda: lib_out.index_add_(0, lib_idx, args[0])),
+            pool_ms=time_ms(lambda: ssk.segment_sum(*pool)),
+            deterministic=deterministic(
+                "segment_sum", lambda: (ssk.segment_sum(*args),
+                                        ssk.segment_sum(*pool))))
     for r in rows:
         print(f"[kernels] {r['name']} {r['shape']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
               f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
               f"(tol {NORM_TOL}), "
-              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
-              + (f", index_add_ {r['library_ms']:.4f} ms" if "library_ms" in r
+              f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms"
+              + (f", index_add_ {r['library_ms']:.4f} ms (device "
+                 f"{fmt_ms(r['library_device_ms'])})" if "library_ms" in r
                  else "")
               + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
+                 else "")
+              + (", two launches bit-identical" if r.get("deterministic")
                  else ""))
+        if "cublas_ms" in r:
+            print(f"[kernels] {r['name']}: the same four products as bf16 "
+                  f"cuBLAS calls (torch.matmul, a yardstick the port never "
+                  f"calls): {r['cublas_ms']:.4f} ms")
+        for name, ms in r.get("device_split", {}).items():
+            print(f"[kernels] {r['name']} device time by kernel: "
+                  f"{ms:.4f} ms  {name}")
     return rows
 
 
@@ -792,9 +860,13 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "tolerance": KERNEL_TOL,
                 "rel_norm_err": r["rel_norm_err"], "norm_tolerance": NORM_TOL,
                 "checks": r["checks"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "ms": r["ms"], "device_ms": r["device_ms"],
+                "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r.get("library_ms")}
+                "library_ms": r.get("library_ms"),
+                **{k: r[k] for k in ("cublas_ms", "library_device_ms",
+                                     "deterministic", "device_split")
+                   if k in r}}
                for r in rows + train_rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

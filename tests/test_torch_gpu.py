@@ -148,33 +148,65 @@ def test_segment_attention_bwd_kernel(dev, dtype, hf):
         assert not x[n_real:].float().abs().any()
 
 
+def _segsum_ids(case, rng):
+    """Sorted segment ids and the segment count of a test case."""
+    if case == "mixed":       # empty segments; a padded suffix on the last
+        ids = np.sort(rng.integers(0, 99, size=3000) * 2)
+        return np.concatenate([ids, np.full(40, 199)]), 200
+    if case == "hub":         # one segment holds most rows
+        return np.concatenate([np.zeros(5000, int), np.arange(1, 50)]), 60
+    if case == "empty_runs":  # long runs of empty segments
+        return np.array([3] * 7 + [400] * 5 + [401] + [900] * 2), 1000
+    if case == "tiny":        # fewer rows than one warp covers
+        return np.array([0, 0, 1, 2, 2]), 4
+    # the crystal pool's shape: 64 segments of 8 to 16 atoms
+    return np.repeat(np.arange(64), rng.integers(8, 17, 64)), 64
+
+
+@pytest.mark.parametrize("case", ["mixed", "hub", "empty_runs", "tiny",
+                                  "pool"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("f", [128, 6])
-def test_segment_sum_kernel(dev, dtype, f):
+def test_segment_sum_kernel(dev, dtype, f, case):
     """Sorted ids with empty segments; every row counts, padding included."""
     rng = np.random.default_rng(4)
-    ids = np.sort(rng.integers(0, 99, size=3000) * 2).astype(np.int32)
-    ids = np.concatenate([ids, np.full(40, 199, np.int32)])
-    offn = host_offsets(ids, 200 + 8)
+    ids, n_seg = _segsum_ids(case, rng)
+    ids = ids.astype(np.int32)
+    offn = host_offsets(ids, n_seg + 8)
     vals = torch.tensor(rng.standard_normal((len(ids), f)), dtype=dtype,
                         device=dev)
     tid = torch.from_numpy(ids).to(dev)
     before = segment_sum.segment_sum.launches
     got = segment_sum.segment_sum(vals, tid, torch.from_numpy(offn).to(dev),
-                                  200)
+                                  n_seg)
     assert segment_sum.segment_sum.launches == before + 1
-    _close(got, segment_sum.segment_sum_plain(vals, tid, 200), dtype)
-    empty = torch.from_numpy(np.bincount(ids, minlength=200) == 0).to(dev)
-    assert empty.any() and not got[empty].float().abs().any()
+    if dtype == torch.float32 and case == "hub":
+        # 5000 rows in one f32 sum: two summation orders differ by more
+        # than rtol allows, so the kernel is held to the exact (f64) sum.
+        # Even a sequential f32 sum of these rows is off by only ~2e-4
+        # (u n / sqrt(2), u = 2**-24); the kernel's tree was 3.9e-5 off on
+        # the H100. One row dropped or counted twice moves a sum by |x|,
+        # which at F = 6 exceeds 1e-3 in some column all but ~1e-18 of the
+        # time.
+        exact = torch.zeros((n_seg, f), dtype=torch.float64,
+                            device=dev).index_add_(0, tid.long(),
+                                                   vals.double())
+        torch.testing.assert_close(got.double(), exact, rtol=0, atol=1e-3)
+    else:
+        _close(got, segment_sum.segment_sum_plain(vals, tid, n_seg), dtype)
+    empty = torch.from_numpy(np.bincount(ids, minlength=n_seg) == 0).to(dev)
+    assert not got[empty].float().abs().any()
 
 
 @pytest.mark.parametrize("rows,cat,hid,f,heads",
                          [(1000, 384, 256, 128, 5), (37, 48, 32, 16, 2),
-                          (100, 144, 272, 160, 8)])
+                          (100, 144, 272, 160, 8), (1, 384, 256, 128, 5),
+                          (129, 384, 256, 128, 5), (1, 16, 16, 16, 1)])
 def test_mh_network_bwd_kernel(dev, rows, cat, hid, f, heads):
-    """Ragged row counts (not a multiple of the 64-row tile); the last case
-    has widths that are no multiple of the kernels' 128-column steps and
-    8 x 272 hidden columns, wider than one block's shared memory holds."""
+    """Row counts that are no multiple of the 128-row tile (1000, 129, 37,
+    100) and a single row; widths that are no multiple of the 64-wide
+    boxes or the 128-wide tiles (F = 160, hid = 272, cat = 144: a head's
+    box runs past its edge); 8 x 272 hidden columns; one head of 16."""
     g = torch.Generator(device=dev).manual_seed(5)
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
                                * scale).bfloat16()
@@ -222,6 +254,42 @@ def test_hyper_apply_bwd_kernels(dev, rows, c, i, o):
         _close(a, b, torch.bfloat16)
     _close(got_k[0], want_k[0], torch.bfloat16)
     torch.testing.assert_close(got_k[1], want_k[1], rtol=1e-5, atol=1e-4)
+
+
+def test_redesigned_kernels_are_deterministic(dev):
+    """No atomics: two launches on the same inputs give the same bits, at
+    the step's shapes (E rows split over the weight-grad GEMMs)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows, cat, hid, f, heads = 3000, 384, 256, 128, 5
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                               * scale).bfloat16()
+    x, win = r(rows, cat), r(heads * hid, cat, scale=cat ** -0.5)
+    wout = r(heads * f, hid, scale=hid ** -0.5)
+    _, h = mh_network.mh_network(x, win, r(heads * hid, scale=0.1), wout,
+                                 r(heads * f, scale=0.1), heads,
+                                 return_hidden=True)
+    cot = r(rows, heads * f)
+    first = mh_network.mh_network_bwd(x, h, cot, win, wout, heads)
+    second = mh_network.mh_network_bwd(x, h, cot, win, wout, heads)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ids = np.repeat(np.arange(768), 24).astype(np.int32)
+    offn = torch.from_numpy(host_offsets(ids, 776)).to(dev)
+    tid = torch.from_numpy(ids).to(dev)
+    vals = r(len(ids), 128)
+    assert torch.equal(segment_sum.segment_sum(vals, tid, offn, 768),
+                       segment_sum.segment_sum(vals, tid, offn, 768))
+
+
+def test_mh_network_bwd_refuses_a_plan_for_another_tiling(dev, monkeypatch):
+    """The library owns the tile size: a plan made for 64-row tiles has
+    twice the bias partials' rows and is refused before any launch."""
+    x = torch.zeros(300, 16, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(16, 16, device=dev, dtype=torch.bfloat16)
+    g = torch.zeros(300, 16, device=dev, dtype=torch.bfloat16)
+    mh_network.mh_network_bwd(x, x, g, w, w, 1)
+    monkeypatch.setattr(mh_network, "TILE", 64)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        mh_network.mh_network_bwd(x, x, g, w, w, 1)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

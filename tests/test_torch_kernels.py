@@ -214,3 +214,56 @@ def test_build_targets_hopper():
     assert {k.__module__.rsplit(".", 1)[-1]
             for k in KERNEL_WRAPPERS} == set(build.KERNELS)
 
+
+
+def test_library_path_covers_headers_and_flags(tmp_path, monkeypatch):
+    """A library is named after its source, every header of csrc/ and the
+    flags, so an edited header (or a new flag) never loads a stale one."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path("mh_network")
+    (csrc / "gemm_sm90.cuh").write_text(
+        (csrc / "gemm_sm90.cuh").read_text() + "\n// edited\n")
+    edited = build.library_path("mh_network")
+    assert edited != before
+    (csrc / "extra.cuh").write_text("#pragma once\n")     # a new header
+    added = build.library_path("mh_network")
+    assert added != edited
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        (*build.NVCC_FLAGS, "-I/usr/local/cutlass/include"))
+    assert build.library_path("mh_network") != added
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,cat,hid,f,heads",
+                         [(18432, 384, 256, 128, 5), (19968, 384, 256, 128, 5),
+                          (1000, 144, 272, 160, 8), (129, 48, 32, 16, 2),
+                          (1, 16, 16, 16, 1), (1025, 384, 256, 128, 5)])
+def test_mh_network_bwd_plan_covers_every_row_once(rows, cat, hid, f, heads,
+                                                   sms):
+    """The backward's host plan: row tiles cover E, and each weight-grad
+    product's splits cover every row exactly once, are no empty, are
+    multiples of 64 rows and (where E allows) at least 1024 rows, and fill
+    at most about one wave of the card's SMs (132 on the H100 SXM, 114 on
+    the PCIe card)."""
+    plan = mh_network.bwd_plan(rows, cat, hid, f, heads, sms)
+    tile, step = mh_network.TILE, mh_network.K_STEP
+    assert (plan["tiles"] - 1) * tile < rows <= plan["tiles"] * tile
+    out_tiles = {"win": -(-heads * hid // tile) * -(-cat // tile),
+                 "wout": heads * -(-f // tile) * -(-hid // tile)}
+    for key in ("win", "wout"):
+        splits, per = plan[key]
+        assert per % step == 0 and splits >= 1
+        covered = np.zeros(rows, int)
+        for s in range(splits):
+            lo, hi = s * per, min(rows, (s + 1) * per)
+            assert lo < hi                                  # none empty
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        if rows >= mh_network.MIN_SPLIT:
+            assert per >= mh_network.MIN_SPLIT or splits == 1
+        assert splits * out_tiles[key] <= max(sms, out_tiles[key])
