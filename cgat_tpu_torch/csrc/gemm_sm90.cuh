@@ -12,8 +12,10 @@
 // transposes anything:
 //   - A is K-major (rows of A contiguous in K: one 64 x 128-row box) or
 //     MN-major (A^T stored row-major: two 64-column boxes of 64 K rows);
-//   - B is always MN-major (B stored as (K, N) rows: two boxes of 64 N
-//     columns), which wgmma takes through its transpose flag.
+//   - B is K-major (B^T stored row-major, as a Linear's weight is: one
+//     64 x 128-row box, rows of one head) or MN-major (B stored as (K, N)
+//     rows: two boxes of 64 N columns); wgmma takes an MN-major operand
+//     through its transpose flag.
 // Every operand is a rank-3 tensor map (line width, and two outer axes, one
 // of them the head), so a box that runs past a head's edge, past E or past
 // a width reads zeros (TMA's out-of-bounds fill): ragged M, N and K need no
@@ -221,7 +223,7 @@ __device__ __forceinline__ Tile tile_at(const Shape& s, int t, int wg,
 // the tile's k-blocks; the epilogue overwrites it with its bf16 output,
 // which one thread stores to the same box of td while the next tile's
 // input arrives in the other buffer.
-template <bool A_MN, class Epi>
+template <bool A_MN, bool B_MN, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta,
             const __grid_constant__ CUtensorMap tb,
@@ -279,9 +281,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta,
           } else {
             tma_load(a_s, &ta, &full[st], k0, tl.z, tl.m0);
           }
-          tma_load_mn(b_s, &tb, &full[st], tl.n0, k0, tl.z, s.b_k_outer);
-          tma_load_mn(b_s + HALF, &tb, &full[st], tl.n0 + 64, k0, tl.z,
-                      s.b_k_outer);
+          if constexpr (B_MN) {
+            tma_load_mn(b_s, &tb, &full[st], tl.n0, k0, tl.z, s.b_k_outer);
+            tma_load_mn(b_s + HALF, &tb, &full[st], tl.n0 + 64, k0, tl.z,
+                        s.b_k_outer);
+          } else {
+            tma_load(b_s, &tb, &full[st], k0, tl.n0, tl.z);
+          }
         }
         if constexpr (Epi::kTileIO) {
           // after the k-blocks, so that waiting for the epilogue two tiles
@@ -317,13 +323,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta,
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        // K-major A: 16 columns are 32 bytes along the swizzled line; an
+        // K-major: 16 columns are 32 bytes along the swizzled line; an
         // MN-major operand advances 16 lines of 128 bytes. SBO: 8 lines.
         // LBO: the next 64-wide box (MN-major), unused for K-major.
         const uint64_t da = A_MN ? smem_desc(a_addr + kk * 2048, HALF, 1024)
                                  : smem_desc(a_addr + kk * 32, 16, 1024);
-        const uint64_t db = smem_desc(b_addr + kk * 2048, HALF, 1024);
-        wgmma_m64n128k16<A_MN ? 1 : 0, 1>(acc, da, db);
+        const uint64_t db = B_MN ? smem_desc(b_addr + kk * 2048, HALF, 1024)
+                                 : smem_desc(b_addr + kk * 32, 16, 1024);
+        wgmma_m64n128k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       fence_acc(acc);
@@ -430,6 +437,16 @@ inline cudaError_t map_k_major(CUtensorMap* map, const void* base,
   return make_map(map, base, width, heads, width * 2, rows, ld * 2, 1, BM);
 }
 
+// K-major B: `rows` N lines of `width` K columns per head (axis 1, row
+// stride ld), heads on axis 2 (stride head_stride elements); boxes of 64 K
+// columns x 128 rows of one head, so rows past a head's last read zeros
+inline cudaError_t map_k_major_b(CUtensorMap* map, const void* base,
+                                 uint64_t width, uint64_t rows, uint64_t ld,
+                                 uint64_t heads, uint64_t head_stride) {
+  return make_map(map, base, width, rows, ld * 2, heads, head_stride * 2, BN,
+                  1);
+}
+
 // MN-major operand of 64 K lines a box. k_outer: lines (rows, K) on axis 2
 // with heads on axis 1 (a head is `width` columns of a row of ld);
 // otherwise K on axis 1 with stride ld and heads on axis 2 with stride
@@ -444,8 +461,9 @@ inline cudaError_t map_mn_major(CUtensorMap* map, const void* base,
                   1);
 }
 
-// one block per SM (at most one per tile)
-template <bool A_MN, class Epi>
+// one block per SM (at most one per tile). Each instance of the kernel sets
+// its own shared-memory limit at its first launch.
+template <bool A_MN, bool B_MN = true, class Epi>
 cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb,
                    const Shape& s, const Epi& epi, cudaStream_t stream,
                    const CUtensorMap* tc = nullptr,
@@ -457,7 +475,7 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb,
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_kernel<A_MN, Epi>,
+      err = cudaFuncSetAttribute(gemm_kernel<A_MN, B_MN, Epi>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem_bytes<Epi>());
     if (err != cudaSuccess) {
@@ -469,8 +487,8 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb,
                     s.splits;
   if (Epi::kTileIO && (tc == nullptr || td == nullptr))
     return cudaErrorInvalidValue;
-  gemm_kernel<A_MN, Epi><<<tiles < sms ? tiles : sms, THREADS,
-                           smem_bytes<Epi>(), stream>>>(
+  gemm_kernel<A_MN, B_MN, Epi><<<tiles < sms ? tiles : sms, THREADS,
+                                 smem_bytes<Epi>(), stream>>>(
       ta, tb, tc ? *tc : ta, td ? *td : ta, s, epi);
   return cudaGetLastError();
 }

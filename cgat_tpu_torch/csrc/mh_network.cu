@@ -1,32 +1,37 @@
 // Head-parallel two-layer MLP over a shared input (MultiHeadNetwork).
 //
 // Replaces the TPU kernel cgat_tpu/ops/pallas/mh_network.py: _fwd_kernel
-// (launched by _fwd_impl). For an edge tile of x (E, cat) and each head k:
+// (launched by _fwd_impl). For x (E, cat) and each head k:
 //
-//   h_k = bf16(leaky_relu(x @ Win_k^T + b_in_k, 0.01))      (tile, hid)
-//   out[:, k*F:(k+1)*F] = bf16(h_k @ Wout_k^T + b_out_k)    (tile, F)
+//   h_k = bf16(leaky_relu(x @ Win_k^T + b_in_k, 0.01))      (E, hid)
+//   out[:, k*F:(k+1)*F] = bf16(h_k @ Wout_k^T + b_out_k)    (E, F)
 //
-// with Win (H*hid, cat) and Wout (H*F, hid) in the reference's grouped
-// Conv1d layout (rows of head k are contiguous), so both products are
-// "row times row" and need no transposed copy. The grouped second product
-// runs per head, never as a dense (H*hid, H*F) block-diagonal matrix.
+// with f32 products and bias adds, and Win (H*hid, cat) and Wout (H*F, hid)
+// in the reference's grouped Conv1d layout (rows of head k are
+// contiguous): both products are "row times row", a K-major B, read from
+// the weights as they are. The grouped second product runs per head, never
+// as a dense (H*hid, H*F) block-diagonal matrix.
 //
 // Bound on the H100: operations. At the flagship shape (E = 18432,
 // cat = 384, hid = 256, H = 5, F = 128, bf16) one call is 24.2 GFLOP of
 // tensor-core work, ~24 us at 989 TFLOP/s, against 16 MB of input and
 // output, ~5 us at 3.35 TB/s.
 //
-// Design: one block of 8 warps per 64-edge tile. The x tile is staged in
-// shared memory once and reused by all heads; the bf16 hidden activation
-// h_k never leaves shared memory. Both products use bf16 WMMA fragments
-// (mma.sync, f32 accumulation); weight fragments stream from L2, which
-// holds the whole 1.3 MB weight set. Each warp moves its accumulator
-// fragment through a small per-warp scratch to apply the bias, the
-// leaky-ReLU and the bf16 rounding in f32, as the TPU kernel does. The last
-// tile is ragged: rows past E are zero-filled on load and never stored, so
-// E needs no divisor rule. wgmma/TMA pipelining is later work. When the
-// caller asks for it (training), the forward also writes the bf16 hidden
-// activation h (E, H*hid), which the backward needs.
+// Design: two products on the Hopper mainloop (gemm_sm90.cuh, described
+// below for the backward), each with a bias epilogue that stores 16 bytes
+// a lane, masked at E and at the width:
+//   1. h = bf16(leaky(x @ Win^T + b_in)), all heads as one product
+//      (M = E, N = H*hid, K = cat). h (E, H*hid) is the training form's
+//      second output and the serving form's scratch (the wrapper allocates
+//      it either way);
+//   2. out_k = bf16(h_k @ Wout_k^T + b_out_k) per head (M = E, N = F,
+//      K = hid): A is h through a rank-3 map (hid, heads, rows), B is Wout
+//      through one whose outer axis is the head, so TMA's zero fill stops a
+//      head's K at hid and its N at F.
+// h makes a round trip through device memory (2 x 51 MB at the flagship,
+// ~30 us at 3.35 TB/s, part of the read from L2); keeping h_k in shared
+// memory between the two products needs a mainloop whose A comes from
+// shared memory, and is later work. No atomics: the same bits every launch.
 //
 // Backward: replaces _bwd_kernel (launched by _vjp_bwd). From x, the saved
 // h and the cotangent g (E, H*F):
@@ -63,147 +68,83 @@
 //      in order and rounds to bf16.
 // Ragged E, F, hid and cat need no masked loads (TMA fills zeros past
 // every edge, a head's included); stores are masked.
-#include <mma.h>
-
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 64;          // edge rows per block
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RT = BM / 16;     // 16-row fragments per tile
-constexpr int SCR_LD = 20;      // per-warp f32 scratch leading dimension
 constexpr float LEAKY_SLOPE = 0.01f;
 
-__host__ __device__ constexpr int pad_ld(int n) { return n + 8; }
+// Epilogue of the forward's products: out[row, z*n + col] =
+// bf16(acc + bias[z*n + col]) with row stride ld, through the leaky ReLU
+// when LEAKY; rows past m and columns past n (a multiple of 16) are not
+// stored. The 4 lanes of a quad hold a row's columns in pairs (8 columns
+// apart from one fragment to the next); per 4 fragments they transpose
+// their 4 x 4 pairs by shuffles, so that each lane stores 8 consecutive
+// columns in one 16-byte store and a warp's store covers 8 rows x 64
+// bytes (with one 4-byte store a pair the forward took ~1.4x as long on
+// the H100: chip_variants.py).
+template <bool LEAKY>
+struct BiasEpi {
+  static constexpr bool kTileIO = false;
+  const bf16* bias;
+  bf16* out;
+  int m, n, ld;
 
-__host__ __device__ inline int smem_bytes(int cat, int hid) {
-  return WARPS * 16 * SCR_LD * 4 + BM * pad_ld(cat) * 2 + BM * pad_ld(hid) * 2;
-}
-
-// acc[RT] = tile_s (BM, kdim; leading dim lds) @ W[n0:n0+16, :kdim]^T, with
-// W row-major (rows of length kdim) in global memory
-__device__ __forceinline__ void tile_product(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[RT],
-    const bf16* tile_s, int lds, const bf16* w, int kdim, int n0) {
+  __device__ void operator()(float (&acc)[64], const sm90::Tile& t, float*,
+                             unsigned char*) const {
+    const int lane = t.thread % 32, warp = t.thread / 32, q = lane % 4;
+    const int row0 = t.m0 + t.wg * 64 + warp * 16 + lane / 4;
+    const bf16* b = bias + static_cast<size_t>(t.z) * n;
+    bf16* o = out + static_cast<size_t>(t.z) * n;
 #pragma unroll
-  for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  const bf16* wn = w + static_cast<size_t>(n0) * kdim;
-  for (int kk = 0; kk < kdim; kk += 16) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(b, wn + kk, kdim);
+    for (int g = 0; g < 4; ++g) {   // fragments 4g .. 4g + 3
+      float2 bv[4];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, tile_s + i * 16 * lds + kk, lds);
-      wmma::mma_sync(acc[i], a, b, acc[i]);
-    }
-  }
-}
-
-// copy a (BM, width) bf16 tile (leading dim lds) to rows row0.. of dst
-// (leading dim ldd, column col0), 8 values per store, rows past n_rows
-// skipped
-__device__ __forceinline__ void store_tile(bf16* dst, int ldd, int col0,
-                                           const bf16* tile_s, int lds,
-                                           int width, int row0, int n_rows) {
-  const int chunks = width / 8;
-  for (int i = threadIdx.x; i < BM * chunks; i += THREADS) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    if (row0 + r < n_rows)
-      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row0 + r) * ldd + col0 + c) =
-          *reinterpret_cast<const uint4*>(tile_s + r * lds + c);
-  }
-}
-
-// stage rows row0.. of columns [col0, col0 + width) of src (leading dim
-// lds) as a (BM, width) tile with leading dim ldd; rows past n_rows are 0
-__device__ __forceinline__ void stage_tile(bf16* tile_s, int ldd,
-                                           const bf16* src, int lds, int col0,
-                                           int width, int row0, int n_rows) {
-  const int chunks = width / 8;
-  for (int i = threadIdx.x; i < BM * chunks; i += THREADS) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * lds + col0 + c);
-    *reinterpret_cast<uint4*>(tile_s + r * ldd + c) = v;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-mh_network_fwd(const bf16* __restrict__ x, const bf16* __restrict__ win,
-               const bf16* __restrict__ b_in, const bf16* __restrict__ wout,
-               const bf16* __restrict__ b_out, bf16* __restrict__ out,
-               bf16* __restrict__ h_out, int n_rows, int cat, int hid, int f,
-               int heads) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* scratch = reinterpret_cast<float*>(smem);
-  bf16* xs = reinterpret_cast<bf16*>(smem + WARPS * 16 * SCR_LD * 4);
-  const int ldx = pad_ld(cat);
-  bf16* hs = xs + BM * ldx;
-  const int ldh = pad_ld(hid);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = scratch + warp * 16 * SCR_LD;
-  const int row0 = blockIdx.x * BM;
-  const int hf = heads * f;
-
-  // stage the x tile, 8 bf16 (16 bytes) per load; rows past E are zeros
-  stage_tile(xs, ldx, x, cat, 0, cat, row0, n_rows);
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
-  for (int k = 0; k < heads; ++k) {
-    // first product: h_k = leaky(x @ Win_k^T + b_in_k), kept in shared memory
-    const bf16* wk = win + static_cast<size_t>(k) * hid * cat;
-    for (int nt = warp; nt < hid / 16; nt += WARPS) {
-      tile_product(acc, xs, ldx, wk, cat, nt * 16);
-      for (int i = 0; i < RT; ++i) {
-        wmma::store_matrix_sync(ws, acc[i], SCR_LD, wmma::mem_row_major);
-        __syncwarp();
-        for (int t = lane; t < 256; t += 32) {
-          const int r = t / 16, c = t % 16;
-          const int j = nt * 16 + c;
-          float p = ws[r * SCR_LD + c] + __bfloat162float(b_in[k * hid + j]);
-          p = p > 0.f ? p : LEAKY_SLOPE * p;
-          hs[(i * 16 + r) * ldh + j] = __float2bfloat16(p);
+      for (int j = 0; j < 4; ++j) {
+        const int col = t.n0 + (4 * g + j) * 8 + q * 2;
+        bv[j] = col < n ? __bfloat1622float2(
+                              *reinterpret_cast<const __nv_bfloat162*>(b + col))
+                        : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t w[4];   // w[j]: columns (4g + j) * 8 + 2q, + 1
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * g + j;
+          float v0 = acc[i * 4 + half * 2] + bv[j].x;
+          float v1 = acc[i * 4 + half * 2 + 1] + bv[j].y;
+          if (LEAKY) {
+            v0 = v0 > 0.f ? v0 : LEAKY_SLOPE * v0;
+            v1 = v1 > 0.f ? v1 : LEAKY_SLOPE * v1;
+          }
+          const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+          w[j] = *reinterpret_cast<const uint32_t*>(&p);
         }
-        __syncwarp();
+        // transpose in 2 x 2 blocks (lanes q, q ^ 1), then across them
+        // (q, q ^ 2): w[j] becomes columns (4g + q) * 8 + 2j, + 1
+#pragma unroll
+        for (int k = 0; k < 4; k += 2) {
+          const uint32_t r =
+              __shfl_xor_sync(0xffffffffu, (q & 1) ? w[k] : w[k + 1], 1);
+          if (q & 1) w[k] = r; else w[k + 1] = r;
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const uint32_t r =
+              __shfl_xor_sync(0xffffffffu, (q & 2) ? w[k] : w[k + 2], 2);
+          if (q & 2) w[k] = r; else w[k + 2] = r;
+        }
+        const int row = row0 + half * 8;
+        const int col = t.n0 + (4 * g + q) * 8;
+        if (row < m && col < n)
+          *reinterpret_cast<uint4*>(o + static_cast<size_t>(row) * ld + col) =
+              make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
-    __syncthreads();
-    if (h_out != nullptr)
-      store_tile(h_out, heads * hid, k * hid, hs, ldh, hid, row0, n_rows);
-    // second product: out[:, k*F:(k+1)*F] = h_k @ Wout_k^T + b_out_k
-    const bf16* wo = wout + static_cast<size_t>(k) * f * hid;
-    for (int nt = warp; nt < f / 16; nt += WARPS) {
-      tile_product(acc, hs, ldh, wo, hid, nt * 16);
-      for (int i = 0; i < RT; ++i) {
-        wmma::store_matrix_sync(ws, acc[i], SCR_LD, wmma::mem_row_major);
-        __syncwarp();
-        for (int t = lane; t < 256; t += 32) {
-          const int r = t / 16, c = t % 16;
-          const int row = row0 + i * 16 + r;
-          const int col = nt * 16 + c;
-          if (row < n_rows)
-            out[static_cast<size_t>(row) * hf + k * f + col] = __float2bfloat16(
-                ws[r * SCR_LD + c] + __bfloat162float(b_out[k * f + col]));
-        }
-        __syncwarp();
-      }
-    }
-    // the next head overwrites hs
-    __syncthreads();
   }
-}
+};
 
 // Epilogue of step 1 (dpre of head z): the tile of h_k arrives in the tile
 // buffer (TMA); mask by its sign, write bf16 dpre over it in place (stored
@@ -423,25 +364,41 @@ __global__ void reduce_parts(ReduceJob w_in, ReduceJob w_out, ReduceJob b_in,
 }  // namespace
 
 // x: (n_rows, cat); win: (heads*hid, cat); b_in: (heads*hid,);
-// wout: (heads*f, hid); b_out: (heads*f,); out: (n_rows, heads*f); h_out:
-// (n_rows, heads*hid) or null. All bf16, C-contiguous, 32-byte aligned;
-// cat, hid and f multiples of 16.
+// wout: (heads*f, hid); b_out: (heads*f,); out: (n_rows, heads*f); h:
+// (n_rows, heads*hid), written by the first product and read by the second
+// (never null). All bf16, C-contiguous, 32-byte aligned; cat, hid and f
+// multiples of 16.
 CGAT_EXPORT int cgat_mh_network_fwd(const void* x, const void* win,
                                     const void* b_in, const void* wout,
-                                    const void* b_out, void* out, void* h_out,
+                                    const void* b_out, void* out, void* h,
                                     int n_rows, int cat, int hid, int f,
                                     int heads, void* stream) {
   if (n_rows <= 0) return 0;
-  const int bytes = smem_bytes(cat, hid);
-  cudaError_t err = allow_smem(mh_network_fwd, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_rows + BM - 1) / BM;
-  mh_network_fwd<<<blocks, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(win),
-      static_cast<const bf16*>(b_in), static_cast<const bf16*>(wout),
-      static_cast<const bf16*>(b_out), static_cast<bf16*>(out),
-      static_cast<bf16*>(h_out), n_rows, cat, hid, f, heads);
-  return static_cast<int>(cudaGetLastError());
+  if (h == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hh = heads * hid;
+  cudaError_t err;
+  CUtensorMap x_k, win_k, h_k, wout_k;
+  if ((err = sm90::map_k_major(&x_k, x, cat, 1, n_rows, cat)) ||
+      (err = sm90::map_k_major_b(&win_k, win, cat, hh, cat, 1,
+                                 static_cast<uint64_t>(hh) * cat)) ||
+      (err = sm90::map_k_major(&h_k, h, hid, heads, n_rows, hh)) ||
+      (err = sm90::map_k_major_b(&wout_k, wout, hid, f, hid, heads,
+                                 static_cast<uint64_t>(f) * hid)))
+    return static_cast<int>(err);
+  // 1. h = bf16(leaky(x @ Win^T + b_in)), every head in one product
+  if ((err = sm90::launch<false, false>(
+           x_k, win_k, sm90::Shape{n_rows, hh, cat, cat, 1, 1, 0, 0},
+           BiasEpi<true>{static_cast<const bf16*>(b_in),
+                         static_cast<bf16*>(h), n_rows, hh, hh},
+           st)))
+    return static_cast<int>(err);
+  // 2. out_k = bf16(h_k @ Wout_k^T + b_out_k), per head
+  return static_cast<int>(sm90::launch<false, false>(
+      h_k, wout_k, sm90::Shape{n_rows, f, hid, hid, heads, 1, 0, 0},
+      BiasEpi<false>{static_cast<const bf16*>(b_out),
+                     static_cast<bf16*>(out), n_rows, f, heads * f},
+      st));
 }
 
 // x: (n_rows, cat); h: (n_rows, heads*hid) from the forward; g: (n_rows,

@@ -30,31 +30,28 @@ import torch
 from . import build
 
 LEAKY_SLOPE = 0.01
-SMEM_LIMIT = 232448  # shared memory one H100 block may use
-ROWS = 64       # edge rows per block of the forward kernel
-# The backward's GEMM tiling, sm90::BM and sm90::BK of csrc/gemm_sm90.cuh:
+# The widest cat + hid the kernels take: the limit the port has always
+# taken, from its first forward design (64-row tiles of x and h and a
+# scratch in one block's 232,448 bytes of shared memory). The GEMM kernels
+# take a fixed amount whatever the widths (``sm90::smem_bytes`` in
+# ``csrc/gemm_sm90.cuh``: 144,480 bytes, 210,016 for the backward's dpre
+# GEMM), so wider layers would fit them; the gate is unchanged until a
+# test holds the kernels at those widths.
+MAX_CAT_PLUS_HID = 1720
+# The GEMM tiling, sm90::BM and sm90::BK of csrc/gemm_sm90.cuh:
 # the library refuses a plan (bwd_plan) made with other values.
 TILE = 128      # output tile (rows and columns) of the backward's GEMMs
 K_STEP = 64     # rows a backward GEMM stage loads; splits are multiples
 MIN_SPLIT = 1024  # rows of a weight-grad split, at least
 
 
-def smem_bytes(cat: int, hid: int) -> int:
-    """Shared memory of one forward block (mirrors ``smem_bytes`` in the
-    .cu): per-warp scratch + 64-row x and hidden tiles, rows padded by 8.
-    The backward's GEMMs take a fixed amount whatever the widths, given by
-    ``sm90::smem_bytes`` in ``csrc/gemm_sm90.cuh``: 210,016 bytes for the
-    dpre GEMM (two tile buffers), 144,480 for the others."""
-    return 8 * 16 * 20 * 4 + ROWS * (cat + 8) * 2 + ROWS * (hid + 8) * 2
-
-
 def supported(cat: int, hid: int, out: int, heads: int, dtype) -> bool:
     """Whether the kernels take these widths: bf16, 16-multiple widths (the
-    tensor-core fragment), and tiles that fit one forward block's shared
-    memory. The backward kernels take every width the forward takes."""
+    tensor-core step), and cat + hid within ``MAX_CAT_PLUS_HID``. The
+    backward kernels take every width the forward takes."""
     return (dtype == torch.bfloat16 and heads > 0 and cat % 16 == 0
             and hid % 16 == 0 and out % 16 == 0
-            and smem_bytes(cat, hid) <= SMEM_LIMIT)
+            and cat + hid <= MAX_CAT_PLUS_HID)
 
 
 @functools.cache
@@ -122,7 +119,8 @@ def _check(x, win, wout, heads, **others):
 def mh_network(x, win, b_in, wout, b_out, heads, *, return_hidden=False):
     """x (E, cat); win (H*hid, cat); b_in (H*hid,); wout (H*F, hid);
     b_out (H*F,). Returns (E, H*F), head-major; with ``return_hidden`` also
-    the flat bf16 hidden activation (E, H*hid), written only then."""
+    the flat bf16 hidden activation (E, H*hid). The kernel writes h between
+    its two products either way; without ``return_hidden`` it is scratch."""
     if x.device.type == "cpu":
         return mh_network_plain(x, win, b_in, wout, b_out, heads,
                                 return_hidden=return_hidden)
@@ -130,12 +128,10 @@ def mh_network(x, win, b_in, wout, b_out, heads, *, return_hidden=False):
                             b_in=(b_in, (win.shape[0],)),
                             b_out=(b_out, (wout.shape[0],)))
     out = torch.empty((n, heads * f), dtype=x.dtype, device=x.device)
-    h = (torch.empty((n, heads * hid), dtype=x.dtype, device=x.device)
-         if return_hidden else None)
+    h = torch.empty((n, heads * hid), dtype=x.dtype, device=x.device)
     code = _fwd()(x.data_ptr(), win.data_ptr(), b_in.data_ptr(),
                   wout.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-                  None if h is None else h.data_ptr(), n, cat, hid, f, heads,
-                  build.stream(x.device))
+                  h.data_ptr(), n, cat, hid, f, heads, build.stream(x.device))
     build.check("mh_network", code)
     mh_network.launches += 1
     return (out, h) if return_hidden else out

@@ -9,7 +9,9 @@ failure exits non-zero:
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold each forward kernel against its plain PyTorch version on the card
    at the shapes the serving forward gives it, and time both with CUDA
-   events;
+   events; mh_network in both forms (out, and out with h), bit-identical in
+   two launches, and timed beside addmm, leaky ReLU and baddbmm (cuBLAS
+   calls, a yardstick the port never calls);
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
    answers 3 requests of 64 crystals through ``ServingModel.predict``; each
    forward must launch mh_network x10, segment_attention x6 and
@@ -151,8 +153,43 @@ def checks_row(checks: list[dict]) -> dict:
             "checks": checks}
 
 
+def deterministic(name: str, fn) -> bool:
+    """Two launches on the same inputs must give the same bits."""
+    first, second = fn(), fn()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{name}: two launches on the same inputs differ")
+    return True
+
+
 def scales(row: dict) -> str:
     return ", ".join(f"{c['max_abs_plain']:.3e}" for c in row["checks"])
+
+
+def report(rows: list[dict]) -> None:
+    """Print each kernel row: its checks, times, bound and yardsticks."""
+    for r in rows:
+        print(f"[kernels] {r['name']} {r['shape']}: max_abs_err "
+              f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
+              f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
+              f"(tol {NORM_TOL}), "
+              f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms"
+              + (f", index_add_ {r['library_ms']:.4f} ms (device "
+                 f"{fmt_ms(r['library_device_ms'])})" if "library_ms" in r
+                 else "")
+              + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
+                 else "")
+              + (", two launches bit-identical" if r.get("deterministic")
+                 else ""))
+        if "cublas_ms" in r:
+            print(f"[kernels] {r['name']}: {r['cublas_what']}, a yardstick "
+                  f"the port never calls: {r['cublas_ms']:.4f} ms"
+                  + (f" (device {fmt_ms(r['cublas_device_ms'])})"
+                     if "cublas_device_ms" in r else ""))
+        for name, ms in r.get("device_split", {}).items():
+            print(f"[kernels] {r['name']} device time by kernel: "
+                  f"{ms:.4f} ms  {name}")
 
 
 def build_kernels() -> None:
@@ -163,7 +200,8 @@ def build_kernels() -> None:
           f"({build.BUILD_DIR})")
     for name, rec in info.items():
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -194,8 +232,24 @@ def check_kernels(model, batch) -> list[dict]:
         msg = mk.mh_network(*args_m)
         checks = [compare("mh_network", alpha, mk.mh_network_plain(*args_a)),
                   compare("mh_network", msg, mk.mh_network_plain(*args_m))]
+        # the training form: out and the hidden activation h
+        out_t, h_t = mk.mh_network(*args_a, return_hidden=True)
+        p_out, p_h = mk.mh_network_plain(*args_a, return_hidden=True)
+        checks += [compare("mh_network", out_t, p_out),
+                   compare("mh_network", h_t, p_h)]
+        if not torch.equal(out_t, alpha):
+            fail("mh_network: the serving and training forms differ")
         H, hid, f = node.MH_A.nb_heads, node.MH_A.hidden_layer_dim, \
             node.MH_A.output_dim
+        x_a, win, b_in, wout, b_out, _ = args_a
+
+        # addmm, leaky ReLU, per-head baddbmm as bf16 cuBLAS and PyTorch
+        # calls: a yardstick (three calls, not one), never called by the port
+        def cublas():
+            p = torch.nn.functional.leaky_relu_(
+                torch.addmm(b_in, x_a, win.T), mk.LEAKY_SLOPE)
+            torch.baddbmm(b_out.view(H, 1, f), p.view(-1, H, hid).transpose(
+                0, 1), wout.view(H, f, hid).transpose(1, 2))
         flops = 2.0 * n_edges * (cat * H * hid + H * hid * f)
         nbytes = 2.0 * (n_edges * cat + H * hid * cat + H * hid
                         + H * f * hid + H * f + n_edges * H * f)
@@ -207,7 +261,16 @@ def check_kernels(model, batch) -> list[dict]:
                      "device_ms": kernel_device_ms(
                          lambda: mk.mh_network(*args_a)),
                      "plain_ms": time_ms(lambda: mk.mh_network_plain(*args_a)),
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "deterministic": deterministic(
+                         "mh_network",
+                         lambda: mk.mh_network(*args_a, return_hidden=True)),
+                     "cublas_ms": time_ms(cublas),
+                     "cublas_device_ms": kernel_device_ms(cublas),
+                     "cublas_what": "addmm, leaky ReLU and baddbmm (bf16 "
+                                    "cuBLAS and PyTorch calls)",
+                     "device_split": kernel_device_ms(
+                         lambda: mk.mh_network(*args_a), split=True)})
 
         # segment_attention: the layer-0 aggregation (edges -> nodes) and the
         # crystal pool's shape (nodes -> crystals)
@@ -268,16 +331,7 @@ def check_kernels(model, batch) -> list[dict]:
                          lambda: hk.hyper_apply(*h_args)),
                      "plain_ms": time_ms(lambda: hk.hyper_apply_plain(*h_args)),
                      "bound_ms": b_ms, "bound_by": b_by})
-    for r in rows:
-        print(f"[kernels] {r['name']} {r['shape']}: max_abs_err "
-              f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
-              f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
-              f"(tol {NORM_TOL}), "
-              f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms"
-              + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
-                 else ""))
+    report(rows)
     return rows
 
 
@@ -343,8 +397,9 @@ def device_ms(fn, n_runs: int) -> dict[str, list[float]]:
     per_name: dict[str, list[float]] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            ms, count = per_name.get(e.name, (0.0, 0.0))
-            per_name[e.name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
+            name = e.name.replace("(anonymous namespace)::", "")
+            ms, count = per_name.get(name, (0.0, 0.0))
+            per_name[name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
                                 count + 1.0 / n_runs]
     return per_name
 
@@ -492,13 +547,6 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
                      "plain_ms": time_ms(plain),
                      "bound_ms": b_ms, "bound_by": b_by, **extra})
 
-    def deterministic(name, fn):
-        """Two launches on the same inputs must give the same bits."""
-        first, second = fn(), fn()
-        if not all(torch.equal(a, b) for a, b in zip(first, second)):
-            fail(f"{name}: two launches on the same inputs differ")
-        return True
-
     with torch.no_grad():
         def seg_args(num_nodes):
             rec = seen[f"segment_attention_{num_nodes}"]
@@ -545,6 +593,8 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             deterministic=deterministic(
                 "mh_network_bwd", lambda: mk.mh_network_bwd(*args)),
             cublas_ms=time_ms(cublas),
+            cublas_what="the same four products as bf16 cuBLAS calls "
+                        "(torch.matmul)",
             device_split=kernel_device_ms(lambda: mk.mh_network_bwd(*args),
                                           split=True))
 
@@ -598,28 +648,7 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             deterministic=deterministic(
                 "segment_sum", lambda: (ssk.segment_sum(*args),
                                         ssk.segment_sum(*pool))))
-    for r in rows:
-        print(f"[kernels] {r['name']} {r['shape']}: max_abs_err "
-              f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL} x max|plain|, "
-              f"max|plain| {scales(r)}), norm-wise {r['rel_norm_err']:.3e} "
-              f"(tol {NORM_TOL}), "
-              f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms"
-              + (f", index_add_ {r['library_ms']:.4f} ms (device "
-                 f"{fmt_ms(r['library_device_ms'])})" if "library_ms" in r
-                 else "")
-              + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
-                 else "")
-              + (", two launches bit-identical" if r.get("deterministic")
-                 else ""))
-        if "cublas_ms" in r:
-            print(f"[kernels] {r['name']}: the same four products as bf16 "
-                  f"cuBLAS calls (torch.matmul, a yardstick the port never "
-                  f"calls): {r['cublas_ms']:.4f} ms")
-        for name, ms in r.get("device_split", {}).items():
-            print(f"[kernels] {r['name']} device time by kernel: "
-                  f"{ms:.4f} ms  {name}")
+    report(rows)
     return rows
 
 
@@ -864,7 +893,8 @@ def main() -> int:
                 "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r.get("library_ms"),
-                **{k: r[k] for k in ("cublas_ms", "library_device_ms",
+                **{k: r[k] for k in ("cublas_ms", "cublas_device_ms",
+                                     "library_device_ms",
                                      "deterministic", "device_split")
                    if k in r}}
                for r in rows + train_rows]

@@ -77,21 +77,40 @@ def test_segment_attention_kernel(dev, dtype, hf):
 
 
 @pytest.mark.parametrize("rows,cat,hid,f,heads",
-                         [(1000, 384, 256, 128, 5), (37, 48, 32, 16, 2)])
+                         [(1000, 384, 256, 128, 5), (37, 48, 32, 16, 2),
+                          (300, 384, 80, 128, 5), (500, 64, 128, 16, 2),
+                          (0, 384, 256, 128, 5), (200, 896, 816, 16, 1),
+                          (150, 128, 256, 2048, 16)])
 def test_mh_network_kernel(dev, rows, cat, hid, f, heads):
+    """Row counts that are no multiple of the 128-row tile (1000, 37, 300,
+    500, 200, 150) and none; cat and hid below one 64-wide K box (48, 32);
+    hid = 80, where a head's second K box would run into the next head's
+    columns of h; F = 16 with 2 heads, where a 128-row box of Wout would
+    run into the next head's rows; and the widest widths the gate takes.
+    Both forms (h as scratch, h returned), h against the plain version's,
+    and the same bits in two launches."""
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
                                * scale).bfloat16()
     args = (r(rows, cat), r(heads * hid, cat, scale=cat ** -0.5),
             r(heads * hid, scale=0.1), r(heads * f, hid, scale=hid ** -0.5),
             r(heads * f, scale=0.1), heads)
+    assert mh_network.supported(cat, hid, f, heads, torch.bfloat16)
     before = _launches()
     got = mh_network.mh_network(*args)
-    assert _launches()["mh_network"] == before["mh_network"] + 1
-    want = mh_network.mh_network_plain(*args)
-    assert got.shape == (rows, heads * f) and got.dtype == torch.bfloat16
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2 * float(want.float().abs().max()))
+    got_out, got_h = mh_network.mh_network(*args, return_hidden=True)
+    assert _launches()["mh_network"] == before["mh_network"] + 2
+    want, want_h = mh_network.mh_network_plain(*args, return_hidden=True)
+    assert got.shape == got_out.shape == (rows, heads * f)
+    assert got_h.shape == (rows, heads * hid)
+    assert got.dtype == got_h.dtype == torch.bfloat16
+    if rows:
+        _close(got, want, torch.bfloat16)
+        _close(got_out, want, torch.bfloat16)
+        _close(got_h, want_h, torch.bfloat16)
+    assert torch.equal(got, got_out)
+    again, again_h = mh_network.mh_network(*args, return_hidden=True)
+    assert torch.equal(again, got_out) and torch.equal(again_h, got_h)
 
 
 @pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48)])

@@ -176,6 +176,47 @@ def test_mh_network_gate():
     assert not mh_network.supported(8192, 4096, 128, 5, torch.bfloat16)
 
 
+@pytest.mark.parametrize("f,heads", [(128, 5), (16, 2)])
+def test_mh_network_gate_keeps_its_widths(f, heads):
+    """The gate takes the widths it always took: those whose 64-row tiles
+    of x and h fit one block of the first forward design (a 10,240-byte
+    scratch and rows padded by 8, in 232,448 bytes of shared memory)."""
+    for cat in range(16, 2049, 16):
+        for hid in range(16, 2049, 16):
+            old = 10240 + 64 * (cat + 8) * 2 + 64 * (hid + 8) * 2 <= 232448
+            assert mh_network.supported(cat, hid, f, heads,
+                                        torch.bfloat16) == old
+
+
+def test_mh_network_wrapper_allocates_the_hidden_scratch(monkeypatch):
+    """Off the CPU the wrapper makes one call of the C entry per call, with
+    out (E, H*F) and h (E, H*hid) allocated in both forms: the kernel
+    writes h between its two products, and refuses a null one. Meta tensors
+    stand in for the card's, and a stub for the library."""
+    calls, allocated = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        allocated.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(mh_network, "_fwd",
+                        lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
+    args = (meta(37, 48), meta(2 * 32, 48), meta(64), meta(2 * 16, 32),
+            meta(32), 2)
+    before = mh_network.mh_network.launches
+    out = mh_network.mh_network(*args)
+    out2, h = mh_network.mh_network(*args, return_hidden=True)
+    assert out.shape == out2.shape == (37, 32) and h.shape == (37, 64)
+    assert mh_network.mh_network.launches == before + 2
+    assert allocated == [(37, 32), (37, 64)] * 2
+    assert [c[7:12] for c in calls] == [(37, 48, 32, 16, 2)] * 2
+    assert all(c[6] is not None for c in calls)    # h, in both forms
+
+
 @pytest.mark.parametrize("b", [96, 100])
 def test_hyper_apply_matches_jax(rng, b):
     c = i = o = 128
