@@ -198,6 +198,53 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d += A (64 x 16, from registers) B (16 x 128); TB: B is MN-major. A
+// thread's a[0..3] hold A's bf16 pairs (row, col), (row + 8, col),
+// (row, col + 8), (row + 8, col + 8), row = 16 * (warp in the warpgroup) +
+// lane / 4 and col = 2 * (lane % 4): the rows of d[0..1] and d[2..3]. The
+// registers are read while the product runs: keep them unchanged until
+// wgmma.wait_group says it is done.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// keeps a register-A fragment where the in-flight product reads it
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
+  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3])::"memory");
+}
+
 // a barrier of the two consumer warpgroups only (the producer has left)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
@@ -461,28 +508,45 @@ inline cudaError_t map_mn_major(CUtensorMap* map, const void* base,
                   1);
 }
 
-// one block per SM (at most one per tile). Each instance of the kernel sets
-// its own shared-memory limit at its first launch.
+constexpr int MAX_DEVICES = 64;
+
+// The current device's SM count, once `kernel`'s shared-memory limit is
+// set on it. Both are per device: `sms` (one array per kernel, indexed by
+// device ordinal, 0 until that device is prepared) keeps the count of each
+// device on which the limit has been set.
+template <class Kernel>
+cudaError_t prepare(Kernel kernel, int smem, int (&sms)[MAX_DEVICES],
+                    int* count) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                      dev)) ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+      return err;
+    sms[dev] = n;
+  }
+  *count = sms[dev];
+  return cudaSuccess;
+}
+
+// one block per SM (at most one per tile) of the current device. Each
+// instance of the kernel sets its own shared-memory limit at its first
+// launch on each device.
 template <bool A_MN, bool B_MN = true, class Epi>
 cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb,
                    const Shape& s, const Epi& epi, cudaStream_t stream,
                    const CUtensorMap* tc = nullptr,
                    const CUtensorMap* td = nullptr) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_kernel<A_MN, B_MN, Epi>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes<Epi>());
-    if (err != cudaSuccess) {
-      sms = 0;
-      return err;
-    }
-  }
+  static int per_device[MAX_DEVICES] = {};
+  int sms = 0;
+  const cudaError_t err = prepare(gemm_kernel<A_MN, B_MN, Epi>,
+                                  smem_bytes<Epi>(), per_device, &sms);
+  if (err != cudaSuccess) return err;
   const int tiles = ((s.n + BN - 1) / BN) * ((s.m + BM - 1) / BM) * s.heads *
                     s.splits;
   if (Epi::kTileIO && (tc == nullptr || td == nullptr))

@@ -31,19 +31,22 @@
 //
 // * dh/dx, replacing _bwd_dhdx_kernel (launched by _fused_bwd):
 //     dh = bf16(dP @ K)        dx[b, i] = bf16(sum_o bf16(g[b,o] * P[b, o*I+i]))
-//   Bound: operations, 7 GFLOP at the flagship shape (P recomputed, then
-//   dP @ K), ~7 us at 989 TFLOP/s. Design: the forward's grid of (64-row
-//   block) x (16 outputs), times a third axis of 128-column jobs, so that
-//   any width the forward takes fits: a dx job recomputes, per output o,
-//   its 128 columns of P_o with WMMA from the staged hidden rows, as the
-//   forward does, and adds bf16(g * P_o) into an f32 dx tile in shared
-//   memory (one 16-column tile per warp); a dh job builds dP_o =
-//   bf16(g[:, o] * x) in shared memory 128 columns at a time and
-//   accumulates dP_o @ K_o into its 128 columns of dh, which the warps keep
-//   in register fragments over all 16 outputs, then adds the bias tail
-//   g_group @ K_tail. P and dP never reach device memory. The 16 outputs'
-//   partial dh and dx go to an f32 array per output group, and a reduce
-//   kernel adds the groups in order and rounds to bf16: no atomics.
+//   Bound: operations, 6.5 GFLOP at the flagship shape (P recomputed,
+//   then dP @ K), ~6.6 us at 989 TFLOP/s, against 4.6 MB of input and
+//   output, ~1.4 us at 3.35 TB/s. Design (namespace dhdx below): one
+//   persistent launch of units planned on the host, about one wave of the
+//   card's SMs, on the pieces of gemm_sm90.cuh (TMA into a ring of
+//   mbarrier stages, one producer thread, two consumer warpgroups on
+//   wgmma): a dx unit (128 rows, 128 columns of I, a range of outputs)
+//   computes P_o = hidden K_o^T per output on the mainloop and adds
+//   bf16(g[:, o] * bf16(P_o + c_o)) into f32 registers; a dh unit (128
+//   rows, 128 columns of C, a range of outputs) adds dP_o K_o, its A
+//   operand built in registers from x and g (wgmma's register-A form), and
+//   the last group's unit adds g K_tail. o is the outer axis of K's tensor
+//   maps, so a box stops at I. P and dP never reach device memory. Each
+//   unit stores its f32 tile to its group's partial plane, and one reduce
+//   launch adds the groups in order and rounds dh and dx to bf16: two
+//   launches, no atomics.
 // * dK, replacing _bwd_dk_kernel (launched by _fused_bwd):
 //     dK[o*I + i, :] = bf16(sum_b dP[b, o*I + i] * hidden[b, :])
 //     db[o*I + i] = sum_b dP[b, o*I + i]                      (f32)
@@ -58,6 +61,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace nvcuda;
 
@@ -194,154 +198,362 @@ hyper_apply_fwd(const bf16* __restrict__ hidden, const bf16* __restrict__ k,
   }
 }
 
-constexpr int JW = WARPS * 16; // dx or dh columns of one job: a 16-column tile per warp
-constexpr int DPK = 128;        // dP columns staged per step of a dh job
-constexpr int DP_LD = DPK + 8;
+// ---- dh/dx: one persistent launch built from gemm_sm90.cuh's pieces ------
+namespace dhdx {
 
-// [per-warp scratch | g tile (BM, OC) | job area]: a dx job's area is the
-// f32 dx tile (BM, JW) and the hidden tile (BM, c + 8), a dh job's the dP
-// slice (BM, DPK + 8), which is smaller
-__host__ __device__ inline int dhdx_smem_bytes(int c) {
-  return WARPS * 16 * SCR_LD * 4 + BM * OC * 2 + BM * JW * 4 + BM * pad_ld(c) * 2;
+using sm90::BK;
+constexpr int TILE = 128;                   // rows and columns of a unit's tile
+constexpr int STAGES = 6;
+constexpr int A_BYTES = sm90::A_BYTES;      // 128 rows x 64 of hidden, x or g
+constexpr int B_BYTES = BK * TILE * 2;      // a box of K, 64 x 128
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int BIAS_BYTES = TILE * 2;        // c_o's columns of a dx tile
+constexpr int SMEM =
+    1024 + STAGES * (STAGE_BYTES + BIAS_BYTES) + 2 * STAGES * 8;
+
+// The host's plan (bwd_plan in ops/kernels/hyper_apply.py): 128-row tiles
+// of B, 128-column tiles of I (dx) and of C (dh), and the outputs o cut
+// into `groups` groups of `per` outputs.
+struct Plan {
+  int n_rows, c_dim, in_ch, out_ch;
+  int m_tiles, x_tiles, h_tiles;
+  int groups, per;
+  __host__ __device__ int x_units() const {
+    return m_tiles * x_tiles * groups;
+  }
+  __host__ __device__ int units() const {
+    return m_tiles * (x_tiles + h_tiles) * groups;
+  }
+};
+
+struct Unit {
+  bool dh;            // a dh unit, else a dx unit
+  int m0, n0;         // first row; first column of I (dx) or of C (dh)
+  int group, o_begin, o_end;
+  bool tail;          // the last group's dh unit also adds g K_tail
+};
+
+// Unit u: the dx units first, then the dh units; within a kind the group
+// runs fastest, then the column tile, then the row tile.
+__device__ __forceinline__ Unit unit_at(const Plan& p, int u) {
+  const bool dh = u >= p.x_units();
+  if (dh) u -= p.x_units();
+  const int cols = dh ? p.h_tiles : p.x_tiles;
+  const int group = u % p.groups, rest = u / p.groups;
+  const int o_begin = group * p.per;
+  return Unit{dh, (rest / cols) * TILE, (rest % cols) * TILE, group, o_begin,
+              min(p.out_ch, o_begin + p.per), dh && group == p.groups - 1};
 }
 
-// grid (row blocks, out_ch / 16, dx jobs + dh jobs); job z < ceil(in_ch /
-// JW) computes dx columns [z*JW, z*JW + JW), the others dh columns
-__global__ void __launch_bounds__(THREADS)
-hyper_apply_bwd_dhdx(const bf16* __restrict__ hidden,
-                     const bf16* __restrict__ k,
-                     const bf16* __restrict__ bias,
-                     const bf16* __restrict__ x, const bf16* __restrict__ g,
-                     float* __restrict__ part_dh, float* __restrict__ part_dx,
-                     int n_rows, int c_dim, int in_ch, int out_ch) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* scratch = reinterpret_cast<float*>(smem);
-  bf16* gs = reinterpret_cast<bf16*>(scratch + WARPS * 16 * SCR_LD);  // (BM, OC)
-  unsigned char* area = reinterpret_cast<unsigned char*>(gs + BM * OC);
+// each bf16 of the pair v times s, rounded to bf16
+__device__ __forceinline__ uint32_t scale_pair(uint32_t v, float s) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  const __nv_bfloat162 r = __floats2bfloat162_rn(f.x * s, f.y * s);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = scratch + warp * 16 * SCR_LD;
-  const int row0 = blockIdx.x * BM;
-  const int o0 = blockIdx.y * OC;
-  const size_t plane = static_cast<size_t>(gridDim.x) * BM;   // rows_pad
-  const int x_jobs = (in_ch + JW - 1) / JW;
+// a named barrier of the two consumer warpgroups: wait for the other's
+// arrival, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
 
-  for (int i = threadIdx.x; i < BM * OC; i += THREADS) {
-    const int r = i / OC, ol = i % OC;
-    gs[i] = row0 + r < n_rows
-        ? g[static_cast<size_t>(row0 + r) * out_ch + o0 + ol] : __float2bfloat16(0.f);
+// `bytes` contiguous bytes into shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+// Persistent: block b walks units b, b + gridDim.x, ... A producer thread
+// keeps up to STAGES k-blocks in flight through TMA. Per output o, a dx
+// unit's k-blocks are 64 columns of C: a box of hidden's rows and one of
+// K_o's (both K-major), and with the last k-block the tile's 128 values of
+// the bias c_o (a bulk copy into the stage's bias slot). A dh unit's are
+// 64 rows of K_o (two boxes of 64 columns of its C tile: an MN-major B)
+// and the same 64 columns of x's rows (a box in the stage's A slot); after
+// its last output the tail unit's k-blocks are 64 rows of K_tail and 64
+// columns of g. The two consumer warpgroups each own 64 rows of the unit's
+// 128-row tile and keep its f32 sum in registers:
+// - dx: P_o's tile = hidden K_o^T on wgmma (shared-memory A and B), then
+//   sum += bf16(g[:, o] * bf16(P_o + c_o)) in the registers it lies in.
+//   Where a turn's k-blocks fit the ring (C <= STAGES * 64), the
+//   warpgroups take turns (two named barriers): one's products run while
+//   the other's epilogue does, so the tensor cores do not wait for the
+//   epilogue. (A turn longer than the ring would wait for stages that only
+//   the other warpgroup's turn frees.)
+// - dh: sum += dP_o K_o with A from registers: each thread reads its pairs
+//   of x from the stage and builds its fragment of dP_o = bf16(g[:, o] x)
+//   with g's values at its two rows (loaded one output ahead); the tail's
+//   A is g's box itself. Columns past I (or O) are zeros in both boxes
+//   (TMA's fill), so every k-block issues all its products: a wgmma under
+//   a branch would be serialised.
+// The unit ends by storing its tile to its group's f32 partial plane.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+bwd_kernel(const __grid_constant__ CUtensorMap t_hidden,
+           const __grid_constant__ CUtensorMap t_kw,
+           const __grid_constant__ CUtensorMap t_x,
+           const __grid_constant__ CUtensorMap t_kmn,
+           const __grid_constant__ CUtensorMap t_g,
+           const __grid_constant__ CUtensorMap t_tail,
+           const bf16* __restrict__ bias, const bf16* __restrict__ g,
+           float* __restrict__ part_dx, float* __restrict__ part_dh,
+           const Plan p) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned stages
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* bias_s = smem + STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + STAGES * BIAS_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int units = p.units();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], sm90::CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
+  __syncthreads();
 
-  if (static_cast<int>(blockIdx.z) < x_jobs) {
-    // dx job: P_o's columns of this job, recomputed from the hidden rows,
-    // and dx += bf16(g[:, o] * P_o); warp w owns dx column tile x0/16 + w
-    float* dxs = reinterpret_cast<float*>(area);                     // (BM, JW)
-    bf16* hs = reinterpret_cast<bf16*>(dxs + BM * JW);
-    const int ldh = pad_ld(c_dim);
-    const int x0 = blockIdx.z * JW;
-    const int nt = x0 / 16 + warp;
-    stage_rows(hs, ldh, hidden, c_dim, row0, n_rows);
-    for (int i = threadIdx.x; i < BM * JW; i += THREADS) dxs[i] = 0.f;
-    __syncthreads();
-    if (nt < in_ch / 16) {
-      for (int ol = 0; ol < OC; ++ol) {
-        const int p0 = (o0 + ol) * in_ch + nt * 16;
-        tile_product(acc, hs, ldh, k + static_cast<size_t>(p0) * c_dim, c_dim);
-        for (int i = 0; i < RT; ++i) {
-          wmma::store_matrix_sync(ws, acc[i], SCR_LD, wmma::mem_row_major);
-          __syncwarp();
-          for (int t = lane; t < 256; t += 32) {
-            const int r = t / 16, c = t % 16;
-            const float p = __bfloat162float(__float2bfloat16(
-                ws[r * SCR_LD + c] + __bfloat162float(bias[p0 + c])));
-            const float gv = __bfloat162float(gs[(i * 16 + r) * OC + ol]);
-            dxs[(i * 16 + r) * JW + warp * 16 + c] +=
-                __bfloat162float(__float2bfloat16(gv * p));
+  const int wg = threadIdx.x / 128;
+  // `it` counts k-blocks over all of this block's units: stage it % STAGES,
+  // in its (it / STAGES)-th use
+  if (wg == sm90::CONSUMERS) {
+    if (threadIdx.x == sm90::CONSUMERS * 128) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit t = unit_at(p, u);
+        const int bias_bytes = 2 * min(TILE, p.in_ch - t.n0);
+        for (int o = t.o_begin; o < t.o_end + (t.tail ? 1 : 0); ++o) {
+          const bool tail = o == t.o_end;
+          const int len = tail ? p.out_ch : t.dh ? p.in_ch : p.c_dim;
+          for (int k0 = 0; k0 < len; k0 += BK, ++it) {
+            const int st = it % STAGES;
+            sm90::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+            unsigned char* a_s = smem + st * STAGE_BYTES;
+            unsigned char* b_s = a_s + A_BYTES;
+            if (!t.dh) {
+              const bool last = k0 + BK >= len;
+              sm90::mbar_expect_tx(&full[st],
+                                   STAGE_BYTES + (last ? bias_bytes : 0));
+              sm90::tma_load(a_s, &t_hidden, &full[st], k0, 0, t.m0);
+              sm90::tma_load(b_s, &t_kw, &full[st], k0, t.n0, o);
+              if (last)
+                bulk_load(bias_s + st * BIAS_BYTES,
+                          bias + size_t(o) * p.in_ch + t.n0, bias_bytes,
+                          &full[st]);
+            } else {
+              const CUtensorMap* map = tail ? &t_tail : &t_kmn;
+              const int z = tail ? 0 : o;
+              sm90::mbar_expect_tx(&full[st], STAGE_BYTES);
+              sm90::tma_load(a_s, tail ? &t_g : &t_x, &full[st], k0, 0, t.m0);
+              sm90::tma_load(b_s, map, &full[st], t.n0, k0, z);
+              sm90::tma_load(b_s + sm90::HALF, map, &full[st], t.n0 + 64, k0,
+                             z);
+            }
           }
-          __syncwarp();
         }
       }
-    }
-    __syncthreads();
-    const int width = min(JW, in_ch - x0);
-    float* pdx = part_dx + (blockIdx.y * plane + row0) * in_ch + x0;
-    for (int i = threadIdx.x; i < BM * width; i += THREADS) {
-      const int r = i / width, c = i % width;
-      pdx[static_cast<size_t>(r) * in_ch + c] = dxs[r * JW + c];
     }
     return;
   }
 
-  // dh job: dh[:, c0:c0+JW] += dP_o @ K_o over the 16 outputs, dP_o =
-  // bf16(g[:, o] * x) staged DPK columns at a time; warp w owns dh column
-  // tile c0/16 + w and keeps its fragments in registers
-  bf16* dps = reinterpret_cast<bf16*>(area);                         // (BM, DP_LD)
-  const int nt = (blockIdx.z - x_jobs) * (JW / 16) + warp;
-  const bool active = nt < c_dim / 16;
+  // consumers: the rows of d[0..1] and d[2..3] of thread (wg, thread)
+  const int thread = threadIdx.x % 128, lane = thread % 32, q = lane % 4;
+  const int row_in_tile = wg * 64 + (thread / 32) * 16 + lane / 4;
+  // this thread's pairs of a 128-row A box (64 columns, 128-byte swizzle):
+  // row row_in_tile (+ 8 for the second row), columns 16 kk + 2q (+ 8)
+  const int a_off = row_in_tile * 128 + 4 * q;
+  const int swz = lane / 4;                 // row_in_tile % 8
+  // dx turns: warpgroup w waits on barrier 2 + w and arrives on the
+  // other's; warpgroup 1's first arrival lets warpgroup 0 go first
+  const bool turns = p.c_dim <= STAGES * BK;
+  const int mine = 2 + wg, other = 3 - wg;
+  if (turns && wg == 1) named_arrive(2);
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit t = unit_at(p, u);
+    const int r0 = t.m0 + row_in_tile, r1 = r0 + 8;
+    const bool v0 = r0 < p.n_rows, v1 = r1 < p.n_rows;
+    const bf16 zero = __float2bfloat16(0.f);
+    float sum[64];
 #pragma unroll
-  for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  __syncthreads();
-  for (int ol = 0; ol < OC; ++ol) {
-    const bf16* ko = k + static_cast<size_t>(o0 + ol) * in_ch * c_dim;
-    for (int kc = 0; kc < in_ch; kc += DPK) {
-      const int kw = min(DPK, in_ch - kc);
-      for (int t = threadIdx.x; t < BM * kw; t += THREADS) {
-        const int r = t / kw, i = t % kw;
-        const float xv = row0 + r < n_rows
-            ? __bfloat162float(x[static_cast<size_t>(row0 + r) * in_ch + kc + i]) : 0.f;
-        dps[r * DP_LD + i] =
-            __float2bfloat16(__bfloat162float(gs[r * OC + ol]) * xv);
-      }
-      __syncthreads();
-      if (active) {
-        // K row-major (rows of length c_dim)
-        for (int kk = 0; kk < kw; kk += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, ko + static_cast<size_t>(kc + kk) * c_dim + nt * 16, c_dim);
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    if (!t.dh) {
+      for (int o = t.o_begin; o < t.o_end; ++o) {
+        const bf16 g0 = v0 ? g[size_t(r0) * p.out_ch + o] : zero;
+        const bf16 g1 = v1 ? g[size_t(r1) * p.out_ch + o] : zero;
+        float acc[64];
 #pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, dps + i * 16 * DP_LD + kk, DP_LD);
-            wmma::mma_sync(acc[i], a, b, acc[i]);
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        if (turns) named_sync(mine);   // the other's products are done
+        for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {
+          const int st = it % STAGES;
+          sm90::mbar_wait(&full[st], (it / STAGES) & 1);
+          const uint32_t a_addr =
+              sm90::smem_u32(smem + st * STAGE_BYTES) + wg * sm90::HALF;
+          const uint32_t b_addr =
+              sm90::smem_u32(smem + st * STAGE_BYTES + A_BYTES);
+          sm90::fence_acc(acc);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            sm90::wgmma_m64n128k16<0, 0>(
+                acc, sm90::smem_desc(a_addr + kk * 32, 16, 1024),
+                sm90::smem_desc(b_addr + kk * 32, 16, 1024));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          sm90::fence_acc(acc);
+          // keep this stage's products in flight; the previous one is done
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          if (k0 > 0) sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        sm90::fence_acc(acc);
+        if (turns) named_arrive(other);
+        // dx += bf16(g[:, o] * bf16(P_o + c_o)), c_o from the last stage's
+        // bias slot, which is released after; the slot's columns past I
+        // hold stale values, but those columns are never stored
+        const int st = (it - 1) % STAGES;
+        const __nv_bfloat162* c =
+            reinterpret_cast<const __nv_bfloat162*>(bias_s + st * BIAS_BYTES);
+        const __nv_bfloat162 gg0 = __halves2bfloat162(g0, g0);
+        const __nv_bfloat162 gg1 = __halves2bfloat162(g1, g1);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 cv = __bfloat1622float2(c[j * 4 + q]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = j * 4 + h * 2;
+            const __nv_bfloat162 pv =
+                __floats2bfloat162_rn(acc[i] + cv.x, acc[i + 1] + cv.y);
+            const float2 tv = __bfloat1622float2(__hmul2(h ? gg1 : gg0, pv));
+            sum[i] += tv.x;
+            sum[i + 1] += tv.y;
           }
         }
+        sm90::mbar_arrive(&empty[st]);
       }
-      // the next step overwrites dps
-      __syncthreads();
+    } else {
+      // the scales of this output's rows: g[:, o], then 1 for the tail
+      float s0 = v0 ? __bfloat162float(g[size_t(r0) * p.out_ch + t.o_begin])
+                    : 0.f;
+      float s1 = v1 ? __bfloat162float(g[size_t(r1) * p.out_ch + t.o_begin])
+                    : 0.f;
+      for (int o = t.o_begin; o < t.o_end + (t.tail ? 1 : 0); ++o) {
+        const bool more = o + 1 < t.o_end;
+        const bf16* g_next = g + o + 1;
+        const float next0 =
+            !more ? 1.f
+            : v0  ? __bfloat162float(g_next[size_t(r0) * p.out_ch])
+                  : 0.f;
+        const float next1 =
+            !more ? 1.f
+            : v1  ? __bfloat162float(g_next[size_t(r1) * p.out_ch])
+                  : 0.f;
+        const int len = o == t.o_end ? p.out_ch : p.in_ch;
+        for (int k0 = 0; k0 < len; k0 += BK, ++it) {
+          const int st = it % STAGES;
+          sm90::mbar_wait(&full[st], (it / STAGES) & 1);
+          const unsigned char* a_s = smem + st * STAGE_BYTES + a_off;
+          uint32_t a[BK / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const int lo = ((2 * kk) ^ swz) * 16;
+            const int hi = ((2 * kk + 1) ^ swz) * 16;
+            auto pair = [&](int off) {
+              return *reinterpret_cast<const uint32_t*>(a_s + off);
+            };
+            a[kk][0] = scale_pair(pair(lo), s0);
+            a[kk][1] = scale_pair(pair(8 * 128 + lo), s1);
+            a[kk][2] = scale_pair(pair(hi), s0);
+            a[kk][3] = scale_pair(pair(8 * 128 + hi), s1);
+          }
+          const uint32_t b_addr =
+              sm90::smem_u32(smem + st * STAGE_BYTES + A_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) sm90::fence_frag(a[kk]);
+          sm90::fence_acc(sum);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          // an MN-major B advances 16 lines of 128 bytes a step; LBO: the
+          // box of the tile's next 64 columns
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            sm90::wgmma_m64n128k16_rs<1>(
+                sum, a[kk],
+                sm90::smem_desc(b_addr + kk * 2048, sm90::HALF, 1024));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // the fragments are rebuilt for the next k-block: wait for all
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          sm90::fence_acc(sum);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) sm90::fence_frag(a[kk]);
+          sm90::mbar_arrive(&empty[st]);
+        }
+        s0 = next0;
+        s1 = next1;
+      }
+    }
+    // the unit's tile into its group's f32 partial plane; rows past B and
+    // columns past the width are not stored
+    const int width = t.dh ? p.c_dim : p.in_ch;
+    float* out = (t.dh ? part_dh : part_dx) +
+                 size_t(t.group) * p.n_rows * width;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = t.n0 + j * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? r1 : r0;
+        if (row < p.n_rows && col < width)
+          *reinterpret_cast<float2*>(out + size_t(row) * width + col) =
+              make_float2(sum[j * 4 + h * 2], sum[j * 4 + h * 2 + 1]);
+      }
     }
   }
-  if (!active) return;
-  // bias tail: dh += g[:, o0:o0+16] @ K[O*I + o0 : O*I + o0 + 16, :]
-  const bf16* kt = k + static_cast<size_t>(out_ch * in_ch + o0) * c_dim;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-  wmma::load_matrix_sync(b, kt + nt * 16, c_dim);
-  float* pdh = part_dh + (blockIdx.y * plane + row0) * c_dim + nt * 16;
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, gs + i * 16 * OC, OC);
-    wmma::mma_sync(acc[i], a, b, acc[i]);
-    wmma::store_matrix_sync(pdh + static_cast<size_t>(i) * 16 * c_dim, acc[i],
-                            c_dim, wmma::mem_row_major);
-  }
+  // warpgroup 1's last arrival
+  if (turns && wg == 0) named_sync(2);
 }
 
-// out[b, j] = bf16(sum_group part[group, b, j]) for b < n_rows, groups in
-// order; part is (groups, rows_pad, width)
-__global__ void reduce_groups(const float* __restrict__ part, int groups,
-                              int rows_pad, int n_rows, int width,
-                              bf16* __restrict__ out) {
-  const int64_t len = static_cast<int64_t>(n_rows) * width;
-  const int64_t plane = static_cast<int64_t>(rows_pad) * width;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < len; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float sum = 0.f;
-    for (int gi = 0; gi < groups; ++gi) sum += part[gi * plane + i];
-    out[i] = __float2bfloat16(sum);
+// dh = bf16(sum of part_dh's planes), dx likewise, the groups in order, in
+// one launch: thread i < n_dh takes 4 columns of dh, the rest 4 of dx
+// (n_dh, n_dx: element counts / 4)
+__global__ void __launch_bounds__(256)
+reduce_kernel(const float* __restrict__ part_dh,
+              const float* __restrict__ part_dx, int groups, int64_t n_dh,
+              int64_t n_dx, bf16* __restrict__ dh, bf16* __restrict__ dx) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool first = i < n_dh;
+  if (!first) i -= n_dh;
+  const int64_t len = first ? n_dh : n_dx;
+  if (i >= len) return;
+  const float4* part =
+      reinterpret_cast<const float4*>(first ? part_dh : part_dx);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int gi = 0; gi < groups; ++gi) {
+    const float4 v = part[gi * len + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
   }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+  *reinterpret_cast<uint2*>((first ? dh : dx) + i * 4) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
+
+}  // namespace dhdx
 
 constexpr int DK_ROWS = 64;     // rows of dK per block
 constexpr int DK_STEP = 32;     // batch rows staged per step
@@ -463,38 +675,61 @@ CGAT_EXPORT int cgat_hyper_apply_fwd(const void* hidden, const void* k,
 }
 
 // Same inputs as the forward plus g: (n_rows, out_ch). Outputs dh (n_rows,
-// c_dim) and dx (n_rows, in_ch), bf16. Scratch part_dh (out_ch/16, rows_pad,
-// c_dim) and part_dx (out_ch/16, rows_pad, in_ch) f32, rows_pad = n_rows
-// rounded up to 64. Takes every width the forward takes.
-CGAT_EXPORT int cgat_hyper_apply_bwd_dhdx(const void* hidden, const void* k,
-                                          const void* bias, const void* x,
-                                          const void* g, int n_rows,
-                                          int c_dim, int in_ch, int out_ch,
-                                          float* part_dh, float* part_dx,
-                                          void* dh, void* dx, void* stream) {
+// c_dim) and dx (n_rows, in_ch), bf16. The plan (bwd_plan in
+// ops/kernels/hyper_apply.py) cuts the outputs into `groups` groups of
+// `per`; one whose groups do not cover the outputs exactly is refused.
+// Scratch: part_dx (groups, n_rows, in_ch) and part_dh (groups, n_rows,
+// c_dim) f32. Two launches: the units, then the reduce. Takes every width
+// the forward takes.
+CGAT_EXPORT int cgat_hyper_apply_bwd_dhdx(
+    const void* hidden, const void* k, const void* bias, const void* x,
+    const void* g, int n_rows, int c_dim, int in_ch, int out_ch, int groups,
+    int per, float* part_dx, float* part_dh, void* dh, void* dx,
+    void* stream) {
   if (n_rows <= 0) return 0;
+  if (per < 1 || groups != (out_ch + per - 1) / per)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bytes = dhdx_smem_bytes(c_dim);
-  cudaError_t err = allow_smem(hyper_apply_bwd_dhdx, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_blocks = (n_rows + BM - 1) / BM;
-  const int jobs = (in_ch + JW - 1) / JW + (c_dim + JW - 1) / JW;
-  const dim3 grid(row_blocks, out_ch / OC, jobs);
-  hyper_apply_bwd_dhdx<<<grid, THREADS, bytes, st>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(g), part_dh, part_dx, n_rows, c_dim, in_ch,
-      out_ch);
+  const uint64_t head = static_cast<uint64_t>(in_ch) * c_dim;  // K_o
+  const bf16* k_tail = static_cast<const bf16*>(k) + out_ch * head;
+  cudaError_t err;
+  CUtensorMap t_hidden, t_kw, t_x, t_kmn, t_g, t_tail;
+  if ((err = sm90::map_k_major(&t_hidden, hidden, c_dim, 1, n_rows, c_dim)) ||
+      (err = sm90::map_k_major_b(&t_kw, k, c_dim, in_ch, c_dim, out_ch,
+                                 head)) ||
+      (err = sm90::map_k_major(&t_x, x, in_ch, 1, n_rows, in_ch)) ||
+      (err = sm90::map_k_major(&t_g, g, out_ch, 1, n_rows, out_ch)) ||
+      (err = sm90::map_mn_major(&t_kmn, k, c_dim, out_ch, in_ch, c_dim, head,
+                                false)) ||
+      (err = sm90::map_mn_major(&t_tail, k_tail, c_dim, 1, out_ch, c_dim,
+                                static_cast<uint64_t>(out_ch) * c_dim,
+                                false)))
+    return static_cast<int>(err);
+  static int per_device[sm90::MAX_DEVICES] = {};
+  int sms = 0;
+  if ((err = sm90::prepare(dhdx::bwd_kernel, dhdx::SMEM, per_device, &sms)))
+    return static_cast<int>(err);
+  const dhdx::Plan p{n_rows,
+                     c_dim,
+                     in_ch,
+                     out_ch,
+                     (n_rows + dhdx::TILE - 1) / dhdx::TILE,
+                     (in_ch + dhdx::TILE - 1) / dhdx::TILE,
+                     (c_dim + dhdx::TILE - 1) / dhdx::TILE,
+                     groups,
+                     per};
+  const int units = p.units();
+  dhdx::bwd_kernel<<<units < sms ? units : sms, sm90::THREADS, dhdx::SMEM,
+                     st>>>(t_hidden, t_kw, t_x, t_kmn, t_g, t_tail,
+                           static_cast<const bf16*>(bias),
+                           static_cast<const bf16*>(g), part_dx, part_dh, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int rows_pad = row_blocks * BM;
-  const int blocks = 264;
-  reduce_groups<<<blocks, THREADS, 0, st>>>(part_dh, out_ch / OC, rows_pad,
-                                            n_rows, c_dim,
-                                            static_cast<bf16*>(dh));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  reduce_groups<<<blocks, THREADS, 0, st>>>(part_dx, out_ch / OC, rows_pad,
-                                            n_rows, in_ch,
-                                            static_cast<bf16*>(dx));
+  const int64_t n_dh = static_cast<int64_t>(n_rows) * c_dim / 4;
+  const int64_t n_dx = static_cast<int64_t>(n_rows) * in_ch / 4;
+  dhdx::reduce_kernel<<<static_cast<int>((n_dh + n_dx + 255) / 256), 256, 0,
+                        st>>>(part_dh, part_dx, groups, n_dh, n_dx,
+                              static_cast<bf16*>(dh),
+                              static_cast<bf16*>(dx));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,11 +11,13 @@ The library name carries a hash of the source, of every header in
 or header is rebuilt and a stale library is never loaded. ``build()`` starts
 one ``nvcc`` per source, all at once, and keeps each compiler log (with
 ptxas' register and spill report) beside its library. Nothing is built or
-loaded when this module is imported.
+loaded when this module is imported. ``run`` makes each launch on its
+tensors' device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -123,6 +125,31 @@ def stream(device) -> int:
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SM count of card ``index``: the kernels that plan their work on the
+    host aim at one wave."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def run(fn, device, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` on ``device``'s current
+    stream with ``device`` the current CUDA device, as the kernel's launch
+    and its per-device settings need, and return its code. The device is
+    switched only when it is not the current one, and switched back after;
+    on one card this costs one ``current_device`` call and nothing else.
+    A device without an index (no card named) is left as it is."""
+    index = device.index
+    current = None if index is None else torch.cuda.current_device()
+    if current == index:
+        return fn(*args, stream(device))
+    torch.cuda.set_device(index)
+    try:
+        return fn(*args, stream(device))
+    finally:
+        torch.cuda.set_device(current)
 
 
 def check(name: str, code: int) -> None:

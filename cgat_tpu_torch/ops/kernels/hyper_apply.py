@@ -14,8 +14,10 @@ with f32 products and sums. The backward, for the cotangent g (B, O), has
     dh = bf16(dP @ k)        dx[b, i] = bf16(sum_o bf16(g[b, o] * P[b, o*I + i]))
     dk = dP^T @ hidden       dbias = sum_b dP
 
-The kernels are in ``cgat_tpu_torch/csrc/hyper_apply.cu``; none writes P to
-device memory (the backward recomputes it from k). The bias-tail rows of
+The kernels are in ``cgat_tpu_torch/csrc/hyper_apply.cu``; none writes P or
+dP to device memory (the backward recomputes P from k and builds dP from g
+and x). The dh/dx kernel runs units that :func:`bwd_plan` makes on the
+host. The bias-tail rows of
 dk and dbias are plain torch sums, as the JAX package computes them outside
 Pallas. CPU tensors go through the plain versions; CUDA tensors launch the
 kernels or raise.
@@ -30,13 +32,14 @@ import torch
 from . import build
 
 SMEM_LIMIT = 232448  # shared memory one H100 block may use
-OUT_GROUP = 16       # outputs per block of the forward and dh/dx kernels
+TILE = 128           # rows and columns of a dh/dx unit's tile (dhdx::TILE)
 
 
 def smem_bytes(c_dim: int, in_ch: int) -> int:
     """Shared memory of one forward block (mirrors ``smem_bytes`` in the
     .cu): per-warp scratch, partial sums, bias tail, 64-row hidden and x
-    tiles. The backward blocks need less at every width."""
+    tiles. The backward kernels take every width the forward takes: the
+    dK blocks need less, and the dh/dx kernel a fixed 199,264 bytes."""
     return (8 * 16 * 20 * 4 + 8 * 64 * 16 * 4 + 64 * 16 * 4
             + 64 * (c_dim + 8) * 2 + 64 * (in_ch + 8) * 2)
 
@@ -100,10 +103,9 @@ def hyper_apply(hidden, k, bias, x, out_ch):
     n, c_dim, in_ch = _check(hidden, x, out_ch, k=(k, (f, hidden.shape[1])),
                              bias=(bias, (f,)))
     out = torch.empty((n, out_ch), dtype=hidden.dtype, device=hidden.device)
-    code = _entry("cgat_hyper_apply_fwd", 5, 4, 0)(
-        hidden.data_ptr(), k.data_ptr(), bias.data_ptr(), x.data_ptr(),
-        out.data_ptr(), n, c_dim, in_ch, out_ch,
-        build.stream(hidden.device))
+    code = build.run(_entry("cgat_hyper_apply_fwd", 5, 4, 0), hidden.device,
+                     hidden.data_ptr(), k.data_ptr(), bias.data_ptr(),
+                     x.data_ptr(), out.data_ptr(), n, c_dim, in_ch, out_ch)
     build.check("hyper_apply", code)
     hyper_apply.launches += 1
     return out
@@ -131,6 +133,26 @@ def hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, g, out_ch):
     return dh, t.float().sum(1).to(x.dtype)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(n_rows: int, c_dim: int, in_ch: int, out_ch: int,
+             sms: int) -> dict:
+    """How the dh/dx kernel cuts its work, planned on the host: 128-row
+    tiles of B, 128-column tiles of I (dx units) and of C (dh units), and
+    the O outputs cut into groups of consecutive outputs, about enough
+    units for one wave of ``sms`` SMs and no group empty: ``groups`` is
+    (groups, outputs per group). Each group's units write one f32 partial
+    plane of dx, (groups, B, I), and one of dh, (groups, B, C)."""
+    m_tiles = _cdiv(n_rows, TILE)
+    x_tiles, h_tiles = _cdiv(in_ch, TILE), _cdiv(c_dim, TILE)
+    want = max(1, min(out_ch, sms // max(1, m_tiles * (x_tiles + h_tiles))))
+    per = _cdiv(out_ch, want)
+    return {"m_tiles": m_tiles, "x_tiles": x_tiles, "h_tiles": h_tiles,
+            "groups": (_cdiv(out_ch, per), per)}
+
+
 def hyper_apply_bwd_dhdx(hidden, k, bias, x, g, out_ch):
     """dh (B, C) and dx (B, I) of :func:`hyper_apply` for the cotangent
     g (B, O)."""
@@ -139,19 +161,20 @@ def hyper_apply_bwd_dhdx(hidden, k, bias, x, g, out_ch):
     f = out_ch * x.shape[1] + out_ch
     n, c_dim, in_ch = _check(hidden, x, out_ch, k=(k, (f, hidden.shape[1])),
                              bias=(bias, (f,)), g=(g, (hidden.shape[0], out_ch)))
-    groups = out_ch // OUT_GROUP
-    rows = -(-n // 64) * 64
-    part_dh = torch.empty((groups, rows, c_dim), dtype=torch.float32,
-                          device=hidden.device)
-    part_dx = torch.empty((groups, rows, in_ch), dtype=torch.float32,
-                          device=hidden.device)
+    dev = hidden.device
+    plan = bwd_plan(n, c_dim, in_ch, out_ch, build.sm_count(dev.index))
+    groups, per = plan["groups"]
+    part_dx = torch.empty((groups, n, in_ch), dtype=torch.float32,
+                          device=dev)
+    part_dh = torch.empty((groups, n, c_dim), dtype=torch.float32,
+                          device=dev)
     dh = torch.empty_like(hidden)
     dx = torch.empty_like(x)
-    code = _entry("cgat_hyper_apply_bwd_dhdx", 5, 4, 4)(
-        hidden.data_ptr(), k.data_ptr(), bias.data_ptr(), x.data_ptr(),
-        g.data_ptr(), n, c_dim, in_ch, out_ch, part_dh.data_ptr(),
-        part_dx.data_ptr(), dh.data_ptr(), dx.data_ptr(),
-        build.stream(hidden.device))
+    code = build.run(_entry("cgat_hyper_apply_bwd_dhdx", 5, 6, 4), dev,
+                     hidden.data_ptr(), k.data_ptr(), bias.data_ptr(),
+                     x.data_ptr(), g.data_ptr(), n, c_dim, in_ch, out_ch,
+                     groups, per, part_dx.data_ptr(),
+                     part_dh.data_ptr(), dh.data_ptr(), dx.data_ptr())
     build.check("hyper_apply", code)
     hyper_apply_bwd_dhdx.launches += 1
     return dh, dx
@@ -178,9 +201,10 @@ def hyper_apply_bwd_dk(hidden, x, g, out_ch):
                      device=hidden.device)
     db = torch.empty((out_ch * in_ch,), dtype=torch.float32,
                      device=hidden.device)
-    code = _entry("cgat_hyper_apply_bwd_dk", 3, 4, 2)(
-        hidden.data_ptr(), x.data_ptr(), g.data_ptr(), n, c_dim, in_ch,
-        out_ch, dk.data_ptr(), db.data_ptr(), build.stream(hidden.device))
+    code = build.run(_entry("cgat_hyper_apply_bwd_dk", 3, 4, 2),
+                     hidden.device, hidden.data_ptr(), x.data_ptr(),
+                     g.data_ptr(), n, c_dim, in_ch, out_ch, dk.data_ptr(),
+                     db.data_ptr())
     build.check("hyper_apply", code)
     hyper_apply_bwd_dk.launches += 1
     return dk, db

@@ -71,12 +71,6 @@ def _bwd():
                         p, p, i, p, p, i, i, p, i, i, p, p, p, p, p, p])
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    """SM count of card ``index``: the weight-grad GEMMs aim at one wave."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def mh_network_plain(x, win, b_in, wout, b_out, heads, *,
                      return_hidden=False):
     """The kernel's function in plain torch ops (f32 products, bf16-rounded
@@ -129,9 +123,9 @@ def mh_network(x, win, b_in, wout, b_out, heads, *, return_hidden=False):
                             b_out=(b_out, (wout.shape[0],)))
     out = torch.empty((n, heads * f), dtype=x.dtype, device=x.device)
     h = torch.empty((n, heads * hid), dtype=x.dtype, device=x.device)
-    code = _fwd()(x.data_ptr(), win.data_ptr(), b_in.data_ptr(),
-                  wout.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-                  h.data_ptr(), n, cat, hid, f, heads, build.stream(x.device))
+    code = build.run(_fwd(), x.device, x.data_ptr(), win.data_ptr(),
+                     b_in.data_ptr(), wout.data_ptr(), b_out.data_ptr(),
+                     out.data_ptr(), h.data_ptr(), n, cat, hid, f, heads)
     build.check("mh_network", code)
     mh_network.launches += 1
     return (out, h) if return_hidden else out
@@ -190,7 +184,7 @@ def mh_network_bwd(x, h, g, win, wout, heads):
                             h=(h, (x.shape[0], win.shape[0])),
                             g=(g, (x.shape[0], wout.shape[0])))
     dev, dt = x.device, x.dtype
-    plan = bwd_plan(n, cat, hid, f, heads, _sms(dev.index))
+    plan = bwd_plan(n, cat, hid, f, heads, build.sm_count(dev.index))
     (s_win, r_win), (s_wout, r_wout) = plan["win"], plan["wout"]
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, cat), dtype=dt, device=dev)
@@ -203,14 +197,13 @@ def mh_network_bwd(x, h, g, win, wout, heads):
     dbin = torch.empty((heads * hid,), dtype=dt, device=dev)
     dwout = torch.empty_like(wout)
     dbout = torch.empty((heads * f,), dtype=dt, device=dev)
-    code = _bwd()(x.data_ptr(), h.data_ptr(), g.data_ptr(), win.data_ptr(),
-                  wout.data_ptr(), n, cat, hid, f, heads, dx.data_ptr(),
-                  dpre.data_ptr(), plan["tiles"], part_bin.data_ptr(),
-                  part_bout.data_ptr(),
-                  s_win, r_win, part_win.data_ptr(), s_wout, r_wout,
-                  part_wout.data_ptr(), dwin.data_ptr(), dbin.data_ptr(),
-                  dwout.data_ptr(), dbout.data_ptr(),
-                  build.stream(dev))
+    code = build.run(_bwd(), dev, x.data_ptr(), h.data_ptr(), g.data_ptr(),
+                     win.data_ptr(), wout.data_ptr(), n, cat, hid, f, heads,
+                     dx.data_ptr(), dpre.data_ptr(), plan["tiles"],
+                     part_bin.data_ptr(), part_bout.data_ptr(),
+                     s_win, r_win, part_win.data_ptr(), s_wout, r_wout,
+                     part_wout.data_ptr(), dwin.data_ptr(), dbin.data_ptr(),
+                     dwout.data_ptr(), dbout.data_ptr())
     build.check("mh_network", code)
     mh_network_bwd.launches += 1
     return dx, dwin, dbin, dwout, dbout

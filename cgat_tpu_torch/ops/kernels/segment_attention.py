@@ -120,12 +120,11 @@ def segment_attention(alpha, m, offn, n_real, num_nodes, *,
         mx = torch.empty((num_nodes, hf), dtype=torch.float32,
                          device=alpha.device)
         den = torch.empty_like(mx)
-    code = _fwd()(alpha.data_ptr(), m.data_ptr(), offn.data_ptr(),
-                  n_real.data_ptr(), num_nodes, hf,
-                  int(alpha.dtype == torch.bfloat16), out.data_ptr(),
-                  None if mx is None else mx.data_ptr(),
-                  None if den is None else den.data_ptr(),
-                  build.stream(alpha.device))
+    code = build.run(_fwd(), alpha.device, alpha.data_ptr(), m.data_ptr(),
+                     offn.data_ptr(), n_real.data_ptr(), num_nodes, hf,
+                     int(alpha.dtype == torch.bfloat16), out.data_ptr(),
+                     None if mx is None else mx.data_ptr(),
+                     None if den is None else den.data_ptr())
     build.check("segment_attention", code)
     segment_attention.launches += 1
     return (out, mx, den) if return_stats else out
@@ -177,12 +176,11 @@ def segment_attention_bwd(alpha, m, ids, n_real, g, out, mx, den):
             raise ValueError(f"{name} must be contiguous on {alpha.device}")
     dalpha = torch.empty_like(alpha)
     dm = torch.empty_like(alpha)
-    code = _bwd()(alpha.data_ptr(), m.data_ptr(), ids.data_ptr(),
-                  n_real.data_ptr(), g.data_ptr(), out.data_ptr(),
-                  mx.data_ptr(), den.data_ptr(), n_rows, hf,
-                  int(alpha.dtype == torch.bfloat16), dalpha.data_ptr(),
-                  dm.data_ptr(),
-                  build.stream(alpha.device))
+    code = build.run(_bwd(), alpha.device, alpha.data_ptr(), m.data_ptr(),
+                     ids.data_ptr(), n_real.data_ptr(), g.data_ptr(),
+                     out.data_ptr(), mx.data_ptr(), den.data_ptr(), n_rows,
+                     hf, int(alpha.dtype == torch.bfloat16),
+                     dalpha.data_ptr(), dm.data_ptr())
     build.check("segment_attention", code)
     segment_attention_bwd.launches += 1
     return dalpha, dm

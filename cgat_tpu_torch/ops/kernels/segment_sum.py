@@ -71,9 +71,9 @@ def segment_sum(vals, ids, offn, num_segments):
         raise _refuse(vals, offn, num_segments)
     f = vals.shape[1]
     out = vals.new_empty(num_segments, f)
-    code = _entry()(vals.data_ptr(), offn.data_ptr(), num_segments, f,
-                    dtype is torch.bfloat16, out.data_ptr(),
-                    build.stream(device))
+    code = build.run(_entry(), device, vals.data_ptr(), offn.data_ptr(),
+                     num_segments, f, dtype is torch.bfloat16,
+                     out.data_ptr())
     build.check("segment_sum", code)
     segment_sum.launches += 1
     return out

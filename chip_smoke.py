@@ -27,9 +27,11 @@ failure exits non-zero:
    the port's own bf16 CPU step. Each backward kernel is then held against
    its plain version on the inputs and cotangents it got in the first step,
    and timed (CUDA events around back-to-back calls, and device time from
-   the profiler); mh_network_bwd and segment_sum must give bit-identical
-   results in two launches, and mh_network_bwd is timed beside the same
-   four products as bf16 cuBLAS calls (a yardstick the port never calls);
+   the profiler); mh_network_bwd, hyper_apply_bwd_dhdx and segment_sum
+   must give bit-identical results in two launches, and mh_network_bwd
+   and hyper_apply_bwd_dhdx are timed beside the same products as bf16
+   cuBLAS calls (a yardstick the port never calls), with their device
+   time by kernel;
    one step is broken down into collate, copy, forward, backward and
    optimizer, and the card's busy time;
 5. report the card, and the eight kernels as one JSON line; the last line
@@ -606,12 +608,33 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
         i = xh.shape[1]
         f = k.shape[0]
         args = (hidden, k, bias, xh, g, o)
+        w = o * i
+
+        # P = addmm(bias, hidden, K_w^T), bf16(g P) summed over o, and dh as
+        # a materialised [dP | g] @ K: cuBLAS and PyTorch calls, a yardstick
+        # (several calls, not one) the port never calls
+        def cublas():
+            p = torch.addmm(bias[:w], hidden, k[:w].T)
+            (p.view(b, o, i) * g[:, :, None]).float().sum(1).to(xh.dtype)
+            dp = torch.cat([(g[:, :, None] * xh[:, None, :]).reshape(b, w),
+                            g], 1)
+            torch.matmul(dp, k)
         row("hyper_apply_bwd_dhdx", lambda: hk.hyper_apply_bwd_dhdx(*args),
             lambda: hk.hyper_apply_bwd_dhdx_plain(*args),
             hk.hyper_apply_bwd_dhdx(*args),
             hk.hyper_apply_bwd_dhdx_plain(*args), [b, c, i, o],
             nbytes=2.0 * (2 * b * c + 2 * b * i + b * o + f * c + f),
-            flops=4.0 * b * f * c + 2.0 * b * o * i, peak=BF16_TENSOR_FLOPS)
+            flops=4.0 * b * f * c + 2.0 * b * o * i, peak=BF16_TENSOR_FLOPS,
+            deterministic=deterministic(
+                "hyper_apply_bwd_dhdx",
+                lambda: hk.hyper_apply_bwd_dhdx(*args)),
+            cublas_ms=time_ms(cublas),
+            cublas_device_ms=kernel_device_ms(cublas),
+            cublas_what="addmm for P, the g product and the sum over o, "
+                        "and [dP | g] @ K materialised (bf16 cuBLAS and "
+                        "PyTorch calls)",
+            device_split=kernel_device_ms(
+                lambda: hk.hyper_apply_bwd_dhdx(*args), split=True))
         args = (hidden, xh, g, o)
         row("hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args),
             lambda: hk.hyper_apply_bwd_dk_plain(*args),

@@ -249,10 +249,16 @@ def test_mh_network_bwd_kernel(dev, rows, cat, hid, f, heads):
 
 @pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48),
                                         (70, 48, 16, 16), (70, 512, 160, 32),
-                                        (100, 384, 384, 384)])
+                                        (100, 384, 384, 384),
+                                        (768, 128, 128, 128),
+                                        (1, 128, 128, 128),
+                                        (129, 128, 128, 128)])
 def test_hyper_apply_bwd_kernels(dev, rows, c, i, o):
-    """The last two cases take several column jobs and dK column blocks:
-    every width the forward takes."""
+    """Every width the forward takes: I = 16, 32 and 48, whose K_o box runs
+    past its output's rows; I = 160 and 384 and C = 512, several 128-column
+    tiles (and dK column blocks); C = 48, below one 64-wide box; the
+    training step's shape (768 rows) and row counts that are no multiple
+    of the 128-row tile (1, 129, 100, 70, 7)."""
     assert hyper_apply.supported(c, i, o, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(6)
     hidden = torch.randn(rows, c, generator=g, device=dev).tanh().bfloat16()
@@ -297,6 +303,77 @@ def test_redesigned_kernels_are_deterministic(dev):
     vals = r(len(ids), 128)
     assert torch.equal(segment_sum.segment_sum(vals, tid, offn, 768),
                        segment_sum.segment_sum(vals, tid, offn, 768))
+    # hyper_apply_bwd_dhdx at the training step's shape: every output group
+    # writes its own partial planes, which one reduce adds in order
+    b = c = i = o = 128
+    b = 768
+    hidden, k = r(b, c).tanh(), r(o * i + o, c, scale=0.1 * (2 / c) ** 0.5)
+    args = (hidden, k, r(o * i + o, scale=0.1), r(b, i), r(b, o), o)
+    first = hyper_apply.hyper_apply_bwd_dhdx(*args)
+    second = hyper_apply.hyper_apply_bwd_dhdx(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_kernels_launch_on_the_tensors_device(dev):
+    """Every kernel on cuda:1 tensors while cuda:0 is current: each launch
+    makes its tensors' device current and the GEMM kernels' per-device
+    state (SM count, shared-memory limit) is set on that device; device 0
+    stays current after."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    g = torch.Generator(device=d1).manual_seed(8)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=d1)
+                               * scale).bfloat16()
+    before = _launches()
+    # mh_network, forward and backward
+    x, win, b_in = r(300, 48), r(64, 48, scale=0.1), r(64, scale=0.1)
+    wout, b_out = r(32, 32, scale=0.2), r(32, scale=0.1)
+    out, h = mh_network.mh_network(x, win, b_in, wout, b_out, 2,
+                                   return_hidden=True)
+    for a, b in zip((out, h), mh_network.mh_network_plain(
+            x, win, b_in, wout, b_out, 2, return_hidden=True)):
+        _close(a, b, torch.bfloat16)
+    cot = r(300, 32)
+    for a, b in zip(mh_network.mh_network_bwd(x, h, cot, win, wout, 2),
+                    mh_network.mh_network_bwd_plain(x, h, cot, win, wout, 2)):
+        _close(a, b, torch.bfloat16)
+    # hyper_apply, its two backward kernels
+    o, i, c = 48, 32, 64
+    hidden, k = r(100, c).tanh(), r(o * i + o, c, scale=0.02)
+    bias, xi, cot = r(o * i + o, scale=0.1), r(100, i), r(100, o)
+    _close(hyper_apply.hyper_apply(hidden, k, bias, xi, o),
+           hyper_apply.hyper_apply_plain(hidden, k, bias, xi, o),
+           torch.bfloat16)
+    for a, b in zip(
+            hyper_apply.hyper_apply_bwd_dhdx(hidden, k, bias, xi, cot, o),
+            hyper_apply.hyper_apply_bwd_dhdx_plain(hidden, k, bias, xi, cot,
+                                                   o)):
+        _close(a, b, torch.bfloat16)
+    _close(hyper_apply.hyper_apply_bwd_dk(hidden, xi, cot, o)[0],
+           hyper_apply.hyper_apply_bwd_dk_plain(hidden, xi, cot, o)[0],
+           torch.bfloat16)
+    # segment_attention, forward and backward; segment_sum
+    alpha, m, offn, n_real = _seg_case(np.random.default_rng(9), 64)
+    ids = torch.from_numpy(np.repeat(np.arange(300), np.diff(offn[:301]))
+                           .astype(np.int32)).to(d1)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=d1)
+    offn, nr = torch.from_numpy(offn).to(d1), torch.tensor(
+        n_real, dtype=torch.int32, device=d1)
+    sa = (t(alpha), t(m), offn, nr, 300)
+    got = segment_attention.segment_attention(*sa, return_stats=True)
+    want = segment_attention.segment_attention_plain(*sa)
+    _close(got[0], want[0], torch.float32)
+    bwd = (t(alpha), t(m), ids, nr, t(np.ones((300, 64))), *got)
+    for a, b in zip(segment_attention.segment_attention_bwd(*bwd),
+                    segment_attention.segment_attention_bwd_plain(*bwd)):
+        _close(a, b, torch.float32)
+    vals = t(m)
+    _close(segment_sum.segment_sum(vals, ids, offn, 300),
+           segment_sum.segment_sum_plain(vals, ids, 300), torch.float32)
+    assert torch.cuda.current_device() == 0
+    assert all(v - before[k] == 1 for k, v in _launches().items())
 
 
 def test_mh_network_bwd_refuses_a_plan_for_another_tiling(dev, monkeypatch):

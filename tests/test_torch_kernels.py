@@ -5,6 +5,8 @@ the port's wrappers run their plain PyTorch versions because the tensors
 lie on the CPU. The CUDA kernels themselves are checked on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -308,3 +310,141 @@ def test_mh_network_bwd_plan_covers_every_row_once(rows, cat, hid, f, heads,
         if rows >= mh_network.MIN_SPLIT:
             assert per >= mh_network.MIN_SPLIT or splits == 1
         assert splits * out_tiles[key] <= max(sms, out_tiles[key])
+
+
+def _bwd_units(plan: dict, out_ch: int):
+    """The plan's units in the kernel's order (``dhdx::unit_at`` in
+    ``csrc/hyper_apply.cu``): the dx units, then the dh units, each kind
+    with the group fastest, then the column tile, then the row tile.
+    Yields (kind, row tile, column tile, group, first output, end output,
+    tail), tail marking the dh unit that also adds g K_tail."""
+    groups, per = plan["groups"]
+    for kind, cols in (("dx", plan["x_tiles"]), ("dh", plan["h_tiles"])):
+        for m in range(plan["m_tiles"]):
+            for col in range(cols):
+                for grp in range(groups):
+                    yield (kind, m, col, grp, grp * per,
+                           min(out_ch, (grp + 1) * per),
+                           kind == "dh" and grp == groups - 1)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,c,i,o",
+                         [(768, 128, 128, 128), (832, 128, 128, 128),
+                          (1, 128, 128, 128), (129, 128, 128, 128),
+                          (70, 48, 16, 16), (70, 512, 160, 32),
+                          (100, 384, 384, 384), (7, 64, 32, 48)])
+def test_hyper_apply_bwd_plan_covers_every_output_once(rows, c, i, o, sms):
+    """The dh/dx kernel's host plan: every (row tile, o) of dx and every
+    (row tile, C tile, o) of dh falls in exactly one unit, in output order;
+    no unit is empty; the last group's dh unit of each tile adds the tail;
+    and the units fill at most about one wave of the card's SMs (132 on
+    the H100 SXM, 114 on the PCIe card)."""
+    plan = hyper_apply.bwd_plan(rows, c, i, o, sms)
+    units = list(_bwd_units(plan, o))
+    tile = hyper_apply.TILE
+    m_tiles = -(-rows // tile)
+    widths = {"dx": i, "dh": c}
+    assert [u[0] for u in units] == sorted((u[0] for u in units),
+                                           key=["dx", "dh"].index)
+    groups, per = plan["groups"]
+    for kind, width in widths.items():
+        seen, tails = {}, []
+        for k, m, col, grp, lo, hi, tail in units:
+            if k != kind:
+                continue
+            assert lo < hi and lo == grp * per             # none empty
+            seen.setdefault((m, col), []).extend(range(lo, hi))
+            if tail:
+                tails.append((m, col))
+                assert grp == groups - 1
+        tiles = {(m, col) for m in range(m_tiles)
+                 for col in range(-(-width // tile))}
+        assert set(seen) == tiles
+        assert all(v == list(range(o)) for v in seen.values())
+        assert sorted(tails) == (sorted(tiles) if kind == "dh" else [])
+    per_o = m_tiles * (plan["x_tiles"] + plan["h_tiles"])
+    assert len(units) <= max(sms, per_o)
+
+
+def test_hyper_apply_bwd_dhdx_wrapper_passes_its_plan(monkeypatch):
+    """Off the CPU the wrapper makes one call of the C entry with the plan
+    for the card's SM count and the f32 partial planes that plan needs:
+    (groups, B, I) and (groups, B, C). Meta tensors stand in for the
+    card's, and stubs for the library and the card."""
+    calls, allocated = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        allocated.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(hyper_apply, "_entry",
+                        lambda *a: lambda *b: calls.append(b) or 0)
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    monkeypatch.setattr(build, "sm_count", lambda index: 114)
+    monkeypatch.setattr(torch, "empty", empty)
+    meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
+    n, c, i, o = 300, 64, 32, 48
+    args = (meta(n, c), meta(o * i + o, c), meta(o * i + o), meta(n, i),
+            meta(n, o), o)
+    before = hyper_apply.hyper_apply_bwd_dhdx.launches
+    dh, dx = hyper_apply.hyper_apply_bwd_dhdx(*args)
+    assert dh.shape == (n, c) and dx.shape == (n, i)
+    assert hyper_apply.hyper_apply_bwd_dhdx.launches == before + 1
+    groups, per = hyper_apply.bwd_plan(n, c, i, o, 114)["groups"]
+    assert allocated == [(groups, n, i), (groups, n, c)]
+    (call,) = calls
+    assert call[5:11] == (n, c, i, o, groups, per)
+    assert groups == -(-o // per)       # what the C entry checks
+
+
+def test_launches_follow_the_tensors_device(monkeypatch):
+    """build.run makes the tensor's device current for the launch only when
+    it is not, and restores the previous one, also when the launch raises;
+    a device with no index is left alone."""
+    current, switches, asked = [0], [], []
+
+    def current_device():
+        asked.append(1)
+        return current[0]
+
+    def set_device(index):
+        switches.append(index)
+        current[0] = index
+
+    monkeypatch.setattr(torch.cuda, "current_device", current_device)
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    monkeypatch.setattr(build, "stream", lambda device: 100 + device.index)
+    seen = []
+
+    def entry(*args):
+        seen.append((current[0], args))
+        return 0
+
+    assert build.run(entry, torch.device("cuda", 0), 7) == 0
+    assert switches == [] and seen == [(0, (7, 100))]
+    assert build.run(entry, torch.device("cuda", 1), 7) == 0
+    assert switches == [1, 0] and seen[-1] == (1, (7, 101))
+    assert current == [0]
+
+    def boom(*args):
+        raise RuntimeError("launch failed")
+
+    with pytest.raises(RuntimeError, match="launch failed"):
+        build.run(boom, torch.device("cuda", 2), 7)
+    assert switches == [1, 0, 2, 0] and current == [0]
+    n_asked = len(asked)
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    build.run(entry, torch.device("meta"), 7)
+    assert len(asked) == n_asked and switches == [1, 0, 2, 0]
+
+
+def test_every_launch_goes_through_the_device_guard():
+    """Each kernel wrapper launches through build.run, one call a wrapper,
+    and none reads a stream by itself."""
+    import inspect
+    modules = {k.__module__ for k in KERNEL_WRAPPERS}
+    sources = [inspect.getsource(sys.modules[m]) for m in modules]
+    assert not any("build.stream(" in s for s in sources)
+    assert sum(s.count("build.run(") for s in sources) == len(KERNEL_WRAPPERS)
