@@ -442,11 +442,14 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // a bf16 tensor of lines of `width` contiguous elements, indexed by two
-// outer axes of sizes d1, d2 and byte strides s1, s2; boxes of 64 x b1 x b2
-// elements, 128-byte swizzle, zeros past every edge
-inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t width,
-                            uint64_t d1, uint64_t s1, uint64_t d2, uint64_t s2,
-                            uint32_t b1, uint32_t b2) {
+// outer axes of sizes d1, d2 and byte strides s1, s2; boxes of b0 x b1 x b2
+// elements, zeros past every edge. By default a box line is 64 elements
+// (128 bytes) in the 128-byte swizzle that wgmma reads.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* base, uint64_t width, uint64_t d1,
+    uint64_t s1, uint64_t d2, uint64_t s2, uint32_t b1, uint32_t b2,
+    uint32_t b0 = 64,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) {
     fprintf(stderr, "gemm_sm90: cuTensorMapEncodeTiled not found\n");
@@ -454,23 +457,22 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t width,
   }
   const cuuint64_t dims[3] = {width, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {64, b1, b2};
+  const cuuint32_t box[3] = {b0, b1, b2};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {
     fprintf(stderr,
             "gemm_sm90: cuTensorMapEncodeTiled error %d (width %llu, dims "
-            "%llu x %llu, strides %llu %llu, box 64 x %u x %u)\n",
+            "%llu x %llu, strides %llu %llu, box %u x %u x %u)\n",
             static_cast<int>(r), static_cast<unsigned long long>(width),
             static_cast<unsigned long long>(d1),
             static_cast<unsigned long long>(d2),
             static_cast<unsigned long long>(s1),
-            static_cast<unsigned long long>(s2), b1, b2);
+            static_cast<unsigned long long>(s2), b0, b1, b2);
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;

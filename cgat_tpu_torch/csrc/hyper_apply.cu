@@ -50,12 +50,19 @@
 // * dK, replacing _bwd_dk_kernel (launched by _fused_bwd):
 //     dK[o*I + i, :] = bf16(sum_b dP[b, o*I + i] * hidden[b, :])
 //     db[o*I + i] = sum_b dP[b, o*I + i]                      (f32)
-//   Bound: operations, 3.5 GFLOP, ~3.5 us. Design: one block per 64 rows
-//   and 256 columns of dK loops over the batch in 32-row steps, building
-//   the (32, 64) dP slice in shared memory from g and x and multiplying its
-//   transpose by the staged hidden columns with WMMA; each block writes its
-//   tile of dK once and the first column's blocks sum db in row order, so
-//   the sums are deterministic.
+//   Bound: operations, 3.2 GFLOP at the flagship shape, ~3.3 us at 989
+//   TFLOP/s, against 4.6 MB of input and output, ~1.4 us. Design
+//   (namespace dk below): the GEMM dK = dP^T hidden (M = O*I, N = C,
+//   K = B) in one persistent launch on the pieces of gemm_sm90.cuh, about
+//   one wave of the card's SMs. A tile is one output o, 128 columns of I
+//   and 128 of C, so it needs one column of g; its k-blocks are TMA boxes
+//   of x's, hidden's (wgmma's MN-major B) and g's rows, and each consumer
+//   thread builds its fragment of dP^T = bf16(g x) in registers
+//   (ldmatrix.trans of x, one bf16x2 multiply by g) for wgmma's register-A
+//   form, adding the same values into db. dP never reaches device memory
+//   (25 MB at the flagship shape). Each tile writes its dK tile once and
+//   the first C tile's also db, so the sums are deterministic, with no
+//   atomics and no partial planes.
 // The bias-tail rows of dK and db (g^T hidden and sum g) are left to plain
 // torch ops, as the JAX package computes them outside Pallas.
 #include <mma.h>
@@ -555,102 +562,258 @@ reduce_kernel(const float* __restrict__ part_dh,
 
 }  // namespace dhdx
 
-constexpr int DK_ROWS = 64;     // rows of dK per block
-constexpr int DK_STEP = 32;     // batch rows staged per step
-constexpr int DK_LD = DK_ROWS + 8;
-constexpr int DK_FRAGS = 8;     // fragment columns per warp
-constexpr int DK_COLS = DK_FRAGS * 32;  // columns of dK per block: 4 x 16 fragments over 8 warps
+// ---- dK: one persistent launch built from gemm_sm90.cuh's pieces --------
+namespace dk {
 
-// [per-warp scratch | hidden slice (32, DK_COLS + 8) | dP slice (32, 72)]
-constexpr int DK_SMEM = WARPS * 16 * SCR_LD * 4 + DK_STEP * pad_ld(DK_COLS) * 2 +
-                        DK_STEP * DK_LD * 2;
+using sm90::BK;
+using sm90::HALF;
+constexpr int TILE = 128;                    // rows (of I) and columns (of C)
+constexpr int STAGES = 6;
+constexpr int X_BYTES = BK * TILE * 2;       // 64 rows of x, 128 columns
+constexpr int H_BYTES = BK * TILE * 2;       // 64 rows of hidden, 128 columns
+constexpr int G_COLS = 8;                    // outputs in a 16-byte box line
+constexpr int G_BYTES = BK * G_COLS * 2;     // 64 rows of g, 8 columns
+constexpr int STAGE_BYTES = X_BYTES + H_BYTES + G_BYTES;  // 1024-multiple
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 
-// grid (out_ch*in_ch / 64, ceil(c_dim / DK_COLS)): block (f, c) owns rows
-// [64 f, 64 f + 64) and columns [c DK_COLS, c DK_COLS + DK_COLS) of dK;
-// blocks of the first column chunk also sum db
-__global__ void __launch_bounds__(THREADS)
-hyper_apply_bwd_dk(const bf16* __restrict__ hidden, const bf16* __restrict__ x,
-                   const bf16* __restrict__ g, bf16* __restrict__ dk,
-                   float* __restrict__ db, int n_rows, int c_dim, int in_ch,
-                   int out_ch) {
-  __shared__ __align__(128) unsigned char smem[DK_SMEM];
-  float* scratch = reinterpret_cast<float*>(smem);
-  bf16* hs = reinterpret_cast<bf16*>(scratch + WARPS * 16 * SCR_LD);
-  constexpr int ldh = pad_ld(DK_COLS);
-  bf16* dps = hs + DK_STEP * ldh;
+struct Shape {
+  int n_rows, c_dim, in_ch, out_ch;
+  int x_tiles, c_tiles;     // 128-column tiles of I and of C
+  __host__ __device__ int tiles() const { return out_ch * x_tiles * c_tiles; }
+};
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = scratch + warp * 16 * SCR_LD;
-  const int f0 = blockIdx.x * DK_ROWS;
-  const int col0 = blockIdx.y * DK_COLS;
-  const int width = min(DK_COLS, c_dim - col0);
-  const bool sum_db = blockIdx.y == 0;
-  // warp w owns fragment row fm = w % 4 and fragment columns w / 4 + 2j
-  const int fm = warp % 4;
-  const int col_tiles = width / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DK_FRAGS];
-#pragma unroll
-  for (int j = 0; j < DK_FRAGS; ++j) wmma::fill_fragment(acc[j], 0.f);
-  float db_sum = 0.f;       // thread t < 64 sums dP column f0 + t
+struct Tile {
+  int o, i0, n0;            // the output; first column of I and of C
+};
 
-  for (int b0 = 0; b0 < n_rows; b0 += DK_STEP) {
-    const int chunks = width / 8;
-    for (int i = threadIdx.x; i < DK_STEP * chunks; i += THREADS) {
-      const int r = i / chunks;
-      const int c = (i % chunks) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (b0 + r < n_rows)
-        v = *reinterpret_cast<const uint4*>(hidden + static_cast<size_t>(b0 + r) * c_dim + col0 + c);
-      *reinterpret_cast<uint4*>(hs + r * ldh + c) = v;
+// Tile t: the C tile runs fastest, then the I tile, then the output.
+__device__ __forceinline__ Tile tile_at(const Shape& s, int t) {
+  const int rest = t / s.c_tiles;
+  return Tile{rest / s.x_tiles, (rest % s.x_tiles) * TILE,
+              (t % s.c_tiles) * TILE};
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 (8 consecutive elements) and
+// receives in r[j] the elements (2 (l % 4), l / 4) and (2 (l % 4) + 1,
+// l / 4) of matrix j, the first in the low half
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the bf16 pair v times the pair s, each rounded once to bf16
+__device__ __forceinline__ uint32_t mul_pair(uint32_t v, __nv_bfloat162 s) {
+  const __nv_bfloat162 r =
+      __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v), s);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// the sum of a bf16 pair in f32 (a bf16 is the top half of its f32)
+__device__ __forceinline__ float pair_sum(uint32_t v) {
+  return __uint_as_float(v << 16) + __uint_as_float(v & 0xffff0000u);
+}
+
+// g[b, o] and g[b + 1, o] as a pair, from the shared address of g[b, o] in
+// a stage's g box (rows 16 bytes apart)
+__device__ __forceinline__ __nv_bfloat162 g_pair(uint32_t addr) {
+  uint32_t v;
+  asm volatile(
+      "{\n.reg .b16 l, h;\nld.shared.b16 l, [%1];\n"
+      "ld.shared.b16 h, [%1+16];\nmov.b32 %0, {l, h};\n}\n"
+      : "=r"(v)
+      : "r"(addr));
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// Persistent: block b walks tiles b, b + gridDim.x, ... A producer thread
+// keeps up to STAGES k-blocks (64 batch rows each) in flight through TMA:
+// x's rows at the tile's 128 columns of I (two 64-column boxes, MN-major),
+// hidden's at its 128 columns of C (two boxes: wgmma's MN-major B), and a
+// box of g's rows at the 8 outputs around o (16 bytes a row, unswizzled).
+// Rows past B, columns past I or C, read zeros.
+// The two consumer warpgroups each own 64 rows (i) of the tile. Once a
+// stage has arrived, each thread loads its fragments of x^T for the stage's
+// four 16-row steps (one ldmatrix.trans each: a register pair is x[b, i]
+// and x[b + 1, i]) and the pairs (g[b, o], g[b + 1, o]) they take. Per
+// step it multiplies them into dP^T = bf16(g x) and hands that to wgmma
+// as its register A; every step is its own commit group and three stay
+// in flight: a fragment is rebuilt once the product that read it, four
+// groups back, is done. The thread adds its fragment values to its two
+// rows' db in f32; a shuffle in the quad adds the row's four threads.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+kernel(const __grid_constant__ CUtensorMap t_x,
+       const __grid_constant__ CUtensorMap t_hidden,
+       const __grid_constant__ CUtensorMap t_g, bf16* __restrict__ dk_w,
+       float* __restrict__ db_w, const Shape s) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned stages
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tiles = s.tiles();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], sm90::CONSUMERS * 128);
     }
-    for (int t = threadIdx.x; t < DK_STEP * DK_ROWS; t += THREADS) {
-      const int r = t / DK_ROWS, fl = t % DK_ROWS;
-      const int f = f0 + fl;
-      float v = 0.f;
-      if (b0 + r < n_rows) {
-        const size_t b = static_cast<size_t>(b0 + r);
-        v = __bfloat162float(__float2bfloat16(
-            __bfloat162float(g[b * out_ch + f / in_ch]) *
-            __bfloat162float(x[b * in_ch + f % in_ch])));
-      }
-      dps[r * DK_LD + fl] = __float2bfloat16(v);
-    }
-    __syncthreads();
-    if (sum_db && threadIdx.x < DK_ROWS)
-      for (int r = 0; r < DK_STEP; ++r)
-        db_sum += __bfloat162float(dps[r * DK_LD + threadIdx.x]);
-#pragma unroll
-    for (int kk = 0; kk < DK_STEP; kk += 16) {
-      // dP^T: element (f, b) of the fragment is dps[(kk + b) * DK_LD + f]
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, dps + kk * DK_LD + fm * 16, DK_LD);
-#pragma unroll
-      for (int j = 0; j < DK_FRAGS; ++j) {
-        const int nt = warp / 4 + 2 * j;
-        if (nt >= col_tiles) break;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, hs + kk * ldh + nt * 16, ldh);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (sum_db && threadIdx.x < DK_ROWS) db[f0 + threadIdx.x] = db_sum;
-#pragma unroll
-  for (int j = 0; j < DK_FRAGS; ++j) {
-    const int nt = warp / 4 + 2 * j;
-    if (nt >= col_tiles) break;
-    wmma::store_matrix_sync(ws, acc[j], SCR_LD, wmma::mem_row_major);
-    __syncwarp();
-    for (int t = lane; t < 256; t += 32) {
-      const int r = t / 16, c = t % 16;
-      dk[static_cast<size_t>(f0 + fm * 16 + r) * c_dim + col0 + nt * 16 + c] =
-          __float2bfloat16(ws[r * SCR_LD + c]);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  // `it` counts k-blocks over all of this block's tiles: stage it % STAGES,
+  // in its (it / STAGES)-th use
+  if (wg == sm90::CONSUMERS) {
+    if (threadIdx.x == sm90::CONSUMERS * 128) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const Tile tl = tile_at(s, t);
+        for (int k0 = 0; k0 < s.n_rows; k0 += BK, ++it) {
+          const int st = it % STAGES;
+          sm90::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+          unsigned char* x_s = smem + st * STAGE_BYTES;
+          unsigned char* h_s = x_s + X_BYTES;
+          sm90::mbar_expect_tx(&full[st], STAGE_BYTES);
+          sm90::tma_load(x_s, &t_x, &full[st], tl.i0, k0, 0);
+          sm90::tma_load(x_s + HALF, &t_x, &full[st], tl.i0 + 64, k0, 0);
+          sm90::tma_load(h_s, &t_hidden, &full[st], tl.n0, k0, 0);
+          sm90::tma_load(h_s + HALF, &t_hidden, &full[st], tl.n0 + 64, k0,
+                         0);
+          sm90::tma_load(h_s + H_BYTES, &t_g, &full[st],
+                         tl.o / G_COLS * G_COLS, k0, 0);
+        }
+      }
     }
-    __syncwarp();
+    return;
+  }
+
+  // consumers: rows r and r + 8 of the tile are those of d[0..1], d[2..3]
+  const int thread = threadIdx.x % 128, warp = thread / 32, lane = thread % 32;
+  const int q = lane % 4;
+  const int r = wg * 64 + warp * 16 + lane / 4;
+  // ldmatrix: lane l addresses matrix j = l / 8, row l % 8: batch row
+  // 8 (j / 2) + l % 8 of the k-step, columns 16 warp + 8 (j % 2) + (0..7)
+  // of the warpgroup's x box, in its 128-byte swizzle
+  const int j = lane / 8, jr = lane % 8;
+  const uint32_t x_lane = wg * HALF + (8 * (j / 2) + jr) * 128 +
+                          (((2 * warp + j % 2) ^ jr) << 4);
+  uint32_t a[BK / 16][4] = {};
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile tl = tile_at(s, t);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float db0 = 0.f, db1 = 0.f;
+    sm90::fence_acc(acc);
+    for (int k0 = 0; k0 < s.n_rows; k0 += BK, ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(&full[st], (it / STAGES) & 1);
+      unsigned char* stage = smem + st * STAGE_BYTES;
+      const uint32_t x_addr = sm90::smem_u32(stage) + x_lane;
+      const uint32_t h_addr = sm90::smem_u32(stage + X_BYTES);
+      // g[b, o] of the stage's first row; its 16-row step kk, rows
+      // 16 kk + 2q (+ 1) and 16 kk + 8 + 2q (+ 1), lies (16 kk + 2q) * 16
+      // and 128 bytes further
+      const uint32_t g_addr = sm90::smem_u32(stage + X_BYTES + H_BYTES) +
+                              (tl.o % G_COLS) * 2 + q * 32;
+      uint32_t xs[BK / 16][4];
+      __nv_bfloat162 gs[BK / 16][2];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // a 16-row step of a 64-row box advances 16 lines of 128 bytes
+        ldmatrix_x4_trans(xs[kk], x_addr + kk * 2048);
+        gs[kk][0] = g_pair(g_addr + kk * 256);
+        gs[kk][1] = g_pair(g_addr + kk * 256 + 128);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // the product that read a[kk], four groups back, is done; at kk = 3
+        // so are all of the previous k-block's: its stage is free
+        asm volatile("wgmma.wait_group.sync.aligned 3;\n" ::: "memory");
+        sm90::fence_frag(a[kk]);
+        if (kk == BK / 16 - 1 && k0 > 0)
+          sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+        a[kk][0] = mul_pair(xs[kk][0], gs[kk][0]);
+        a[kk][1] = mul_pair(xs[kk][1], gs[kk][0]);
+        a[kk][2] = mul_pair(xs[kk][2], gs[kk][1]);
+        a[kk][3] = mul_pair(xs[kk][3], gs[kk][1]);
+        db0 += pair_sum(a[kk][0]) + pair_sum(a[kk][2]);
+        db1 += pair_sum(a[kk][1]) + pair_sum(a[kk][3]);
+        sm90::fence_frag(a[kk]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        // LBO: the box of the tile's next 64 columns of C
+        sm90::wgmma_m64n128k16_rs<1>(
+            acc, a[kk], sm90::smem_desc(h_addr + kk * 2048, HALF, 1024));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    sm90::fence_acc(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) sm90::fence_frag(a[kk]);
+    sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+
+    // db of rows r and r + 8: the quad's four partial sums, in a fixed order
+    db0 += __shfl_xor_sync(0xffffffffu, db0, 1);
+    db0 += __shfl_xor_sync(0xffffffffu, db0, 2);
+    db1 += __shfl_xor_sync(0xffffffffu, db1, 1);
+    db1 += __shfl_xor_sync(0xffffffffu, db1, 2);
+    const int i_row = tl.i0 + r;
+    const size_t f0 = static_cast<size_t>(tl.o) * s.in_ch;
+    if (tl.n0 == 0 && q == 0) {
+      if (i_row < s.in_ch) db_w[f0 + i_row] = db0;
+      if (i_row + 8 < s.in_ch) db_w[f0 + i_row + 8] = db1;
+    }
+    // dK rows f0 + i_row (+ 8), bf16. The 4 lanes of a quad hold a row's
+    // columns in pairs (8 columns apart from one fragment to the next); per
+    // 4 fragments they transpose their 4 x 4 pairs by shuffles, so that
+    // each lane stores 8 consecutive columns in one 16-byte store. Rows
+    // past I and columns past C are not stored.
+#pragma unroll
+    for (int gq = 0; gq < 4; ++gq) {   // fragments 4 gq .. 4 gq + 3
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t w[4];   // w[jj]: columns (4 gq + jj) * 8 + 2q, + 1
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int i = 4 * gq + jj;
+          const __nv_bfloat162 p = __floats2bfloat162_rn(
+              acc[i * 4 + half * 2], acc[i * 4 + half * 2 + 1]);
+          w[jj] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        // transpose in 2 x 2 blocks (lanes q, q ^ 1), then across them
+        // (q, q ^ 2): w[jj] becomes columns (4 gq + q) * 8 + 2 jj, + 1
+#pragma unroll
+        for (int k = 0; k < 4; k += 2) {
+          const uint32_t v =
+              __shfl_xor_sync(0xffffffffu, (q & 1) ? w[k] : w[k + 1], 1);
+          if (q & 1) w[k] = v; else w[k + 1] = v;
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const uint32_t v =
+              __shfl_xor_sync(0xffffffffu, (q & 2) ? w[k] : w[k + 2], 2);
+          if (q & 2) w[k] = v; else w[k + 2] = v;
+        }
+        const int row = i_row + half * 8;
+        const int col = tl.n0 + (4 * gq + q) * 8;
+        if (row < s.in_ch && col < s.c_dim)
+          *reinterpret_cast<uint4*>(dk_w + (f0 + row) * s.c_dim + col) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
   }
 }
+
+}  // namespace dk
 
 }  // namespace
 
@@ -734,16 +897,42 @@ CGAT_EXPORT int cgat_hyper_apply_bwd_dhdx(
 }
 
 // hidden: (n_rows, c_dim); x: (n_rows, in_ch); g: (n_rows, out_ch), bf16.
-// Outputs the weight rows of the last Linear's grads: dk (out_ch*in_ch,
-// c_dim) bf16 and db (out_ch*in_ch,) f32.
+// Outputs the weight rows of the last Linear's grads: dk_w (out_ch*in_ch,
+// c_dim) bf16 and db_w (out_ch*in_ch,) f32. One persistent block per SM
+// (at most one per tile) walks the out_ch x ceil(in_ch / 128) x
+// ceil(c_dim / 128) tiles. One launch; takes every width the forward
+// takes.
 CGAT_EXPORT int cgat_hyper_apply_bwd_dk(const void* hidden, const void* x,
                                         const void* g, int n_rows, int c_dim,
-                                        int in_ch, int out_ch, void* dk,
-                                        float* db, void* stream) {
-  const dim3 grid(out_ch * in_ch / DK_ROWS, (c_dim + DK_COLS - 1) / DK_COLS);
-  hyper_apply_bwd_dk<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dk), db, n_rows, c_dim,
-      in_ch, out_ch);
+                                        int in_ch, int out_ch, void* dk_w,
+                                        float* db_w, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t rows = static_cast<size_t>(out_ch) * in_ch;
+  if (n_rows <= 0) {   // no batch row: both sums are empty
+    const cudaError_t err = cudaMemsetAsync(dk_w, 0, rows * c_dim * 2, st);
+    return static_cast<int>(err ? err
+                                : cudaMemsetAsync(db_w, 0, rows * 4, st));
+  }
+  const dk::Shape s{n_rows, c_dim, in_ch, out_ch,
+                    (in_ch + dk::TILE - 1) / dk::TILE,
+                    (c_dim + dk::TILE - 1) / dk::TILE};
+  const uint64_t n = n_rows;
+  cudaError_t err;
+  CUtensorMap t_x, t_hidden, t_g;
+  if ((err = sm90::map_mn_major(&t_x, x, in_ch, 1, n, in_ch, n * in_ch,
+                                false)) ||
+      (err = sm90::map_mn_major(&t_hidden, hidden, c_dim, 1, n, c_dim,
+                                n * c_dim, false)) ||
+      (err = sm90::make_map(&t_g, g, out_ch, n, out_ch * 2, 1, n * out_ch * 2,
+                            sm90::BK, 1, dk::G_COLS,
+                            CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return static_cast<int>(err);
+  static int per_device[sm90::MAX_DEVICES] = {};
+  int sms = 0;
+  if ((err = sm90::prepare(dk::kernel, dk::SMEM, per_device, &sms)))
+    return static_cast<int>(err);
+  const int tiles = s.tiles();
+  dk::kernel<<<tiles < sms ? tiles : sms, sm90::THREADS, dk::SMEM, st>>>(
+      t_x, t_hidden, t_g, static_cast<bf16*>(dk_w), db_w, s);
   return static_cast<int>(cudaGetLastError());
 }

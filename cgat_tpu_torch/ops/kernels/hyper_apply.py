@@ -16,11 +16,11 @@ with f32 products and sums. The backward, for the cotangent g (B, O), has
 
 The kernels are in ``cgat_tpu_torch/csrc/hyper_apply.cu``; none writes P or
 dP to device memory (the backward recomputes P from k and builds dP from g
-and x). The dh/dx kernel runs units that :func:`bwd_plan` makes on the
-host. The bias-tail rows of
-dk and dbias are plain torch sums, as the JAX package computes them outside
-Pallas. CPU tensors go through the plain versions; CUDA tensors launch the
-kernels or raise.
+and x in registers). The dh/dx kernel runs units that :func:`bwd_plan`
+makes on the host; the dK kernel is one persistent GEMM dP^T @ hidden. The
+bias-tail rows of dk and dbias are plain torch sums, as the JAX package
+computes them outside Pallas. CPU tensors go through the plain versions;
+CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -32,14 +32,14 @@ import torch
 from . import build
 
 SMEM_LIMIT = 232448  # shared memory one H100 block may use
-TILE = 128           # rows and columns of a dh/dx unit's tile (dhdx::TILE)
+TILE = 128           # rows and columns of a dh/dx unit's or a dK tile
 
 
 def smem_bytes(c_dim: int, in_ch: int) -> int:
     """Shared memory of one forward block (mirrors ``smem_bytes`` in the
     .cu): per-warp scratch, partial sums, bias tail, 64-row hidden and x
-    tiles. The backward kernels take every width the forward takes: the
-    dK blocks need less, and the dh/dx kernel a fixed 199,264 bytes."""
+    tiles. The backward kernels take every width the forward takes: each
+    needs a fixed amount, 199,264 bytes (dh/dx) and 203,872 (dK)."""
     return (8 * 16 * 20 * 4 + 8 * 64 * 16 * 4 + 64 * 16 * 4
             + 64 * (c_dim + 8) * 2 + 64 * (in_ch + 8) * 2)
 

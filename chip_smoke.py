@@ -27,11 +27,13 @@ failure exits non-zero:
    the port's own bf16 CPU step. Each backward kernel is then held against
    its plain version on the inputs and cotangents it got in the first step,
    and timed (CUDA events around back-to-back calls, and device time from
-   the profiler); mh_network_bwd, hyper_apply_bwd_dhdx and segment_sum
-   must give bit-identical results in two launches, and mh_network_bwd
-   and hyper_apply_bwd_dhdx are timed beside the same products as bf16
-   cuBLAS calls (a yardstick the port never calls), with their device
-   time by kernel;
+   the profiler); mh_network_bwd, hyper_apply_bwd_dhdx,
+   hyper_apply_bwd_dk and segment_sum must give bit-identical results in
+   two launches; mh_network_bwd and hyper_apply_bwd_dhdx are timed beside
+   the same products as bf16 cuBLAS calls, with their device time by
+   kernel, and hyper_apply_bwd_dk beside dP materialised, dP^T @ hidden
+   and dP's column sums (yardsticks of several calls the port never
+   calls);
    one step is broken down into collate, copy, forward, backward and
    optimizer, and the card's busy time;
 5. report the card, and the eight kernels as one JSON line; the last line
@@ -636,12 +638,26 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             device_split=kernel_device_ms(
                 lambda: hk.hyper_apply_bwd_dhdx(*args), split=True))
         args = (hidden, xh, g, o)
+
+        # dP materialised, dP^T @ hidden and dP's column sums: cuBLAS and
+        # PyTorch calls, a yardstick (several calls, not one) the port
+        # never calls
+        def cublas_dk():
+            dp = (g[:, :, None] * xh[:, None, :]).reshape(b, w)
+            torch.matmul(dp.T, hidden)
+            dp.float().sum(0)
         row("hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args),
             lambda: hk.hyper_apply_bwd_dk_plain(*args),
             hk.hyper_apply_bwd_dk(*args), hk.hyper_apply_bwd_dk_plain(*args),
             [b, c, i, o],
             nbytes=2.0 * (b * c + b * i + b * o + o * i * c) + 4.0 * o * i,
-            flops=2.0 * b * o * i * c, peak=BF16_TENSOR_FLOPS)
+            flops=2.0 * b * o * i * c, peak=BF16_TENSOR_FLOPS,
+            deterministic=deterministic(
+                "hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args)),
+            cublas_ms=time_ms(cublas_dk),
+            cublas_device_ms=kernel_device_ms(cublas_dk),
+            cublas_what="dP materialised, dP^T @ hidden and dP's column "
+                        "sums (bf16 cuBLAS and PyTorch calls)")
 
         def segsum_args(num_rows):
             rec = seen[f"gather_{num_rows}"]

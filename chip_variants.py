@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time variants of the ``mh_network`` forward kernel on one CUDA card.
+"""Time variants of one of the port's kernels on one CUDA card.
 
-    python3 chip_variants.py
+    python3 chip_variants.py [mh_network | hyper_apply_bwd_dk]
 
-Builds the forward's source (``cgat_tpu_torch/csrc/mh_network.cu``) as it
-is and three variants of its epilogue, each from a patched copy under
-``build/variants/``, then times each at the serving shape of the
-reference-default model (E = 19,968 edge rows, cat 384, hid 256, 5 heads,
-F 128; seeded random bf16 inputs), in turns (each variant twice, in
-mirrored order), by its device time per kernel (profiler) and CUDA events.
+Builds the kernel's source as it is and variants of it, each from a
+patched copy under ``build/variants/<study>/``, then times each in turns
+(each variant twice, in mirrored order), by its device time per kernel
+(profiler) and CUDA events. Needs nvcc and a Hopper card; prints one line
+per run and the card's name and power limit.
+
+``mh_network`` (the default; ``cgat_tpu_torch/csrc/mh_network.cu``): the
+forward at the serving shape of the reference-default model (E = 19,968
+edge rows, cat 384, hid 256, 5 heads, F 128; seeded random bf16 inputs).
 Every variant that stores is first held against the plain version on
 ragged shapes and at that one, forward and backward. The variants:
 
@@ -20,8 +23,29 @@ ragged shapes and at that one, forward and backward. The variants:
   stores while the next tile runs (the mainloop's tile buffers, made
   store-only).
 
-Needs nvcc and a Hopper card; prints one line per run and the card's name
-and power limit.
+``hyper_apply_bwd_dk`` (``cgat_tpu_torch/csrc/hyper_apply.cu``, namespace
+``dk``): dK at the training step's shape (B = 768 rows, C = I = O = 128;
+seeded random bf16 inputs), and at B = 64 (one k-block: launch, first
+loads and stores). The variants that still compute dK and db are held
+against the plain version (ragged shapes and that one); the others take a
+part out and time what is left (their outputs are garbage):
+
+- ``committed``: the source as it is;
+- ``first_design``: each 16-row step loads its x fragment and g's values
+  (generic loads) only after the wait, and db converts pairs through
+  bf16x2 to float2;
+- ``wait0``: every step waits for all earlier products (none in flight);
+- ``drain``: each k-block waits for its products and releases its stage
+  at once, not one k-block later;
+- ``stages4``: a ring of 4 stages, not 6;
+- ``no_db``: no db sums;
+- ``no_scale``: the fragments are x as ldmatrix loads it: no g multiply,
+  no db sums;
+- ``no_mma``: no ``wgmma`` at all: the loads, the fragments of dP and db
+  and the stores;
+- ``loads_only``: the consumers wait for each stage and release it: the
+  TMA loads alone (52 MB from L2 at that shape) and the stores;
+- ``no_store``: no dK stored.
 """
 from __future__ import annotations
 
@@ -34,6 +58,7 @@ import torch
 
 import chip_smoke as cs
 from cgat_tpu_torch.ops.kernels import build
+from cgat_tpu_torch.ops.kernels import hyper_apply as hk
 from cgat_tpu_torch.ops.kernels import mh_network as mk
 
 OUT = Path(__file__).resolve().parent / "build" / "variants"
@@ -127,8 +152,9 @@ def patch(text: str, old: str, new: str) -> str:
     return text.replace(old, new, 1)
 
 
-def sources() -> dict[str, dict[str, str]]:
-    """Each variant's csrc files that differ from the committed ones."""
+def mh_sources() -> dict[str, dict[str, str]]:
+    """Each mh_network variant's csrc files that differ from the committed
+    ones."""
     cu = (build.CSRC / "mh_network.cu").read_text()
     gemm = (build.CSRC / "gemm_sm90.cuh").read_text()
     start = cu.index(EPI_HEAD)
@@ -163,18 +189,18 @@ def sources() -> dict[str, dict[str, str]]:
             "tma_store": {"mh_network.cu": tma, "gemm_sm90.cuh": gemm_tma}}
 
 
-def build_all(variants) -> dict[str, Path]:
-    """One nvcc per variant, all started together."""
+def build_all(variants, source: str) -> dict[str, Path]:
+    """One nvcc per variant of csrc/<source>.cu, all started together."""
     procs = {}
     for name, files in variants.items():
-        d = OUT / name
+        d = OUT / source / name
         d.mkdir(parents=True, exist_ok=True)
         for src in build.CSRC.iterdir():
             if src.suffix in (".cu", ".cuh"):
                 (d / src.name).write_text(files.get(src.name,
                                                     src.read_text()))
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / "mh_network.cu")]
+               str(d / f"{source}.cu")]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -186,14 +212,18 @@ def build_all(variants) -> dict[str, Path]:
     return libs
 
 
-def use(lib: Path) -> None:
-    """Make the wrappers launch the kernels of library ``lib``."""
+def use(lib: Path, source: str) -> None:
+    """Make the wrappers of csrc/<source>.cu launch the kernels of library
+    ``lib``."""
     cdll = ctypes.CDLL(str(lib))
     cdll.cgat_error_string.argtypes = [ctypes.c_int]
     cdll.cgat_error_string.restype = ctypes.c_char_p
-    build._loaded["mh_network"] = cdll
-    mk._fwd.cache_clear()
-    mk._bwd.cache_clear()
+    build._loaded[source] = cdll
+    if source == "mh_network":
+        mk._fwd.cache_clear()
+        mk._bwd.cache_clear()
+    else:
+        hk._entry.cache_clear()
 
 
 def inputs(gen, rows, cat, hid, f, heads):
@@ -204,7 +234,7 @@ def inputs(gen, rows, cat, hid, f, heads):
             r(heads * f, scale=0.1), heads)
 
 
-def check(name, gen) -> None:
+def mh_check(name, gen) -> None:
     """Forward (both outputs) and backward against the plain versions."""
     for shape in CASES + [SHAPE]:
         args = inputs(gen, *shape)
@@ -219,26 +249,149 @@ def check(name, gen) -> None:
             cs.compare(f"{name} backward", a, b)
 
 
+DK_SHAPE = (768, 128, 128, 128)        # B, C, I, O
+DK_CASES = [(100, 48, 16, 16), (200, 256, 48, 32), (129, 128, 128, 128)]
+DK_MMA = """        sm90::wgmma_m64n128k16_rs<1>(
+            acc, a[kk], sm90::smem_desc(h_addr + kk * 2048, HALF, 1024));
+"""
+DK_SCALE = """        a[kk][0] = mul_pair(xs[kk][0], gs[kk][0]);
+        a[kk][1] = mul_pair(xs[kk][1], gs[kk][0]);
+        a[kk][2] = mul_pair(xs[kk][2], gs[kk][1]);
+        a[kk][3] = mul_pair(xs[kk][3], gs[kk][1]);
+"""
+DK_DB = """        db0 += pair_sum(a[kk][0]) + pair_sum(a[kk][2]);
+        db1 += pair_sum(a[kk][1]) + pair_sum(a[kk][3]);
+"""
+DK_LOADS = """        ldmatrix_x4_trans(xs[kk], x_addr + kk * 2048);
+        gs[kk][0] = g_pair(g_addr + kk * 256);
+        gs[kk][1] = g_pair(g_addr + kk * 256 + 128);
+"""
+# the first design: each 16-row step loads its fragment and g's values
+# (generic loads) after the wait, and sums pairs through bf16x2 -> float2
+DK_FIRST_SUM = """  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  return f.x + f.y;"""
+DK_FIRST_BUILD = """        ldmatrix_x4_trans(a[kk], x_addr + kk * 2048);
+        const bf16* g_s = reinterpret_cast<const bf16*>(
+                              stage + X_BYTES + H_BYTES) + tl.o % G_COLS;
+        const int b = 16 * kk + 2 * q;
+        const __nv_bfloat162 g0 =
+            __halves2bfloat162(g_s[b * G_COLS], g_s[(b + 1) * G_COLS]);
+        const __nv_bfloat162 g1 =
+            __halves2bfloat162(g_s[(b + 8) * G_COLS], g_s[(b + 9) * G_COLS]);
+        a[kk][0] = mul_pair(a[kk][0], g0);
+        a[kk][1] = mul_pair(a[kk][1], g0);
+        a[kk][2] = mul_pair(a[kk][2], g1);
+        a[kk][3] = mul_pair(a[kk][3], g1);
+"""
+DK_RELEASE = """        if (kk == BK / 16 - 1 && k0 > 0)
+          sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+"""
+DK_COMMIT = """        asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");
+      }
+    }"""
+DK_RIGHT = ("committed", "first_design", "wait0", "drain", "stages4")
+
+
+def dk_sources() -> dict[str, dict[str, str]]:
+    """Each dK variant's hyper_apply.cu."""
+    cu = (build.CSRC / "hyper_apply.cu").read_text()
+    raw = "".join(f"        a[kk][{j}] = xs[kk][{j}];\n" for j in range(4))
+    no_scale = patch(patch(cu, DK_SCALE, raw), DK_DB, "")
+    first = patch(patch(cu, DK_LOADS, ""), DK_SCALE, DK_FIRST_BUILD)
+    first = patch(first, "  return __uint_as_float(v << 16) + "
+                  "__uint_as_float(v & 0xffff0000u);", DK_FIRST_SUM)
+    drain = patch(patch(cu, DK_RELEASE, ""), DK_COMMIT, DK_COMMIT[:-6] + """
+      asm volatile("wgmma.wait_group.sync.aligned 0;\\n" ::: "memory");
+      sm90::mbar_arrive(&empty[st]);
+    }""")
+    drain = patch(drain, "    sm90::mbar_arrive(&empty[(it - 1) % STAGES]);\n"
+                  "\n    // db of rows", "\n    // db of rows")
+    variants = {
+        "first_design": first,
+        "wait0": patch(cu, "wgmma.wait_group.sync.aligned 3;",
+                       "wgmma.wait_group.sync.aligned 0;"),
+        "drain": drain,
+        "stages4": patch(cu, "constexpr int STAGES = 6;\nconstexpr int X_BYTES",
+                         "constexpr int STAGES = 4;\nconstexpr int X_BYTES"),
+        "no_db": patch(cu, DK_DB, ""),
+        "no_scale": no_scale,
+        "no_mma": patch(cu, DK_MMA, ""),
+        "loads_only": patch(patch(no_scale, DK_MMA, ""), DK_LOADS, ""),
+        "no_store": patch(cu, "if (row < s.in_ch && col < s.c_dim)",
+                          "if (row < s.in_ch && col < s.c_dim && "
+                          "s.n_rows < 0)")}
+    return {"committed": {}, **{k: {"hyper_apply.cu": v}
+                                for k, v in variants.items()}}
+
+
+def dk_inputs(gen, rows, c, i, o):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").bfloat16()
+    return r(rows, c).tanh(), r(rows, i), r(rows, o), o
+
+
+def dk_check(name, gen) -> None:
+    for shape in DK_CASES + [DK_SHAPE]:
+        args = dk_inputs(gen, *shape)
+        got, want = hk.hyper_apply_bwd_dk(*args), \
+            hk.hyper_apply_bwd_dk_plain(*args)
+        cs.compare(name, got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+def mh_timed(gen):
+    args = inputs(gen, *SHAPE)
+    return {"": lambda: mk.mh_network(*args)}
+
+
+def dk_timed(gen):
+    """At the training shape, and at B = 64 (one k-block: the launch, the
+    first loads and the stores, a floor no B goes under)."""
+    args = dk_inputs(gen, *DK_SHAPE)
+    one = dk_inputs(gen, 64, *DK_SHAPE[1:])
+    return {"": lambda: hk.hyper_apply_bwd_dk(*args),
+            " at B = 64": lambda: hk.hyper_apply_bwd_dk(*one)}
+
+
+# per study: its source, its variants, which of them are held against the
+# plain version, how, and the calls to time (by label)
+STUDIES = {
+    "mh_network": ("mh_network", mh_sources, lambda v: v != "no_store",
+                   mh_check, mh_timed),
+    "hyper_apply_bwd_dk": ("hyper_apply", dk_sources,
+                           lambda v: v in DK_RIGHT, dk_check, dk_timed),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device available", file=sys.stderr)
         return 1
-    libs = build_all(sources())
+    study = sys.argv[1] if len(sys.argv) > 1 else "mh_network"
+    if study not in STUDIES:
+        print(f"chip_variants: no study {study!r}; one of {list(STUDIES)}",
+              file=sys.stderr)
+        return 2
+    source, variants, checked, check, timed = STUDIES[study]
+    libs = build_all(variants(), source)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, lib in libs.items():
-        if name != "no_store":
-            use(lib)
+        if checked(name):
+            use(lib, source)
             check(name, gen)
-    args = inputs(gen, *SHAPE)
+    fns = timed(gen)
     order = list(libs) + list(libs)[::-1]
     for name in order:
-        use(libs[name])
-        ms = cs.time_ms(lambda: mk.mh_network(*args))
-        split = cs.kernel_device_ms(lambda: mk.mh_network(*args), split=True)
-        parts = ", ".join(f"{v:.4f} ms {k.split('(')[0][22:]}"
-                          for k, v in split.items())
-        print(f"[variants] {name}: device {sum(split.values()):.4f} ms "
-              f"({parts}); events {ms:.4f} ms", flush=True)
+        use(libs[name], source)
+        for label, fn in fns.items():
+            ms = cs.time_ms(fn)
+            split = cs.kernel_device_ms(fn, split=True)
+            parts = ", ".join(
+                f"{v:.4f} ms {k.split('(')[0].removeprefix('void ')[:60]}"
+                for k, v in split.items())
+            print(f"[variants] {study} {name}{label}: device "
+                  f"{sum(split.values()):.4f} ms ({parts}); events "
+                  f"{ms:.4f} ms", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

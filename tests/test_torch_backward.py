@@ -195,6 +195,53 @@ def test_hyper_apply_grad_matches_jax(b):
             assert _rel(g.float(), w) < 3e-2
 
 
+@pytest.mark.parametrize("c,i,o", [(128, 128, 128), (64, 48, 16)])
+def test_hyper_apply_bwd_dk_plain_matches_jax_pallas(c, i, o):
+    """The dK kernel's plain version (its function on the card) against
+    the Pallas dK kernel, run through cgat_tpu's _fused_bwd in interpret
+    mode: dk_w (O*I, C) is JAX's dK columns [0, O*I) transposed, db_w its
+    bias-grad entries [0, O*I), kept f32 by an f32 bias. B = 100 is no
+    multiple of the Pallas kernel's 128-row batches.
+
+    Tolerance: the plain version rounds each dP = g x to bf16, as the TPU
+    kernel does; XLA on the CPU may keep that bf16 product in f32 (its
+    excess precision), so each term may differ by dP's rounding, at most
+    2**-8 |dP| (bf16's unit roundoff). Per entry, |got - want| <= 2**-8 x
+    sum_b |dP| |hidden| (db_w: sum_b |dP|), plus for dk_w one bf16 step of
+    the entry (2**-7) for the final rounding of both, plus 1e-6 of the
+    largest entry for f32 summation order."""
+    rng = np.random.default_rng(c + i + o)
+    b, f = 100, o * i + o
+    hidden = _bf16(np.tanh(rng.standard_normal((b, c))))
+    kernel = _bf16(rng.standard_normal((c, f)) * 0.05)
+    bias = rng.standard_normal(f).astype(np.float32) * 0.05
+    x = _bf16(rng.standard_normal((b, i)))
+    cot = _bf16(rng.standard_normal((b, o)))
+    _, dk, db, _ = jhyper._fused_bwd(
+        jnp.asarray(hidden, BF), jnp.asarray(kernel, BF), jnp.asarray(bias),
+        jnp.asarray(x, BF), jnp.asarray(cot, BF), o, True)
+    assert db.dtype == jnp.float32
+    want_dk = np.asarray(dk, np.float32)[:, :o * i].T
+    want_db = np.asarray(db)[:o * i]
+    dk_w, db_w = hyper_apply.hyper_apply_bwd_dk_plain(
+        _t(hidden, torch.bfloat16), _t(x, torch.bfloat16),
+        _t(cot, torch.bfloat16), o)
+    assert dk_w.dtype == torch.bfloat16 and dk_w.shape == (o * i, c)
+    assert db_w.dtype == torch.float32 and db_w.shape == (o * i,)
+    dp = np.abs(cot[:, :, None].astype(np.float64)
+                * x[:, None, :]).reshape(b, o * i)
+    err_dk = np.abs(dk_w.float().numpy() - want_dk)
+    tol_dk = (2 ** -8 * (dp.T @ np.abs(hidden)) + 2 ** -7 * np.abs(want_dk)
+              + 1e-6 * np.abs(want_dk).max())
+    assert (err_dk <= tol_dk).all(), float((err_dk / tol_dk).max())
+    err_db = np.abs(db_w.numpy() - want_db)
+    tol_db = 2 ** -8 * dp.sum(0) + 1e-6 * np.abs(want_db).max()
+    assert (err_db <= tol_db).all(), float((err_db / tol_db).max())
+    # the differences are dP's rounding, not a different function
+    assert _rel(dk_w.float(), want_dk) < 1e-2
+    assert _rel(db_w, want_db) < 1e-2
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_segment_sum_matches_jax_csr_segment_sum(dtype):
     """Every row counts, padding included, as csr_segment_sum without

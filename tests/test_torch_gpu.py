@@ -252,13 +252,15 @@ def test_mh_network_bwd_kernel(dev, rows, cat, hid, f, heads):
                                         (100, 384, 384, 384),
                                         (768, 128, 128, 128),
                                         (1, 128, 128, 128),
-                                        (129, 128, 128, 128)])
+                                        (129, 128, 128, 128),
+                                        (200, 256, 48, 32)])
 def test_hyper_apply_bwd_kernels(dev, rows, c, i, o):
-    """Every width the forward takes: I = 16, 32 and 48, whose K_o box runs
-    past its output's rows; I = 160 and 384 and C = 512, several 128-column
-    tiles (and dK column blocks); C = 48, below one 64-wide box; the
-    training step's shape (768 rows) and row counts that are no multiple
-    of the 128-row tile (1, 129, 100, 70, 7)."""
+    """Every width the forward takes: I = 16, 32 and 48, whose K_o box and
+    dK tile run past its output's rows; I = 160 and 384 and C = 256 and
+    512, several 128-column tiles of I and of C (dK's db comes from the
+    first C tile's); C = 48, below one 64-wide box; the training step's
+    shape (768 rows) and row counts that are no multiple of the 128-row
+    tile or of dK's 64-row k-blocks (1, 7, 70, 100, 129, 200)."""
     assert hyper_apply.supported(c, i, o, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(6)
     hidden = torch.randn(rows, c, generator=g, device=dev).tanh().bfloat16()
@@ -311,6 +313,12 @@ def test_redesigned_kernels_are_deterministic(dev):
     args = (hidden, k, r(o * i + o, scale=0.1), r(b, i), r(b, o), o)
     first = hyper_apply.hyper_apply_bwd_dhdx(*args)
     second = hyper_apply.hyper_apply_bwd_dhdx(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    # hyper_apply_bwd_dk at the same shape: each tile writes its dK tile
+    # once, and db sums in a fixed order
+    args = (hidden, args[3], args[4], o)
+    first = hyper_apply.hyper_apply_bwd_dk(*args)
+    second = hyper_apply.hyper_apply_bwd_dk(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 

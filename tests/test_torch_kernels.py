@@ -399,6 +399,37 @@ def test_hyper_apply_bwd_dhdx_wrapper_passes_its_plan(monkeypatch):
     assert groups == -(-o // per)       # what the C entry checks
 
 
+def test_hyper_apply_bwd_dk_wrapper_allocates_only_its_outputs(monkeypatch):
+    """Off the CPU the wrapper makes one call of the C entry with the
+    shapes, and allocates dk (O*I, C) and db (O*I,) and nothing else: no
+    dP buffer (B, O*I), which the kernel builds in registers. Meta tensors
+    stand in for the card's, and stubs for the library and the card."""
+    calls, allocated = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        allocated.append((tuple(shape), kw.get("dtype")))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(hyper_apply, "_entry",
+                        lambda *a: lambda *b: calls.append(b) or 0)
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
+    n, c, i, o = 300, 256, 48, 32
+    before = hyper_apply.hyper_apply_bwd_dk.launches
+    dk, db = hyper_apply.hyper_apply_bwd_dk(meta(n, c), meta(n, i),
+                                            meta(n, o), o)
+    assert dk.shape == (o * i, c) and dk.dtype == torch.bfloat16
+    assert db.shape == (o * i,) and db.dtype == torch.float32
+    assert hyper_apply.hyper_apply_bwd_dk.launches == before + 1
+    assert allocated == [((o * i, c), torch.bfloat16),
+                         ((o * i,), torch.float32)]
+    (call,) = calls
+    assert call[3:7] == (n, c, i, o)
+    assert call[7:9] == (dk.data_ptr(), db.data_ptr())
+
+
 def test_launches_follow_the_tensors_device(monkeypatch):
     """build.run makes the tensor's device current for the launch only when
     it is not, and restores the previous one, also when the launch raises;
