@@ -158,9 +158,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A (64 x 16) B (16 x 128); TA: A is MN-major; TB: B is MN-major
@@ -195,6 +196,20 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A (64 x 16) B (16 x 8): a thread's d[0..1] and d[2..3] are rows
+// 16 * (warp in the warpgroup) + lane / 4 and that + 8, columns 2 (lane % 4)
+// and + 1; TA, TB as above
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

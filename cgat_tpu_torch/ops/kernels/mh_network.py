@@ -32,17 +32,18 @@ from . import build
 LEAKY_SLOPE = 0.01
 # The widest cat + hid the kernels take: the limit the port has always
 # taken, from its first forward design (64-row tiles of x and h and a
-# scratch in one block's 232,448 bytes of shared memory). The GEMM kernels
-# take a fixed amount whatever the widths (``sm90::smem_bytes`` in
-# ``csrc/gemm_sm90.cuh``: 144,480 bytes, 210,016 for the backward's dpre
-# GEMM), so wider layers would fit them; the gate is unchanged until a
-# test holds the kernels at those widths.
+# scratch in one block's 232,448 bytes of shared memory). The kernels take a
+# fixed amount whatever the widths (``csrc/mh_network.cu``: the forward's
+# GEMMs 144,480 bytes, the backward's pass A 167,984 and pass B 197,728, and
+# 210,016 for the dpre GEMM that takes F > 128), so wider layers would fit
+# them; the gate is unchanged until a test holds the kernels at those
+# widths.
 MAX_CAT_PLUS_HID = 1720
-# The GEMM tiling, sm90::BM and sm90::BK of csrc/gemm_sm90.cuh:
-# the library refuses a plan (bwd_plan) made with other values.
-TILE = 128      # output tile (rows and columns) of the backward's GEMMs
-K_STEP = 64     # rows a backward GEMM stage loads; splits are multiples
-MIN_SPLIT = 1024  # rows of a weight-grad split, at least
+# The backward's tiling, sm90::BM and sm90::BK of csrc/gemm_sm90.cuh: the
+# library refuses a plan (bwd_plan) made with other values.
+TILE = 128      # output tile (rows and columns), and pass A's E tile
+K_STEP = 64     # rows a GEMM stage loads; splits are multiples
+MIN_SPLIT = 1024  # rows of a dWout split where F > 128, at least
 
 
 def supported(cat: int, hid: int, out: int, heads: int, dtype) -> bool:
@@ -67,8 +68,8 @@ def _bwd():
     p = ctypes.c_void_p
     i = ctypes.c_int
     return build.entry("mh_network", "cgat_mh_network_bwd",
-                       [p, p, p, p, p, i, i, i, i, i,
-                        p, p, i, p, p, i, i, p, i, i, p, p, p, p, p, p])
+                       [p, p, p, p, p, i, i, i, i, i, p,
+                        p, p, p, p, p, p, p, p, p, p, p])
 
 
 def mh_network_plain(x, win, b_in, wout, b_out, heads, *,
@@ -158,21 +159,84 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _spread(n_w: int, w_len: int, x_tiles: int, x_len: int,
+            blocks: int) -> tuple[int, tuple[int, int, int, int]]:
+    """Pass B's dx tiles over ``blocks`` blocks: block b runs dWin units
+    b, b + blocks, ... (``n_w`` of them, ``w_len`` k-blocks long), so the
+    first ``n_w % blocks`` blocks run one more; of the dx tiles (``x_len``
+    k-blocks) each of those takes ``a`` (+1 for the first ``ra``) and each
+    other block ``c`` (+1 for the first ``rc``), dealt out in rounds.
+    Returns the longest block's k-blocks and (a, ra, c, rc), the split
+    between the two classes that makes it least."""
+    q, n_a = divmod(n_w, blocks)
+    n_b = blocks - n_a
+    best = None
+    for c_a in range(x_tiles + 1) if n_a else (0,):
+        c_b = x_tiles - c_a
+        if n_b == 0 and c_b:
+            continue
+        load = max((q + 1) * w_len + _cdiv(c_a, n_a) * x_len if n_a else 0,
+                   q * w_len + _cdiv(c_b, n_b) * x_len if n_b else 0)
+        if best is None or load < best[0]:
+            a, ra = divmod(c_a, n_a) if n_a else (0, 0)
+            c, rc = divmod(c_b, n_b) if n_b else (0, 0)
+            best = (load, (a, ra, c, rc))
+    return best
+
+
 def bwd_plan(n_rows: int, cat: int, hid: int, f: int, heads: int,
              sms: int) -> dict:
-    """How the backward kernel cuts its work, planned on the host: the
-    128-row tiles of the row products (dpre, dx), whose bias partials the
-    reduce adds, and the E-row splits of the two weight-grad products. A
-    split is a multiple of 64 rows and, where E allows, at least 1024;
-    there are about enough of them for one wave of ``sms`` SMs, and none is
-    empty. ``win`` and ``wout`` are (splits, rows per split)."""
-    def split(out_tiles):
+    """How the backward kernel cuts its work, planned on the host for a
+    card of ``sms`` SMs with the tiling ``TILE`` and ``K_STEP`` (read it, do
+    not change it: it is cached).
+
+    Pass A (``fused``, where F <= 128 fits its stages): units of (E range,
+    head, 128 hid columns), the E tiles cut into ``wout`` = (ranges, rows
+    a range) so that the units fill about one wave; each range writes one
+    partial of dWout and of both bias sums (``bias_parts`` = ranges).
+    Otherwise dpre's bias partials are per 128-row tile and dWout is split
+    into ``wout`` = (splits, rows a split), multiples of 64 rows of at least
+    ``MIN_SPLIT`` where E allows, about one wave.
+
+    Pass B: dWin's 128 x 128 tiles, E cut into ``win`` = (splits, rows a
+    split), and dx's 128 x 128 tiles on ``blocks`` blocks; ``dx`` = (a, ra,
+    c, rc) deals the dx tiles out (:func:`_spread`). The split count is the
+    one whose longest block (in 64-row k-blocks) is least, the fewest
+    splits among equals. No range or split is empty."""
+    return _plan(n_rows, cat, hid, f, heads, sms, f <= TILE, TILE, K_STEP)
+
+
+@functools.cache
+def _plan(n_rows, cat, hid, f, heads, sms, fused, tile, k_step):
+    m_tiles = _cdiv(n_rows, tile)
+    tiles, rows = max(m_tiles, 1), max(n_rows, 1)
+    hh = heads * hid
+    if fused:
+        pairs = heads * _cdiv(hid, tile)
+        per = _cdiv(tiles, max(1, min(tiles, sms // pairs)))
+        wout = (_cdiv(tiles, per), per * tile)
+        bias_parts = wout[0]
+    else:
+        out_tiles = heads * _cdiv(f, tile) * _cdiv(hid, tile)
         want = max(1, min(sms // out_tiles, n_rows // MIN_SPLIT))
-        rows = _cdiv(_cdiv(max(n_rows, 1), want), K_STEP) * K_STEP
-        return _cdiv(max(n_rows, 1), rows), rows
-    return {"tiles": _cdiv(n_rows, TILE),
-            "win": split(_cdiv(heads * hid, TILE) * _cdiv(cat, TILE)),
-            "wout": split(heads * _cdiv(f, TILE) * _cdiv(hid, TILE))}
+        per = _cdiv(_cdiv(rows, want), k_step) * k_step
+        wout = (_cdiv(rows, per), per)
+        bias_parts = m_tiles
+    w_tiles = _cdiv(hh, tile) * _cdiv(cat, tile)
+    x_tiles = m_tiles * _cdiv(cat, tile)
+    k_blocks, x_len = _cdiv(rows, k_step), _cdiv(hh, k_step)
+    best = None
+    for want in range(1, max(1, sms // w_tiles) + 1):
+        per = _cdiv(k_blocks, want)
+        splits = _cdiv(k_blocks, per)
+        n_w = w_tiles * splits
+        blocks = min(sms, n_w + x_tiles)
+        longest, dx = _spread(n_w, per, x_tiles, x_len, blocks)
+        if best is None or longest < best[0]:
+            best = (longest, {"win": (splits, per * k_step),
+                              "blocks": blocks, "dx": dx})
+    return {"fused": fused, "bias_parts": bias_parts, "wout": wout,
+            **best[1]}
 
 
 def mh_network_bwd(x, h, g, win, wout, heads):
@@ -186,24 +250,28 @@ def mh_network_bwd(x, h, g, win, wout, heads):
     dev, dt = x.device, x.dtype
     plan = bwd_plan(n, cat, hid, f, heads, build.sm_count(dev.index))
     (s_win, r_win), (s_wout, r_wout) = plan["win"], plan["wout"]
+    parts = plan["bias_parts"]
+    # the order of the C entry's plan ints
+    ints = (ctypes.c_int * 11)(int(plan["fused"]), parts, s_wout, r_wout,
+                               s_win, r_win, plan["blocks"], *plan["dx"])
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, cat), dtype=dt, device=dev)
     dpre = torch.empty((n, heads * hid), dtype=dt, device=dev)
-    part_bin = torch.empty((plan["tiles"], heads * hid), **f32)
-    part_bout = torch.empty((plan["tiles"], heads * f), **f32)
-    part_win = torch.empty((s_win, heads * hid, cat), **f32)
+    part_bin = torch.empty((parts, heads * hid), **f32)
+    part_bout = torch.empty((parts, heads * f), **f32)
     part_wout = torch.empty((s_wout, heads * f, hid), **f32)
+    part_win = torch.empty((s_win, heads * hid, cat), **f32)
     dwin = torch.empty_like(win)
     dbin = torch.empty((heads * hid,), dtype=dt, device=dev)
     dwout = torch.empty_like(wout)
     dbout = torch.empty((heads * f,), dtype=dt, device=dev)
     code = build.run(_bwd(), dev, x.data_ptr(), h.data_ptr(), g.data_ptr(),
                      win.data_ptr(), wout.data_ptr(), n, cat, hid, f, heads,
-                     dx.data_ptr(), dpre.data_ptr(), plan["tiles"],
+                     ints, dx.data_ptr(), dpre.data_ptr(),
                      part_bin.data_ptr(), part_bout.data_ptr(),
-                     s_win, r_win, part_win.data_ptr(), s_wout, r_wout,
-                     part_wout.data_ptr(), dwin.data_ptr(), dbin.data_ptr(),
-                     dwout.data_ptr(), dbout.data_ptr())
+                     part_wout.data_ptr(), part_win.data_ptr(),
+                     dwin.data_ptr(), dbin.data_ptr(), dwout.data_ptr(),
+                     dbout.data_ptr())
     build.check("mh_network", code)
     mh_network_bwd.launches += 1
     return dx, dwin, dbin, dwout, dbout

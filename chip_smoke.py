@@ -31,9 +31,9 @@ failure exits non-zero:
    hyper_apply_bwd_dk and segment_sum must give bit-identical results in
    two launches; mh_network_bwd and hyper_apply_bwd_dhdx are timed beside
    the same products as bf16 cuBLAS calls, with their device time by
-   kernel, and hyper_apply_bwd_dk beside dP materialised, dP^T @ hidden
+   launch, and hyper_apply_bwd_dk beside dP materialised, dP^T @ hidden
    and dP's column sums (yardsticks of several calls the port never
-   calls);
+   calls, timed on events and on the device);
    one step is broken down into collate, copy, forward, backward and
    optimizer, and the card's busy time;
 5. report the card, and the eight kernels as one JSON line; the last line
@@ -386,10 +386,13 @@ def serve(model, requests) -> tuple[dict, dict]:
     return launches, stats
 
 
-def device_ms(fn, n_runs: int) -> dict[str, list[float]]:
+def device_ms(fn, n_runs: int, by_launch: bool = False
+              ) -> dict[str, list[float]]:
     """Device time and event count per run of ``fn`` by kernel name, from
     torch.profiler's device events over ``n_runs`` runs (empty if it
-    recorded none)."""
+    recorded none). ``by_launch`` gives each launch of a kernel that runs
+    c > 1 times a run a row of its own, "[j/c] name" for its j-th launch
+    in the run's time order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -398,13 +401,21 @@ def device_ms(fn, n_runs: int) -> dict[str, list[float]]:
         for _ in range(n_runs):
             fn()
         torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name.replace("(anonymous namespace)::", "") for e in events]
+    per_run = {n: max(1, round(names.count(n) / n_runs)) for n in set(names)}
+    seen: dict[str, int] = {}
     per_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            ms, count = per_name.get(name, (0.0, 0.0))
-            per_name[name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
-                                count + 1.0 / n_runs]
+    for name, e in zip(names, events):
+        if by_launch and per_run[name] > 1:
+            j = seen.get(name, 0)
+            seen[name] = j + 1
+            name = f"[{j % per_run[name] + 1}/{per_run[name]}] {name}"
+        ms, count = per_name.get(name, (0.0, 0.0))
+        per_name[name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
+                          count + 1.0 / n_runs]
     return per_name
 
 
@@ -416,12 +427,13 @@ def kernel_device_ms(fn, n_runs: int = 10, split: bool = False):
     """Device time of one call of ``fn``: the sum of its device events, per
     call, over ``n_runs`` calls (None if the profiler recorded none). Unlike
     ``time_ms`` it leaves out the host's time to issue the call. ``split``
-    returns the time per kernel name instead."""
+    returns the time of each launch of a call instead, keyed by its
+    kernel's name (and its place among that kernel's launches)."""
     fn()
     torch.cuda.synchronize()
-    per_name = device_ms(fn, n_runs)
+    per_name = device_ms(fn, n_runs, by_launch=split)
     if split:
-        return {k[:60]: v[0] for k, v in per_name.items()}
+        return {k[:64]: v[0] for k, v in per_name.items()}
     return sum(v[0] for v in per_name.values()) if per_name else None
 
 
@@ -597,6 +609,7 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             deterministic=deterministic(
                 "mh_network_bwd", lambda: mk.mh_network_bwd(*args)),
             cublas_ms=time_ms(cublas),
+            cublas_device_ms=kernel_device_ms(cublas),
             cublas_what="the same four products as bf16 cuBLAS calls "
                         "(torch.matmul)",
             device_split=kernel_device_ms(lambda: mk.mh_network_bwd(*args),

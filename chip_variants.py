@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of one of the port's kernels on one CUDA card.
 
-    python3 chip_variants.py [mh_network | hyper_apply_bwd_dk]
+    python3 chip_variants.py [mh_network | hyper_apply_bwd_dk |
+                              mh_network_bwd]
 
 Builds the kernel's source as it is and variants of it, each from a
 patched copy under ``build/variants/<study>/``, then times each in turns
@@ -22,6 +23,22 @@ ragged shapes and at that one, forward and backward. The variants:
 - ``tma_store``: the epilogue writes a swizzled tile buffer that TMA
   stores while the next tile runs (the mainloop's tile buffers, made
   store-only).
+
+``mh_network_bwd`` (``cgat_tpu_torch/csrc/mh_network.cu``): the backward
+at the training step's shape (E = 18,432 rows, cat 384, hid 256, 5 heads,
+F 128; seeded random inputs, h from the forward as a step saves it), each
+launch's device time a row of its own. The variants that compute the
+gradients are first held against the plain version (ragged shapes and
+that one); the others take a part out (their outputs are garbage):
+
+- ``committed``: the source as it is (pass A, pass B, reduce);
+- ``five_launches``: dpre and dWout as two products (the path of
+  F > 128), dx and dWin as two more, then the reduce: the structure of
+  the design before pass A and pass B;
+- ``no_store``: no dpre and no dx stored;
+- ``no_mma``: no ``wgmma`` at all;
+- ``loads_only``: no products and no epilogues: the consumers wait for
+  each stage and release it (the range's partials are still written).
 
 ``hyper_apply_bwd_dk`` (``cgat_tpu_torch/csrc/hyper_apply.cu``, namespace
 ``dk``): dK at the training step's shape (B = 768 rows, C = I = O = 128;
@@ -50,6 +67,7 @@ part out and time what is left (their outputs are garbage):
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -165,8 +183,8 @@ def mh_sources() -> dict[str, dict[str, str]]:
     tma = patch(cu, "struct DpreEpi {\n  static constexpr bool kTileIO = true;",
                 "struct DpreEpi {\n  static constexpr bool kTileIO = true;\n"
                 "  static constexpr bool kTileLoad = true;")
-    tma = patch(tma, "// Epilogue of step 1 (dpre of head z)",
-                TILE_EPI + "// Epilogue of step 1 (dpre of head z)")
+    tma = patch(tma, "// Epilogue of dpre where F > 128",
+                TILE_EPI + "// Epilogue of dpre where F > 128")
     tma = patch(tma, "CUtensorMap x_k, win_k, h_k, wout_k;",
                 "CUtensorMap x_k, win_k, h_k, wout_k, h_st, out_st;")
     a = tma.index("static_cast<uint64_t>(f) * hid)))\n    return")
@@ -212,9 +230,15 @@ def build_all(variants, source: str) -> dict[str, Path]:
     return libs
 
 
-def use(lib: Path, source: str) -> None:
+PLAN = mk.bwd_plan
+
+
+def use(lib: Path, source: str, name: str = "committed") -> None:
     """Make the wrappers of csrc/<source>.cu launch the kernels of library
-    ``lib``."""
+    ``lib``; the ``five_launches`` variant of the backward plans dpre and
+    dWout as two products (the path of F > 128) at every width."""
+    mk.bwd_plan = PLAN if name != "five_launches" else (
+        lambda *shape: mk._plan(*shape, False, mk.TILE, mk.K_STEP))
     cdll = ctypes.CDLL(str(lib))
     cdll.cgat_error_string.argtypes = [ctypes.c_int]
     cdll.cgat_error_string.restype = ctypes.c_char_p
@@ -339,6 +363,74 @@ def dk_check(name, gen) -> None:
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
 
 
+BWD_SHAPE = (18432, 384, 256, 128, 5)   # E, cat, hid, F, heads
+BWD_RIGHT = ("committed", "five_launches")
+DPRE_STORE = "if (row < p.n_rows && t.j0 + col < p.hid)"
+DX_STORE = "if (row < m && col < n)\n          *reinterpret_cast<uint4*>(out +"
+WGMMA = re.compile(r"sm90::wgmma_m64n\w+<[^>]*>\([^;]*\);")
+PASS_B_LAUNCH = """    pass_b::kernel<<<pb.blocks, sm90::THREADS, pass_b::SMEM, st>>>(
+        dpre_mn, x_mn, dpre_k, win_mn, static_cast<bf16*>(dx), part_win, pb);
+    if ((err = cudaGetLastError())) return static_cast<int>(err);"""
+TWO_LAUNCHES = """    if ((err = sm90::launch<false>(
+             dpre_k, win_mn, sm90::Shape{n_rows, cat, hh, hh, 1, 1, 0, 0},
+             StoreEpi{static_cast<bf16*>(dx), n_rows, cat, cat}, st)) ||
+        (err = sm90::launch<true>(
+             dpre_mn, x_mn,
+             sm90::Shape{hh, cat, n_rows, r_win, 1, s_win, 1, 1},
+             PartEpi{part_win, hh, cat, 1}, st)))
+      return static_cast<int>(err);"""
+EPI_A = ("          const int rr = half * 64 + r;\n",
+         "        sm90::mbar_arrive(&empty[st]);\n      }\n      "
+         "sm90::mbar_arrive(w_empty);")
+
+
+def bwd_sources() -> dict[str, dict[str, str]]:
+    """Each mh_network_bwd variant's mh_network.cu."""
+    cu = (build.CSRC / "mh_network.cu").read_text()
+    no_store = patch(patch(cu, DPRE_STORE,
+                           DPRE_STORE[:-1] + " && p.n_rows < 0)"),
+                     DX_STORE, DX_STORE.replace("col < n)",
+                                                "col < n && ld < 0)"))
+    no_mma = WGMMA.sub("", cu)
+    # no products, no epilogues: pass A's dpre epilogue and pass B's
+    # stores go; the consumers wait for each stage and release it
+    a = no_mma.index(EPI_A[0])
+    b = no_mma.index(EPI_A[1], a)
+    loads_only = no_mma[:a] + "        }\n" + no_mma[b:]
+    for epi in ("      StoreEpi{dx, p.n_rows, p.cat, p.cat}(acc, tl, nullptr, "
+                "nullptr);\n",
+                "      PartEpi{part_win, p.hh, p.cat, 1}(acc, tl, nullptr, "
+                "nullptr);\n"):
+        loads_only = patch(loads_only, epi, "")
+    return {"committed": {}, "no_store": {"mh_network.cu": no_store},
+            "no_mma": {"mh_network.cu": no_mma},
+            "loads_only": {"mh_network.cu": loads_only},
+            "five_launches": {"mh_network.cu": patch(
+                patch(cu, PASS_B_LAUNCH, TWO_LAUNCHES), "struct StoreEpi {\n",
+                "struct StoreEpi {\n  static constexpr bool kTileIO = false;\n")}}
+
+
+def bwd_args(gen, rows, cat, hid, f, heads):
+    """Seeded inputs and the saved h of the forward, as a step saves it."""
+    x, win, b_in, wout, b_out, _ = inputs(gen, rows, cat, hid, f, heads)
+    _, h = mk.mh_network(x, win, b_in, wout, b_out, heads, return_hidden=True)
+    cot = torch.randn(rows, heads * f, generator=gen, device="cuda").bfloat16()
+    return x, h, cot, win, wout, heads
+
+
+def bwd_check(name, gen) -> None:
+    for shape in CASES + [BWD_SHAPE]:
+        args = bwd_args(gen, *shape)
+        for a, b in zip(mk.mh_network_bwd(*args),
+                        mk.mh_network_bwd_plain(*args)):
+            cs.compare(name, a, b)
+
+
+def bwd_timed(gen):
+    args = bwd_args(gen, *BWD_SHAPE)
+    return {"": lambda: mk.mh_network_bwd(*args)}
+
+
 def mh_timed(gen):
     args = inputs(gen, *SHAPE)
     return {"": lambda: mk.mh_network(*args)}
@@ -360,6 +452,8 @@ STUDIES = {
                    mh_check, mh_timed),
     "hyper_apply_bwd_dk": ("hyper_apply", dk_sources,
                            lambda v: v in DK_RIGHT, dk_check, dk_timed),
+    "mh_network_bwd": ("mh_network", bwd_sources, lambda v: v in BWD_RIGHT,
+                       bwd_check, bwd_timed),
 }
 
 
@@ -377,17 +471,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, lib in libs.items():
         if checked(name):
-            use(lib, source)
+            use(lib, source, name)
             check(name, gen)
     fns = timed(gen)
     order = list(libs) + list(libs)[::-1]
     for name in order:
-        use(libs[name], source)
+        use(libs[name], source, name)
         for label, fn in fns.items():
             ms = cs.time_ms(fn)
             split = cs.kernel_device_ms(fn, split=True)
             parts = ", ".join(
-                f"{v:.4f} ms {k.split('(')[0].removeprefix('void ')[:60]}"
+                f"{v:.4f} ms {k.split('(')[0].replace('void ', '')[:64]}"
                 for k, v in split.items())
             print(f"[variants] {study} {name}{label}: device "
                   f"{sum(split.values()):.4f} ms ({parts}); events "

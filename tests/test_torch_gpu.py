@@ -220,12 +220,19 @@ def test_segment_sum_kernel(dev, dtype, f, case):
 @pytest.mark.parametrize("rows,cat,hid,f,heads",
                          [(1000, 384, 256, 128, 5), (37, 48, 32, 16, 2),
                           (100, 144, 272, 160, 8), (1, 384, 256, 128, 5),
-                          (129, 384, 256, 128, 5), (1, 16, 16, 16, 1)])
+                          (129, 384, 256, 128, 5), (1, 16, 16, 16, 1),
+                          (18432, 384, 256, 128, 5), (18433, 384, 256, 128, 5),
+                          (600, 64, 256, 32, 72)])
 def test_mh_network_bwd_kernel(dev, rows, cat, hid, f, heads):
     """Row counts that are no multiple of the 128-row tile (1000, 129, 37,
     100) and a single row; widths that are no multiple of the 64-wide
     boxes or the 128-wide tiles (F = 160, hid = 272, cat = 144: a head's
-    box runs past its edge); 8 x 272 hidden columns; one head of 16."""
+    box runs past its edge); 8 x 272 hidden columns; one head of 16. The
+    training step's shape (18,432 rows); 18,433 rows, whose last pass-A
+    range ends in a tile of one row; 72 heads, more (head, hid tile) units
+    than the card has SMs, so that blocks run several units. F = 160 takes
+    the old split (dpre and dWout as two products), the others pass A.
+    Two launches give the same bits."""
     g = torch.Generator(device=dev).manual_seed(5)
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
                                * scale).bfloat16()
@@ -245,6 +252,8 @@ def test_mh_network_bwd_kernel(dev, rows, cat, hid, f, heads):
     want = mh_network.mh_network_bwd_plain(x, h, cot, win, wout, heads)
     for a, b in zip(got, want):
         _close(a, b, torch.bfloat16)
+    again = mh_network.mh_network_bwd(x, h, cot, win, wout, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48),

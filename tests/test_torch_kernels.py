@@ -281,35 +281,90 @@ def test_library_path_covers_headers_and_flags(tmp_path, monkeypatch):
     assert build.library_path("mh_network") != added
 
 
+def _pass_b_units(plan: dict, rows: int, cat: int, hh: int):
+    """Pass B's units per block, in the kernel's order (``pass_b::unit_at``
+    in ``csrc/mh_network.cu``): block b's dWin units b, b + blocks, ...
+    (the tile fastest, then the split), then its dx tiles, dealt out in
+    rounds. Yields (block, kind, m tile, n tile, split, k-blocks)."""
+    tile, step = mh_network.TILE, mh_network.K_STEP
+    n_tiles = -(-cat // tile)
+    w_tiles = -(-hh // tile) * n_tiles
+    splits, per = plan["win"]
+    blocks, (a, ra, c, rc) = plan["blocks"], plan["dx"]
+    n_w = w_tiles * splits
+    rw = n_w % blocks
+    count = [a + (b < ra) if b < rw else c + (b - rw < rc)
+             for b in range(blocks)]
+    for b in range(blocks):
+        for u in range(b, n_w, blocks):
+            t, s = u % w_tiles, u // w_tiles
+            yield (b, "dwin", t // n_tiles, t % n_tiles, s,
+                   -(-(min(rows, (s + 1) * per) - s * per) // step))
+        for j in range(count[b]):
+            # the tiles of rounds 0 .. j - 1, then b's place in round j
+            x = (sum(min(n, j) for n in count)
+                 + sum(count[i] > j for i in range(b)))
+            yield b, "dx", x // n_tiles, x % n_tiles, 0, -(-hh // step)
+
+
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("rows,cat,hid,f,heads",
                          [(18432, 384, 256, 128, 5), (19968, 384, 256, 128, 5),
                           (1000, 144, 272, 160, 8), (129, 48, 32, 16, 2),
-                          (1, 16, 16, 16, 1), (1025, 384, 256, 128, 5)])
+                          (1, 16, 16, 16, 1), (1025, 384, 256, 128, 5),
+                          (600, 64, 256, 32, 72), (3000, 384, 256, 64, 5)])
 def test_mh_network_bwd_plan_covers_every_row_once(rows, cat, hid, f, heads,
                                                    sms):
-    """The backward's host plan: row tiles cover E, and each weight-grad
-    product's splits cover every row exactly once, are no empty, are
-    multiples of 64 rows and (where E allows) at least 1024 rows, and fill
-    at most about one wave of the card's SMs (132 on the H100 SXM, 114 on
-    the PCIe card)."""
+    """The backward's host plan. Pass A (F <= 128 only, the old split where
+    F > 128): its E ranges are whole 128-row tiles, cover every row once,
+    none empty, and fill at most about one wave of the card's SMs (132 on
+    the H100 SXM, 114 on the PCIe card); where F > 128, dWout's splits
+    (multiples of 64 rows, at least 1024 where E allows) do. Pass B: every
+    dx tile and every (dWin tile, split) falls in exactly one unit, the
+    splits cover every row once and none is empty, and no block runs more
+    than one dx tile longer than the mean of all blocks."""
     plan = mh_network.bwd_plan(rows, cat, hid, f, heads, sms)
     tile, step = mh_network.TILE, mh_network.K_STEP
-    assert (plan["tiles"] - 1) * tile < rows <= plan["tiles"] * tile
-    out_tiles = {"win": -(-heads * hid // tile) * -(-cat // tile),
-                 "wout": heads * -(-f // tile) * -(-hid // tile)}
-    for key in ("win", "wout"):
-        splits, per = plan[key]
-        assert per % step == 0 and splits >= 1
+    hh = heads * hid
+    m_tiles = -(-rows // tile)
+    assert plan["fused"] == (f <= tile)
+
+    def covers_once(splits, per):
         covered = np.zeros(rows, int)
         for s in range(splits):
             lo, hi = s * per, min(rows, (s + 1) * per)
             assert lo < hi                                  # none empty
             covered[lo:hi] += 1
         assert (covered == 1).all()
+
+    ranges, per = plan["wout"]
+    covers_once(ranges, per)
+    if plan["fused"]:
+        assert per % tile == 0 and plan["bias_parts"] == ranges
+        pairs = heads * -(-hid // tile)
+        assert ranges * pairs <= max(sms, pairs)
+    else:
+        out_tiles = heads * -(-f // tile) * -(-hid // tile)
+        assert per % step == 0 and plan["bias_parts"] == m_tiles
         if rows >= mh_network.MIN_SPLIT:
-            assert per >= mh_network.MIN_SPLIT or splits == 1
-        assert splits * out_tiles[key] <= max(sms, out_tiles[key])
+            assert per >= mh_network.MIN_SPLIT or ranges == 1
+        assert ranges * out_tiles <= max(sms, out_tiles)
+
+    splits, per = plan["win"]
+    assert per % step == 0
+    covers_once(splits, per)
+    units = list(_pass_b_units(plan, rows, cat, hh))
+    n_tiles = -(-cat // tile)
+    dx = sorted(u[2:4] for u in units if u[1] == "dx")
+    assert dx == [(m, n) for m in range(m_tiles) for n in range(n_tiles)]
+    dwin = sorted(u[2:5] for u in units if u[1] == "dwin")
+    assert dwin == [(m, n, s) for m in range(-(-hh // tile))
+                    for n in range(n_tiles) for s in range(splits)]
+    assert 1 <= plan["blocks"] <= sms
+    load = np.zeros(plan["blocks"], int)
+    for u in units:
+        load[u[0]] += u[5]
+    assert load.max() <= load.sum() / plan["blocks"] + -(-hh // step)
 
 
 def _bwd_units(plan: dict, out_ch: int):
