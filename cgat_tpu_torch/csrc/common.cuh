@@ -18,15 +18,6 @@ CGAT_EXPORT const char* cgat_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// raise a kernel's dynamic shared-memory limit above the 48 KB default
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 

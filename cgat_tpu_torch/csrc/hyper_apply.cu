@@ -16,15 +16,20 @@
 // against 4.6 MB of input and output (K is 4.2 MB of it), ~1.4 us at
 // 3.35 TB/s. Writing and re-reading P instead would add 51 MB.
 //
-// Design: a 2-D grid of (64-row block) x (16 outputs). A block stages its
-// hidden and x rows in shared memory and, output by output, computes the
-// (64, I) slice P_o with bf16 WMMA fragments (f32 accumulation; K streams
-// from L2). Each warp moves its accumulator fragment through a per-warp
-// scratch, adds the bias, rounds to bf16 as the TPU kernel does, multiplies
-// by x and reduces the row's 16 lanes in f32; the per-warp partial sums are
-// added across warps at the end. The bias tail P[:, O*I + o] of the block's
-// 16 outputs is one more 16-column fragment. Rows past B are zero-filled
-// and never stored, so B needs no padding.
+// Design (namespace fwd below): one persistent launch of units planned on
+// the host (fwd_plan in ops/kernels/hyper_apply.py), about one wave of the
+// card's SMs, on the dh/dx kernel's mainloop (TMA into a ring of mbarrier
+// stages, one producer thread, two consumer warpgroups on wgmma). A unit
+// is a 128-row tile of B and a range of outputs. Per output o and
+// 128-column tile of I it computes P_o = hidden K_o^T on wgmma, adds the
+// bias c_o and rounds to bf16 as the TPU kernel does; the rounded P_o lies
+// in registers as mma.sync's A fragments, so each warp multiplies its 16
+// rows of it by its 16 rows of x on the tensor cores (f32 products and
+// sums) and keeps the diagonal, the rows' sums. The bias tail
+// P[:, O*I + o] of the unit's outputs is one more product, 8 outputs at a
+// time (wgmma n8); each row's sum plus its tail, rounded once, is stored
+// once. Rows past B are zero-filled and never stored, so B needs no
+// padding.
 //
 // Backward, for the cotangent g (B, O), with dP[b, o*I + i] =
 // bf16(g[b, o] * x[b, i]) and dP[b, O*I + o] = g[b, o]:
@@ -65,145 +70,305 @@
 //   atomics and no partial planes.
 // The bias-tail rows of dK and db (g^T hidden and sum g) are left to plain
 // torch ops, as the JAX package computes them outside Pallas.
-#include <mma.h>
-
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 64;          // rows per block
-constexpr int OC = 16;          // outputs per block
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RT = BM / 16;
-constexpr int SCR_LD = 20;
-
-__host__ __device__ constexpr int pad_ld(int n) { return n + 8; }
-
-// [per-warp scratch | partial sums | bias tail | hidden tile | x tile]
-__host__ __device__ inline int smem_bytes(int c, int in_ch) {
-  return WARPS * 16 * SCR_LD * 4 + WARPS * BM * OC * 4 + BM * OC * 4 +
-         BM * pad_ld(c) * 2 + BM * pad_ld(in_ch) * 2;
+// `bytes` contiguous bytes into shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
+      : "memory");
 }
 
-__device__ __forceinline__ void stage_rows(bf16* dst, int ldd,
-                                           const bf16* src, int width,
-                                           int row0, int n_rows) {
-  const int chunks = width / 8;
-  for (int i = threadIdx.x; i < BM * chunks; i += THREADS) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * width + c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
-  }
+// ---- forward: one persistent launch built from gemm_sm90.cuh's pieces ----
+namespace fwd {
+
+using sm90::BK;
+constexpr int TILE = 128;                   // rows of a unit; columns of I
+constexpr int STAGES = 4;
+constexpr int A_BYTES = sm90::A_BYTES;      // 128 rows x 64 of hidden
+constexpr int B_BYTES = BK * TILE * 2;      // a box of K_o, 128 x 64
+constexpr int TAIL_N = 8;                   // tail outputs of one product
+constexpr int TAIL_BYTES = TAIL_N * BK * 2; // a box of K_tail, 8 x 64
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int BIAS_BYTES = TILE * 2;        // c_o's columns of an I tile
+constexpr int PER_MAX = 32;                 // outputs of a unit at most
+constexpr int SUM_LD = PER_MAX + 1;         // a row of the unit's sums (f32)
+constexpr int SMEM = 1024 + STAGES * (STAGE_BYTES + BIAS_BYTES) +
+                     TILE * SUM_LD * 4 + 2 * STAGES * 8;
+
+// The host's plan (fwd_plan in ops/kernels/hyper_apply.py): 128-row tiles
+// of B, and the outputs o cut into `groups` groups of `per` outputs.
+struct Plan {
+  int n_rows, c_dim, in_ch, out_ch;
+  int m_tiles, groups, per;
+  __host__ __device__ int units() const { return m_tiles * groups; }
+};
+
+struct Unit {
+  int m0, o_begin, o_end;   // first row; the outputs [o_begin, o_end)
+};
+
+// Unit u: the group runs fastest, then the row tile.
+__device__ __forceinline__ Unit unit_at(const Plan& p, int u) {
+  const int o_begin = (u % p.groups) * p.per;
+  return Unit{(u / p.groups) * TILE, o_begin, min(p.out_ch, o_begin + p.per)};
 }
 
-__device__ __forceinline__ void tile_product(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[RT],
-    const bf16* tile_s, int lds, const bf16* w, int kdim) {
-#pragma unroll
-  for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int kk = 0; kk < kdim; kk += 16) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(b, w + kk, kdim);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, tile_s + i * 16 * lds + kk, lds);
-      wmma::mma_sync(acc[i], a, b, acc[i]);
+// the pair of f32 values rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b on one warp's tensor cores: a is a 16 x 16 bf16 fragment (rows
+// lane / 4 and + 8, column pairs 2 (lane % 4) and + 8), b a 16 x 8 one (k
+// pairs 2 (lane % 4) and + 8, column lane / 4), d f32 (rows lane / 4 and
+// + 8, columns 2 (lane % 4) and + 1)
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Persistent: block b walks units b, b + gridDim.x, ... A producer thread
+// keeps up to STAGES k-blocks in flight through TMA. A pass is one output o
+// and one 128-column tile of I: its k-blocks are 64 columns of C, a box of
+// hidden's rows and one of K_o's (both K-major; o is the outer axis of K's
+// map, so a box stops at I), and with the last k-block the tile's values of
+// the bias c_o (a bulk copy into the stage's bias slot). After the unit's
+// outputs, a tail pass per 8 outputs: boxes of hidden's rows and of the 8
+// rows of K_tail. The two consumer warpgroups each own 64 rows of the
+// unit's 128-row tile:
+// - P_o's tile = hidden K_o^T on wgmma (shared-memory A and B), then each
+//   thread adds c_o and rounds to bf16 into mma.sync's A fragments, and
+//   each warp adds P_w X_w^T (its 16 rows of P_o by its 16 rows of x, x's
+//   pairs loaded once per unit and I tile as B fragments) into 16 x 16 f32
+//   sums; after the last I tile their diagonal, the rows' sums, goes to
+//   shared memory. The two warpgroups run side by side: one's products
+//   (wgmma) overlap the other's epilogue (mma.sync and the rounding), and
+//   neither waits for the other. A ring of 4 stages (two passes at
+//   C = 128) leaves fewer loads waiting in L2's queues than 6, and measured
+//   faster.
+// - The tail pass: hidden K_tail^T on wgmma n8, plus c's tail, rounded to
+//   bf16, added to the row's sum, rounded once and stored. Tail columns
+//   past the unit's outputs are computed and not stored: every pass issues
+//   all its products (a wgmma under a branch would be serialised).
+// Columns past I read zeros from K_o's box, and their bias and x are taken
+// as zeros, so the bias slot's stale bytes past I never reach a sum.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+kernel(const __grid_constant__ CUtensorMap t_hidden,
+       const __grid_constant__ CUtensorMap t_kw,
+       const __grid_constant__ CUtensorMap t_tail,
+       const bf16* __restrict__ bias, const bf16* __restrict__ x,
+       bf16* __restrict__ out, const Plan p) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned stages
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* bias_s = smem + STAGES * STAGE_BYTES;
+  float* sums = reinterpret_cast<float*>(bias_s + STAGES * BIAS_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sums + TILE * SUM_LD);
+  uint64_t* empty = full + STAGES;
+  const int units = p.units();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], sm90::CONSUMERS * 128);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-hyper_apply_fwd(const bf16* __restrict__ hidden, const bf16* __restrict__ k,
-                const bf16* __restrict__ bias, const bf16* __restrict__ x,
-                bf16* __restrict__ out, int n_rows, int c_dim, int in_ch,
-                int out_ch) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* scratch = reinterpret_cast<float*>(smem);
-  float* part = scratch + WARPS * 16 * SCR_LD;   // (WARPS, BM, OC)
-  float* tail = part + WARPS * BM * OC;          // (BM, OC)
-  bf16* hs = reinterpret_cast<bf16*>(tail + BM * OC);
-  const int ldh = pad_ld(c_dim);
-  bf16* xs = hs + BM * ldh;
-  const int ldx = pad_ld(in_ch);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = scratch + warp * 16 * SCR_LD;
-  float* wpart = part + warp * BM * OC;
-  const int row0 = blockIdx.x * BM;
-  const int o0 = blockIdx.y * OC;
-  const int w_cols = out_ch * in_ch;
-
-  stage_rows(hs, ldh, hidden, c_dim, row0, n_rows);
-  stage_rows(xs, ldx, x, in_ch, row0, n_rows);
-  for (int i = threadIdx.x; i < WARPS * BM * OC; i += THREADS) part[i] = 0.f;
   __syncthreads();
 
-  // lane -> (row r of the fragment, 8 lanes starting at c0)
-  const int r = lane / 2;
-  const int c0 = (lane % 2) * 8;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
-  for (int ol = 0; ol < OC; ++ol) {
-    const int o = o0 + ol;
-    for (int nt = warp; nt < in_ch / 16; nt += WARPS) {
-      const int p0 = o * in_ch + nt * 16;   // first predicted column
-      tile_product(acc, hs, ldh, k + static_cast<size_t>(p0) * c_dim, c_dim);
-      for (int i = 0; i < RT; ++i) {
-        wmma::store_matrix_sync(ws, acc[i], SCR_LD, wmma::mem_row_major);
-        __syncwarp();
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = c0 + j;
-          // the predicted weight is rounded to bf16 before it is applied
-          const float p = __bfloat162float(__float2bfloat16(
-              ws[r * SCR_LD + c] + __bfloat162float(bias[p0 + c])));
-          s = fmaf(p, __bfloat162float(xs[(i * 16 + r) * ldx + nt * 16 + c]), s);
+  const int wg = threadIdx.x / 128;
+  // `it` counts k-blocks over all of this block's units: stage it % STAGES,
+  // in its (it / STAGES)-th use
+  if (wg == sm90::CONSUMERS) {
+    if (threadIdx.x == sm90::CONSUMERS * 128) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit t = unit_at(p, u);
+        for (int o = t.o_begin; o < t.o_end; ++o) {
+          for (int n0 = 0; n0 < p.in_ch; n0 += TILE) {
+            const int bias_bytes = 2 * min(TILE, p.in_ch - n0);
+            for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {
+              const int st = it % STAGES;
+              sm90::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+              unsigned char* a_s = smem + st * STAGE_BYTES;
+              const bool last = k0 + BK >= p.c_dim;
+              sm90::mbar_expect_tx(&full[st],
+                                   STAGE_BYTES + (last ? bias_bytes : 0));
+              sm90::tma_load(a_s, &t_hidden, &full[st], k0, 0, t.m0);
+              sm90::tma_load(a_s + A_BYTES, &t_kw, &full[st], k0, n0, o);
+              if (last)
+                bulk_load(bias_s + st * BIAS_BYTES,
+                          bias + size_t(o) * p.in_ch + n0, bias_bytes,
+                          &full[st]);
+            }
+          }
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        if (lane % 2 == 0) wpart[(i * 16 + r) * OC + ol] += s;
-        __syncwarp();
+        for (int o0 = t.o_begin; o0 < t.o_end; o0 += TAIL_N) {
+          for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {
+            const int st = it % STAGES;
+            sm90::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+            unsigned char* a_s = smem + st * STAGE_BYTES;
+            sm90::mbar_expect_tx(&full[st], A_BYTES + TAIL_BYTES);
+            sm90::tma_load(a_s, &t_hidden, &full[st], k0, 0, t.m0);
+            sm90::tma_load(a_s + A_BYTES, &t_tail, &full[st], k0, o0, 0);
+          }
+        }
       }
     }
+    return;
   }
-  // bias tail: P[:, O*I + o0 : O*I + o0 + 16], one row fragment per warp
-  if (warp < RT) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> t;
-    wmma::fill_fragment(t, 0.f);
-    const bf16* kt = k + static_cast<size_t>(w_cols + o0) * c_dim;
-    for (int kk = 0; kk < c_dim; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(b, kt + kk, c_dim);
-      wmma::load_matrix_sync(a, hs + warp * 16 * ldh + kk, ldh);
-      wmma::mma_sync(t, a, b, t);
+
+  // consumers: the rows of d[0..1] and d[2..3] of thread (wg, thread)
+  const int thread = threadIdx.x % 128, lane = thread % 32, q = lane % 4;
+  const int row_in_tile = wg * 64 + (thread / 32) * 16 + lane / 4;
+  // this thread's two rows of the unit's sums, 8 rows apart
+  float* sum_row = sums + row_in_tile * SUM_LD;
+  const size_t w_cols = size_t(p.out_ch) * p.in_ch;
+  uint32_t xv[2][16] = {};   // x's pairs: rows r0, r1, columns 8 j + 2 q
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit t = unit_at(p, u);
+    const int r0 = t.m0 + row_in_tile, r1 = r0 + 8;
+    const bool v0 = r0 < p.n_rows, v1 = r1 < p.n_rows;
+    for (int o = t.o_begin; o < t.o_end; ++o) {
+      // the warp's 16 x 16 products of its rows of P_o with its rows of x:
+      // d0 holds rows r0 by x's rows 16 warp + (0..7), d1 rows r1 by 16
+      // warp + 8 + (0..7); the row sums are on the diagonal
+      float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int n0 = 0; n0 < p.in_ch; n0 += TILE) {
+        const int live = p.in_ch - n0;   // columns of this I tile in I
+        if (o == t.o_begin || p.in_ch > TILE) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = n0 + j * 8 + 2 * q;
+            const bool in = j * 8 < live;
+            xv[0][j] = v0 && in ? *reinterpret_cast<const uint32_t*>(
+                                      x + size_t(r0) * p.in_ch + col)
+                                : 0u;
+            xv[1][j] = v1 && in ? *reinterpret_cast<const uint32_t*>(
+                                      x + size_t(r1) * p.in_ch + col)
+                                : 0u;
+          }
+        }
+        float acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {
+          const int st = it % STAGES;
+          sm90::mbar_wait(&full[st], (it / STAGES) & 1);
+          const uint32_t a_addr =
+              sm90::smem_u32(smem + st * STAGE_BYTES) + wg * sm90::HALF;
+          const uint32_t b_addr =
+              sm90::smem_u32(smem + st * STAGE_BYTES + A_BYTES);
+          sm90::fence_acc(acc);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            sm90::wgmma_m64n128k16<0, 0>(
+                acc, sm90::smem_desc(a_addr + kk * 32, 16, 1024),
+                sm90::smem_desc(b_addr + kk * 32, 16, 1024));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          sm90::fence_acc(acc);
+          // keep this stage's products in flight; the previous one is done
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          if (k0 > 0) sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        sm90::fence_acc(acc);
+        // bf16(P_o + c_o), c_o from the last stage's bias slot (released
+        // after), is in the register layout of mma's A: per 16 columns,
+        // one fragment, multiplied by x's pairs at the thread's two rows
+        // (mma's B fragments). Past I the slot holds stale bytes, so the
+        // bias there is taken as zero (and x is zero).
+        const int st = (it - 1) % STAGES;
+        const __nv_bfloat162* c =
+            reinterpret_cast<const __nv_bfloat162*>(bias_s + st * BIAS_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+          const int j = 2 * kk;     // the 8-column groups j and j + 1
+          const bool in = kk * 16 < live;
+          const float2 c0 = in ? __bfloat1622float2(c[j * 4 + q])
+                               : make_float2(0.f, 0.f);
+          const float2 c1 = in ? __bfloat1622float2(c[j * 4 + 4 + q])
+                               : make_float2(0.f, 0.f);
+          const uint32_t a[4] = {
+              pack_rn(acc[j * 4] + c0.x, acc[j * 4 + 1] + c0.y),
+              pack_rn(acc[j * 4 + 2] + c0.x, acc[j * 4 + 3] + c0.y),
+              pack_rn(acc[j * 4 + 4] + c1.x, acc[j * 4 + 5] + c1.y),
+              pack_rn(acc[j * 4 + 6] + c1.x, acc[j * 4 + 7] + c1.y)};
+          mma_m16n8k16(d0, a, xv[0][j], xv[0][j + 1]);
+          mma_m16n8k16(d1, a, xv[1][j], xv[1][j + 1]);
+        }
+        sm90::mbar_arrive(&empty[st]);
+      }
+      // row r0's sum is d0's entry at x's row r0: column lane / 4 of d0,
+      // held by the thread with q = lane / 8; r1's likewise in d1
+      if (q == lane / 8) {
+        const bool odd = (lane / 4) & 1;
+        sum_row[o - t.o_begin] = odd ? d0[1] : d0[0];
+        sum_row[8 * SUM_LD + o - t.o_begin] = odd ? d1[3] : d1[2];
+      }
     }
-    wmma::store_matrix_sync(ws, t, SCR_LD, wmma::mem_row_major);
-    __syncwarp();
-    for (int q = lane; q < 256; q += 32) {
-      const int rr = q / 16, ol = q % 16;
-      tail[(warp * 16 + rr) * OC + ol] = __bfloat162float(__float2bfloat16(
-          ws[rr * SCR_LD + ol] + __bfloat162float(bias[w_cols + o0 + ol])));
+    __syncwarp();   // a row's sums are read by all of its quad
+    for (int o0 = t.o_begin; o0 < t.o_end; o0 += TAIL_N) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {
+        const int st = it % STAGES;
+        sm90::mbar_wait(&full[st], (it / STAGES) & 1);
+        const uint32_t a_addr =
+            sm90::smem_u32(smem + st * STAGE_BYTES) + wg * sm90::HALF;
+        const uint32_t b_addr =
+            sm90::smem_u32(smem + st * STAGE_BYTES + A_BYTES);
+        sm90::fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          sm90::wgmma_m64n8k16<0, 0>(
+              acc, sm90::smem_desc(a_addr + kk * 32, 16, 1024),
+              sm90::smem_desc(b_addr + kk * 32, 16, 1024));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        sm90::fence_acc(acc);
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (k0 > 0) sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      sm90::fence_acc(acc);
+      sm90::mbar_arrive(&empty[(it - 1) % STAGES]);
+      // out = bf16(sum + bf16(P_tail + c_tail)) for outputs o0 + 2q (+ 1)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = o0 + 2 * q + e;
+        if (o >= t.o_end) continue;
+        const float c = __bfloat162float(bias[w_cols + o]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = h ? r1 : r0;
+          const float tail =
+              __bfloat162float(__float2bfloat16(acc[2 * h + e] + c));
+          if (row < p.n_rows)
+            out[size_t(row) * p.out_ch + o] = __float2bfloat16(
+                sum_row[h * 8 * SUM_LD + o - t.o_begin] + tail);
+        }
+      }
     }
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < BM * OC; q += THREADS) {
-    const int rr = q / OC, ol = q % OC;
-    if (row0 + rr >= n_rows) continue;
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += part[(w * BM + rr) * OC + ol];
-    out[static_cast<size_t>(row0 + rr) * out_ch + o0 + ol] =
-        __float2bfloat16(s + tail[rr * OC + ol]);
+    __syncwarp();   // the next unit's sums overwrite these
   }
 }
+
+}  // namespace fwd
 
 // ---- dh/dx: one persistent launch built from gemm_sm90.cuh's pieces ------
 namespace dhdx {
@@ -267,16 +432,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// `bytes` contiguous bytes into shared memory, counted on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
-      : "memory");
 }
 
 // Persistent: block b walks units b, b + gridDim.x, ... A producer thread
@@ -820,20 +975,40 @@ kernel(const __grid_constant__ CUtensorMap t_x,
 // hidden: (n_rows, c_dim); k: (out_ch*in_ch + out_ch, c_dim) (torch Linear
 // layout); bias: (out_ch*in_ch + out_ch,); x: (n_rows, in_ch);
 // out: (n_rows, out_ch). All bf16, C-contiguous, 32-byte aligned; c_dim,
-// in_ch and out_ch multiples of 16.
+// in_ch and out_ch multiples of 16. The plan (fwd_plan in
+// ops/kernels/hyper_apply.py) cuts the outputs into `groups` groups of
+// `per` (at most fwd::PER_MAX); one whose groups do not cover the outputs
+// exactly is refused. One launch.
 CGAT_EXPORT int cgat_hyper_apply_fwd(const void* hidden, const void* k,
                                      const void* bias, const void* x,
                                      void* out, int n_rows, int c_dim,
-                                     int in_ch, int out_ch, void* stream) {
+                                     int in_ch, int out_ch, int groups,
+                                     int per, void* stream) {
   if (n_rows <= 0) return 0;
-  const int bytes = smem_bytes(c_dim, in_ch);
-  cudaError_t err = allow_smem(hyper_apply_fwd, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_rows + BM - 1) / BM, out_ch / OC);
-  hyper_apply_fwd<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), n_rows, c_dim, in_ch, out_ch);
+  if (per < 1 || per > fwd::PER_MAX || groups != (out_ch + per - 1) / per)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t head = static_cast<uint64_t>(in_ch) * c_dim;  // K_o
+  const bf16* k_tail = static_cast<const bf16*>(k) + out_ch * head;
+  cudaError_t err;
+  CUtensorMap t_hidden, t_kw, t_tail;
+  if ((err = sm90::map_k_major(&t_hidden, hidden, c_dim, 1, n_rows, c_dim)) ||
+      (err = sm90::map_k_major_b(&t_kw, k, c_dim, in_ch, c_dim, out_ch,
+                                 head)) ||
+      (err = sm90::make_map(&t_tail, k_tail, c_dim, out_ch, c_dim * 2, 1,
+                            static_cast<uint64_t>(out_ch) * c_dim * 2,
+                            fwd::TAIL_N, 1)))
+    return static_cast<int>(err);
+  static int per_device[sm90::MAX_DEVICES] = {};
+  int sms = 0;
+  if ((err = sm90::prepare(fwd::kernel, fwd::SMEM, per_device, &sms)))
+    return static_cast<int>(err);
+  const fwd::Plan p{n_rows, c_dim, in_ch, out_ch,
+                    (n_rows + fwd::TILE - 1) / fwd::TILE, groups, per};
+  const int units = p.units();
+  fwd::kernel<<<units < sms ? units : sms, sm90::THREADS, fwd::SMEM,
+                static_cast<cudaStream_t>(stream)>>>(
+      t_hidden, t_kw, t_tail, static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,11 +16,12 @@ with f32 products and sums. The backward, for the cotangent g (B, O), has
 
 The kernels are in ``cgat_tpu_torch/csrc/hyper_apply.cu``; none writes P or
 dP to device memory (the backward recomputes P from k and builds dP from g
-and x in registers). The dh/dx kernel runs units that :func:`bwd_plan`
-makes on the host; the dK kernel is one persistent GEMM dP^T @ hidden. The
-bias-tail rows of dk and dbias are plain torch sums, as the JAX package
-computes them outside Pallas. CPU tensors go through the plain versions;
-CUDA tensors launch the kernels or raise.
+and x in registers). The forward and the dh/dx kernel each run units that
+:func:`fwd_plan` and :func:`bwd_plan` make on the host, in one persistent
+launch on the same mainloop; the dK kernel is one persistent GEMM
+dP^T @ hidden. The bias-tail rows of dk and dbias are plain torch sums, as
+the JAX package computes them outside Pallas. CPU tensors go through the
+plain versions; CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -32,26 +33,28 @@ import torch
 from . import build
 
 SMEM_LIMIT = 232448  # shared memory one H100 block may use
-TILE = 128           # rows and columns of a dh/dx unit's or a dK tile
+TILE = 128           # rows and columns of a unit's or a dK tile
+PER_MAX = 32         # outputs of a forward unit at most (fwd::PER_MAX)
 
 
-def smem_bytes(c_dim: int, in_ch: int) -> int:
-    """Shared memory of one forward block (mirrors ``smem_bytes`` in the
-    .cu): per-warp scratch, partial sums, bias tail, 64-row hidden and x
-    tiles. The backward kernels take every width the forward takes: each
-    needs a fixed amount, 199,264 bytes (dh/dx) and 203,872 (dK)."""
+def gate_bytes(c_dim: int, in_ch: int) -> int:
+    """The gate's width limit, kept from the first forward design, whose
+    blocks staged 64 rows of hidden and x in shared memory: C + I at most
+    1,432. No kernel needs it any more (each takes a fixed amount: 150,080
+    bytes the forward, 199,264 dh/dx, 203,872 dK, all of any width), but
+    the gate keeps these widths so that the widths all three kernels take
+    and are tested at stay as they were."""
     return (8 * 16 * 20 * 4 + 8 * 64 * 16 * 4 + 64 * 16 * 4
             + 64 * (c_dim + 8) * 2 + 64 * (in_ch + 8) * 2)
 
 
 def supported(hidden_dim: int, in_ch: int, out_ch: int, dtype) -> bool:
     """Whether the kernels take these widths: bf16, 16-multiple widths (the
-    tensor-core fragment and the 16 outputs of a block), and tiles that fit
-    one forward block's shared memory. The backward kernels take every
-    width the forward takes."""
+    tensor-core fragment), and C + I within :func:`gate_bytes`' limit. The
+    three kernels take the same widths."""
     return (dtype == torch.bfloat16 and hidden_dim % 16 == 0
             and in_ch % 16 == 0 and out_ch % 16 == 0 and out_ch > 0
-            and smem_bytes(hidden_dim, in_ch) <= SMEM_LIMIT)
+            and gate_bytes(hidden_dim, in_ch) <= SMEM_LIMIT)
 
 
 @functools.cache
@@ -94,6 +97,25 @@ def _check(hidden, x, out_ch, **others):
     return n, c_dim, in_ch
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fwd_plan(n_rows: int, c_dim: int, in_ch: int, out_ch: int,
+             sms: int) -> dict:
+    """How the forward kernel cuts its work, planned on the host: 128-row
+    tiles of B, and the O outputs cut into groups of consecutive outputs,
+    at most ``PER_MAX`` a group, about enough units (row tile, group) for
+    one wave of ``sms`` SMs and no group empty: ``groups`` is (groups,
+    outputs per group). A unit runs each of its outputs over every
+    128-column tile of I (``x_tiles``)."""
+    m_tiles = _cdiv(n_rows, TILE)
+    want = max(1, min(out_ch, sms // max(1, m_tiles)))
+    per = min(PER_MAX, _cdiv(out_ch, want))
+    return {"m_tiles": m_tiles, "x_tiles": _cdiv(in_ch, TILE),
+            "groups": (_cdiv(out_ch, per), per)}
+
+
 def hyper_apply(hidden, k, bias, x, out_ch):
     """hidden (B, C); k (O*I + O, C); bias (O*I + O,); x (B, I).
     Returns (B, O) in ``hidden``'s dtype."""
@@ -102,10 +124,14 @@ def hyper_apply(hidden, k, bias, x, out_ch):
     f = out_ch * x.shape[1] + out_ch
     n, c_dim, in_ch = _check(hidden, x, out_ch, k=(k, (f, hidden.shape[1])),
                              bias=(bias, (f,)))
-    out = torch.empty((n, out_ch), dtype=hidden.dtype, device=hidden.device)
-    code = build.run(_entry("cgat_hyper_apply_fwd", 5, 4, 0), hidden.device,
+    dev = hidden.device
+    groups, per = fwd_plan(n, c_dim, in_ch, out_ch,
+                           build.sm_count(dev.index))["groups"]
+    out = torch.empty((n, out_ch), dtype=hidden.dtype, device=dev)
+    code = build.run(_entry("cgat_hyper_apply_fwd", 5, 6, 0), dev,
                      hidden.data_ptr(), k.data_ptr(), bias.data_ptr(),
-                     x.data_ptr(), out.data_ptr(), n, c_dim, in_ch, out_ch)
+                     x.data_ptr(), out.data_ptr(), n, c_dim, in_ch, out_ch,
+                     groups, per)
     build.check("hyper_apply", code)
     hyper_apply.launches += 1
     return out
@@ -131,10 +157,6 @@ def hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, g, out_ch):
     dh = (dp.float() @ k.float()).to(hidden.dtype)
     t = g[:, :, None] * p[:, :w].reshape(b, out_ch, in_ch)
     return dh, t.float().sum(1).to(x.dtype)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def bwd_plan(n_rows: int, c_dim: int, in_ch: int, out_ch: int,

@@ -11,7 +11,10 @@ failure exits non-zero:
    at the shapes the serving forward gives it, and time both with CUDA
    events; mh_network in both forms (out, and out with h), bit-identical in
    two launches, and timed beside addmm, leaky ReLU and baddbmm (cuBLAS
-   calls, a yardstick the port never calls);
+   calls, a yardstick the port never calls); hyper_apply bit-identical in
+   two launches, with its device time by launch, and timed beside addmm
+   for P, bmm of P's weight part with x and the tail added (a yardstick of
+   several calls the port never calls);
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
    answers 3 requests of 64 crystals through ``ServingModel.predict``; each
    forward must launch mh_network x10, segment_attention x6 and
@@ -328,13 +331,33 @@ def check_kernels(model, batch) -> list[dict]:
         flops = 2.0 * n_nodes * C * F + 2.0 * n_nodes * O * I
         nbytes = 2.0 * (n_nodes * C + F * C + F + n_nodes * I + n_nodes * O)
         b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        x_h = h_args[3]
+
+        # P materialised by addmm (bf16, B x (O*I + O)), bmm of its weight
+        # part with x, and its tail added: cuBLAS and PyTorch calls, a
+        # yardstick (several calls, not one) the port never calls
+        def cublas_h():
+            p = torch.addmm(last.bias, hidden, last.weight.T)
+            y = torch.bmm(p[:, :O * I].view(n_nodes, O, I),
+                          x_h.view(n_nodes, I, 1))
+            y.view(n_nodes, O) + p[:, O * I:]
         rows.append({"name": "hyper_apply", "shape": [n_nodes, C, I, O],
                      **checks_row(checks),
                      "ms": time_ms(lambda: hk.hyper_apply(*h_args)),
                      "device_ms": kernel_device_ms(
                          lambda: hk.hyper_apply(*h_args)),
                      "plain_ms": time_ms(lambda: hk.hyper_apply_plain(*h_args)),
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "deterministic": deterministic(
+                         "hyper_apply",
+                         lambda: (hk.hyper_apply(*h_args),)),
+                     "cublas_ms": time_ms(cublas_h),
+                     "cublas_device_ms": kernel_device_ms(cublas_h),
+                     "cublas_what": "addmm for P, bmm of its weight part "
+                                    "with x and the tail added (bf16 cuBLAS "
+                                    "and PyTorch calls)",
+                     "device_split": kernel_device_ms(
+                         lambda: hk.hyper_apply(*h_args), split=True)})
     report(rows)
     return rows
 

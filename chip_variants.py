@@ -2,7 +2,8 @@
 """Time variants of one of the port's kernels on one CUDA card.
 
     python3 chip_variants.py [mh_network | hyper_apply_bwd_dk |
-                              mh_network_bwd]
+                              mh_network_bwd | hyper_apply |
+                              hyper_apply_timeline]
 
 Builds the kernel's source as it is and variants of it, each from a
 patched copy under ``build/variants/<study>/``, then times each in turns
@@ -63,6 +64,35 @@ part out and time what is left (their outputs are garbage):
 - ``loads_only``: the consumers wait for each stage and release it: the
   TMA loads alone (52 MB from L2 at that shape) and the stores;
 - ``no_store``: no dK stored.
+
+``hyper_apply`` (``cgat_tpu_torch/csrc/hyper_apply.cu``, namespace
+``fwd``): the forward at request 0's shape of the serving forward (B = 832
+rows, C = I = O = 128) and at the training step's (B = 768); seeded random
+bf16 inputs. The variants that still compute the function are held
+against the plain version (ragged shapes and those two); the others take a
+part out (their outputs are garbage):
+
+- ``committed``: the source as it is;
+- ``first_design``: the design first landed: the epilogue multiplies
+  bf16(P_o + c_o) by x in f32 FMAs, each thread into its two rows' sums,
+  which the quad adds by shuffles (no ``mma.sync``); the warpgroups take
+  turns; a ring of 6 stages;
+- ``turns``: the two warpgroups take turns (two named barriers), as the
+  dh/dx kernel's do: each issues its products only once the other's are
+  done;
+- ``stages6``: a ring of 6 stages, not 4;
+- ``no_epilogue``: the products of P only: no bias, rounding, x loads, x
+  product or row sums (the tail and the stores stay);
+- ``no_mma``: no ``wgmma`` at all;
+- ``loads_only``: no products and no epilogue: the consumers wait for each
+  stage and release it (the tail's stores stay).
+
+``hyper_apply_timeline``: one launch of the forward at the same two shapes,
+built with clock64() stamps (SM clocks from the block's start) at each
+pass of each consumer warpgroup: its start, its first k-block's data, its
+products done and its epilogue done (the tail pass last, without the data
+stamp), and at each k-block the producer issues. Prints a few blocks' stamps
+and the mean of each interval by pass.
 """
 from __future__ import annotations
 
@@ -445,6 +475,253 @@ def dk_timed(gen):
             " at B = 64": lambda: hk.hyper_apply_bwd_dk(*one)}
 
 
+FWD_SHAPES = ((832, 128, 128, 128), (768, 128, 128, 128))   # B, C, I, O
+FWD_CASES = [(100, 128, 128, 128), (7, 64, 32, 48), (300, 128, 384, 48),
+             (129, 64, 48, 32)]
+FWD_RIGHT = ("committed", "first_design", "turns", "stages6")
+FWD_X = """        if (o == t.o_begin || p.in_ch > TILE) {"""
+FWD_SUMS = ("      float d0[4] = {0.f, 0.f, 0.f, 0.f}, "
+            "d1[4] = {0.f, 0.f, 0.f, 0.f};")
+FWD_EPI = re.compile(r"#pragma unroll\n        for \(int kk = 0; "
+                     r"kk < TILE / 16; \+\+kk\) \{\n.*?\n        \}\n", re.S)
+FWD_DIAG = re.compile(r"      if \(q == lane / 8\) \{\n.*?\n      \}\n", re.S)
+# the first design's epilogue: each thread multiplies bf16(P_o + c_o) by x
+# in f32 FMAs into two row sums, which the quad adds by shuffles
+FWD_FIRST_EPI = """#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 cv = j * 8 < live ? __bfloat1622float2(c[j * 4 + q])
+                                         : make_float2(0.f, 0.f);
+          const float2 p0 = __bfloat1622float2(__floats2bfloat162_rn(
+              acc[j * 4] + cv.x, acc[j * 4 + 1] + cv.y));
+          const float2 p1 = __bfloat1622float2(__floats2bfloat162_rn(
+              acc[j * 4 + 2] + cv.x, acc[j * 4 + 3] + cv.y));
+          const float2 x0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xv[0][j]));
+          const float2 x1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xv[1][j]));
+          s0 = fmaf(p0.y, x0.y, fmaf(p0.x, x0.x, s0));
+          s1 = fmaf(p1.y, x1.y, fmaf(p1.x, x1.x, s1));
+        }
+"""
+FWD_FIRST_SUM = """      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      if (q == 0) {
+        sum_row[o - t.o_begin] = s0;
+        sum_row[8 * SUM_LD + o - t.o_begin] = s1;
+      }
+"""
+
+
+# the two warpgroups taking turns, as the dh/dx kernel's do: each waits
+# for the other's products before issuing its own
+FWD_TURNS = (
+    ("namespace fwd {\n", """namespace fwd {
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\\n" ::"r"(id) : "memory");
+}
+"""),
+    ("  float* sum_row = sums + row_in_tile * SUM_LD;\n",
+     """  float* sum_row = sums + row_in_tile * SUM_LD;
+  const bool turns = p.c_dim <= STAGES * BK;
+  const int mine = 2 + wg, other = 3 - wg;
+  if (turns && wg == 1) named_arrive(2);
+"""),
+    ("\n        for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {",
+     "\n        if (turns) named_sync(mine);"
+     "\n        for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {"),
+    ("\n      for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {",
+     "\n      if (turns) named_sync(mine);"
+     "\n      for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {"),
+    ("        sm90::fence_acc(acc);\n        // bf16(P_o",
+     "        sm90::fence_acc(acc);\n        if (turns) named_arrive(other);"
+     "\n        // bf16(P_o"),
+    ("      sm90::fence_acc(acc);\n      sm90::mbar_arrive(",
+     "      sm90::fence_acc(acc);\n      if (turns) named_arrive(other);"
+     "\n      sm90::mbar_arrive("),
+    ("    __syncwarp();   // the next unit's sums overwrite these\n  }\n",
+     "    __syncwarp();   // the next unit's sums overwrite these\n  }\n"
+     "  if (turns && wg == 0) named_sync(2);\n"))
+FWD_STAGES = "constexpr int STAGES = 4;"
+
+
+def fwd_sources() -> dict[str, dict[str, str]]:
+    """Each forward variant's hyper_apply.cu: namespace fwd patched, the
+    backward kernels as they are."""
+    cu = (build.CSRC / "hyper_apply.cu").read_text()
+    a = cu.index("namespace fwd {")
+    b = cu.index("}  // namespace fwd")
+    body = cu[a:b]
+    if len(FWD_EPI.findall(body)) != 1 or len(FWD_DIAG.findall(body)) != 1:
+        raise SystemExit("chip_variants: the forward's epilogue has moved")
+    turns = body
+    for old, new in FWD_TURNS:
+        turns = patch(turns, old, new)
+    stages6 = patch(body, FWD_STAGES, "constexpr int STAGES = 6;")
+    first = FWD_DIAG.sub(lambda m: FWD_FIRST_SUM, FWD_EPI.sub(
+        lambda m: FWD_FIRST_EPI,
+        patch(patch(turns, FWD_SUMS, "      float s0 = 0.f, s1 = 0.f;"),
+              FWD_STAGES, "constexpr int STAGES = 6;")))
+    no_epi = FWD_EPI.sub("", patch(body, FWD_X, FWD_X.replace(
+        "if (", "if (p.n_rows < 0 && (").replace(") {", ")) {")))
+    no_mma = WGMMA.sub("", body)
+    loads_only = WGMMA.sub("", no_epi)
+    return {"committed": {}, **{
+        k: {"hyper_apply.cu": cu[:a] + v + cu[b:]}
+        for k, v in (("first_design", first), ("turns", turns),
+                     ("stages6", stages6), ("no_epilogue", no_epi),
+                     ("no_mma", no_mma), ("loads_only", loads_only))}}
+
+
+# the timeline's stamps: per block, consumer warpgroup and pass, its start,
+# its first k-block's data, its products done and its epilogue done
+TL_PASSES = 16
+TL_STAMP = ("if (threadIdx.x % 128 == 0 && pi < {n}) "
+            "g_t[((blockIdx.x * 2 + wg) * {n} + pi) * 4 + {e}] = "
+            "clock64() - t0;")
+TL_EXPORT = """
+CGAT_EXPORT int cgat_timeline(void* t, void* p, int clear) {
+  static long long zero[1024 * 256] = {};   // the larger of the two
+  static_assert(sizeof(zero) >= sizeof(fwd::g_t), "");
+  cudaError_t e = clear ? cudaMemcpyToSymbol(fwd::g_t, zero, sizeof(fwd::g_t))
+                        : cudaMemcpyFromSymbol(t, fwd::g_t, sizeof(fwd::g_t));
+  if (e) return e;
+  return clear ? cudaMemcpyToSymbol(fwd::g_p, zero, sizeof(fwd::g_p))
+               : cudaMemcpyFromSymbol(p, fwd::g_p, sizeof(fwd::g_p));
+}
+"""
+
+
+PRODUCER_WAIT = ("              sm90::mbar_wait(&empty[st], "
+                 "((it / STAGES) & 1) ^ 1);")
+
+
+def timeline_source() -> str:
+    """hyper_apply.cu with the forward's clock64() stamps."""
+    cu = (build.CSRC / "hyper_apply.cu").read_text()
+    a = cu.index("namespace fwd {")
+    b = cu.index("}  // namespace fwd")
+    stamp = lambda e: TL_STAMP.format(n=TL_PASSES, e=e)
+    body = cu[a:b]
+    for old, new in (
+            ("namespace fwd {\n", "namespace fwd {\nconstexpr int TL_PASSES = "
+             f"{TL_PASSES};\n"
+             "__device__ long long g_t[1024 * 2 * TL_PASSES * 4];\n"
+             "__device__ long long g_p[1024 * 256];\n"),
+            ("  const int wg = threadIdx.x / 128;\n",
+             "  const int wg = threadIdx.x / 128;\n"
+             "  const long long t0 = clock64();\n  int pi = 0;\n"),
+            (PRODUCER_WAIT + "\n              unsigned char* a_s",
+             PRODUCER_WAIT + "\n              if (it < 256) "
+             "g_p[blockIdx.x * 256 + it] = clock64() - t0;"
+             "\n              unsigned char* a_s"),
+            ("\n        for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {"
+             "\n          const int st = it % STAGES;"
+             "\n          sm90::mbar_wait(&full[st], (it / STAGES) & 1);\n",
+             f"\n        {stamp(0)}"
+             "\n        for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {"
+             "\n          const int st = it % STAGES;"
+             "\n          sm90::mbar_wait(&full[st], (it / STAGES) & 1);\n"
+             f"          if (k0 == 0) {{ {stamp(1)} }}\n"),
+            ("        sm90::fence_acc(acc);\n        // bf16(P_o",
+             f"        sm90::fence_acc(acc);\n        {stamp(2)}\n"
+             "        // bf16(P_o"),
+            ("        sm90::mbar_arrive(&empty[st]);\n      }\n",
+             f"        {stamp(3)}\n        ++pi;\n"
+             "        sm90::mbar_arrive(&empty[st]);\n      }\n"),
+            ("\n      for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {",
+             f"\n      {stamp(0)}"
+             "\n      for (int k0 = 0; k0 < p.c_dim; k0 += BK, ++it) {"),
+            ("      sm90::fence_acc(acc);\n      sm90::mbar_arrive(",
+             f"      sm90::fence_acc(acc);\n      {stamp(2)}\n"
+             "      sm90::mbar_arrive("),
+            ("    __syncwarp();   // the next unit's sums overwrite these\n",
+             f"    {stamp(3)}\n    ++pi;\n"
+             "    __syncwarp();   // the next unit's sums overwrite these\n")):
+        body = patch(body, old, new)
+    return cu[:a] + body + cu[b:] + TL_EXPORT
+
+
+def fwd_timeline() -> None:
+    """One launch at each of FWD_SHAPES with the stamps; prints them."""
+    import numpy as np
+    lib = build_all({"timeline": {"hyper_apply.cu": timeline_source()}},
+                    "hyper_apply")["timeline"]
+    use(lib, "hyper_apply")
+    cdll = build._loaded["hyper_apply"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = build.sm_count(torch.cuda.current_device())
+    for shape in FWD_SHAPES:
+        args = fwd_inputs(gen, *shape)
+        cs.compare("hyper_apply timeline", hk.hyper_apply(*args),
+                   hk.hyper_apply_plain(*args))
+        t = np.zeros((1024, 2, TL_PASSES, 4), np.int64)
+        prod = np.zeros((1024, 256), np.int64)
+        ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+        torch.cuda.synchronize()
+        if cdll.cgat_timeline(None, None, 1):
+            raise SystemExit("chip_variants: timeline clear failed")
+        hk.hyper_apply(*args)
+        torch.cuda.synchronize()
+        if cdll.cgat_timeline(ptr(t), ptr(prod), 0):
+            raise SystemExit("chip_variants: timeline read failed")
+        plan = hk.fwd_plan(shape[0], *shape[1:], sms)
+        groups, per = plan["groups"]
+        blocks = min(plan["m_tiles"] * groups, sms)
+        n = per * plan["x_tiles"] + -(-per // 8)
+        t, prod = t[:blocks, :, :n], prod[:blocks, :2 * n]
+        print(f"[timeline] B = {shape[0]}: {blocks} blocks, {n} passes "
+              f"each (the tail last); SM clocks from the block's start")
+        for blk in (0, blocks // 2, blocks - 1):
+            for wg in range(2):
+                print(f"[timeline] block {blk} warpgroup {wg} (start, data, "
+                      f"products, epilogue): " + " | ".join(
+                          " ".join(map(str, r)) for r in t[blk, wg]))
+            print(f"[timeline] block {blk} producer issues: "
+                  f"{' '.join(map(str, prod[blk]))}")
+        d = t.astype(float)
+        for name, (lo, hi) in (("data wait", (0, 1)), ("products", (1, 2)),
+                               ("epilogue", (2, 3))):
+            for wg in range(2):
+                v = (d[:, wg, :-1, hi] - d[:, wg, :-1, lo]).mean(0)
+                print(f"[timeline] mean {name}, warpgroup {wg}, by pass: "
+                      f"{' '.join(f'{x:.0f}' for x in v)}")
+        gap = (d[:, :, 1:, 0] - d[:, :, :-1, 3]).mean((0, 1))
+        print(f"[timeline] mean gap from a pass's end to the next's start: "
+              f"{' '.join(f'{x:.0f}' for x in gap)}")
+        print(f"[timeline] mean first data {d[:, :, 0, 1].mean():.0f}, mean "
+              f"end {d[:, :, -1, 3].mean():.0f}, last end "
+              f"{d[:, :, -1, 3].max():.0f} clocks")
+
+
+def fwd_inputs(gen, rows, c, i, o):
+    hidden = torch.randn(rows, c, generator=gen, device="cuda").tanh()
+    k = torch.randn(o * i + o, c, generator=gen, device="cuda") \
+        * (0.1 * (2 / c) ** 0.5)
+    bias = torch.rand(o * i + o, generator=gen, device="cuda") * 0.1
+    x = torch.randn(rows, i, generator=gen, device="cuda")
+    return (hidden.bfloat16(), k.bfloat16(), bias.bfloat16(), x.bfloat16(),
+            o)
+
+
+def fwd_check(name, gen) -> None:
+    for shape in FWD_CASES + list(FWD_SHAPES):
+        args = fwd_inputs(gen, *shape)
+        cs.compare(name, hk.hyper_apply(*args), hk.hyper_apply_plain(*args))
+
+
+def fwd_timed(gen):
+    calls = {}
+    for shape in FWD_SHAPES:
+        args = fwd_inputs(gen, *shape)
+        calls[f" at B = {shape[0]}"] = lambda args=args: hk.hyper_apply(*args)
+    return calls
+
+
 # per study: its source, its variants, which of them are held against the
 # plain version, how, and the calls to time (by label)
 STUDIES = {
@@ -454,18 +731,14 @@ STUDIES = {
                            lambda v: v in DK_RIGHT, dk_check, dk_timed),
     "mh_network_bwd": ("mh_network", bwd_sources, lambda v: v in BWD_RIGHT,
                        bwd_check, bwd_timed),
+    "hyper_apply": ("hyper_apply", fwd_sources, lambda v: v in FWD_RIGHT,
+                    fwd_check, fwd_timed),
 }
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_variants: no CUDA device available", file=sys.stderr)
-        return 1
-    study = sys.argv[1] if len(sys.argv) > 1 else "mh_network"
-    if study not in STUDIES:
-        print(f"chip_variants: no study {study!r}; one of {list(STUDIES)}",
-              file=sys.stderr)
-        return 2
+def run_study(study: str) -> None:
+    """Check each variant that computes the function, then time all in
+    mirrored turns."""
     source, variants, checked, check, timed = STUDIES[study]
     libs = build_all(variants(), source)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -486,6 +759,21 @@ def main() -> int:
             print(f"[variants] {study} {name}{label}: device "
                   f"{sum(split.values()):.4f} ms ({parts}); events "
                   f"{ms:.4f} ms", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_variants: no CUDA device available", file=sys.stderr)
+        return 1
+    study = sys.argv[1] if len(sys.argv) > 1 else "mh_network"
+    if study == "hyper_apply_timeline":
+        fwd_timeline()
+    elif study in STUDIES:
+        run_study(study)
+    else:
+        print(f"chip_variants: no study {study!r}; one of "
+              f"{[*STUDIES, 'hyper_apply_timeline']}", file=sys.stderr)
+        return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

@@ -113,8 +113,25 @@ def test_mh_network_kernel(dev, rows, cat, hid, f, heads):
     assert torch.equal(again, got_out) and torch.equal(again_h, got_h)
 
 
-@pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48)])
+@pytest.mark.parametrize("rows,c,i,o", [(100, 128, 128, 128), (7, 64, 32, 48),
+                                        (768, 128, 128, 128),
+                                        (832, 128, 128, 128),
+                                        (300, 128, 384, 48),
+                                        (200, 1408, 16, 16),
+                                        (70, 48, 64, 32),
+                                        (129, 64, 48, 32),
+                                        (300, 128, 64, 208),
+                                        (2000, 64, 32, 512)])
 def test_hyper_apply_kernel(dev, rows, c, i, o):
+    """The shapes of the serving forward (768 and 832 rows, C = I = O =
+    128; 832 leaves 64 live rows in the last 128-row tile); I = 384, three
+    128-column tiles of I per output; C = 1,408, the gate's edge, with
+    I = O = 16; C = 48, a last k-block narrower than 64; I = 48 and 32,
+    where the bias slot's columns past I hold stale bytes; O = 208, which
+    the plan's groups do not divide evenly; and O = 512 at 2,000 rows,
+    groups of the kernel's most outputs (32, four tail products) and more
+    units than one wave. The same bits in two launches."""
+    assert hyper_apply.supported(c, i, o, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(1)
     hidden = torch.randn(rows, c, generator=g, device=dev).tanh().bfloat16()
     k = (torch.randn(o * i + o, c, generator=g, device=dev)
@@ -128,6 +145,8 @@ def test_hyper_apply_kernel(dev, rows, c, i, o):
     assert got.shape == (rows, o) and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2 * float(want.float().abs().max()))
+    _close(got, want, torch.bfloat16)
+    assert torch.equal(hyper_apply.hyper_apply(hidden, k, bias, x, o), got)
 
 
 def _close(got, want, dtype):
@@ -323,6 +342,11 @@ def test_redesigned_kernels_are_deterministic(dev):
     first = hyper_apply.hyper_apply_bwd_dhdx(*args)
     second = hyper_apply.hyper_apply_bwd_dhdx(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    # hyper_apply at the same shape: each unit adds its rows' products in a
+    # fixed order and stores its outputs once
+    fargs = args[:4] + (o,)
+    assert torch.equal(hyper_apply.hyper_apply(*fargs),
+                       hyper_apply.hyper_apply(*fargs))
     # hyper_apply_bwd_dk at the same shape: each tile writes its dK tile
     # once, and db sums in a fixed order
     args = (hidden, args[3], args[4], o)

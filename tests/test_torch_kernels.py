@@ -422,6 +422,76 @@ def test_hyper_apply_bwd_plan_covers_every_output_once(rows, c, i, o, sms):
     assert len(units) <= max(sms, per_o)
 
 
+def _fwd_units(plan: dict, out_ch: int):
+    """The forward plan's units in the kernel's order (``fwd::unit_at`` in
+    ``csrc/hyper_apply.cu``): the group fastest, then the row tile. Yields
+    (row tile, group, first output, end output)."""
+    groups, per = plan["groups"]
+    for m in range(plan["m_tiles"]):
+        for grp in range(groups):
+            yield m, grp, grp * per, min(out_ch, (grp + 1) * per)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,c,i,o",
+                         [(768, 128, 128, 128), (832, 128, 128, 128),
+                          (1, 128, 128, 128), (129, 128, 128, 128),
+                          (70, 48, 16, 16), (70, 512, 160, 32),
+                          (100, 384, 384, 384), (7, 64, 32, 48)])
+def test_hyper_apply_fwd_plan_covers_every_output_once(rows, c, i, o, sms):
+    """The forward kernel's host plan: every (row tile, o) falls in exactly
+    one unit, in output order; no group is empty or wider than the
+    kernel's PER_MAX outputs; the I tiles are the 128-column tiles of I;
+    and the units fill at most about one wave of the card's SMs (132 on the
+    H100 SXM, 114 on the PCIe card), or as few waves as PER_MAX allows."""
+    plan = hyper_apply.fwd_plan(rows, c, i, o, sms)
+    units = list(_fwd_units(plan, o))
+    m_tiles = -(-rows // hyper_apply.TILE)
+    assert plan["m_tiles"] == m_tiles
+    assert plan["x_tiles"] == -(-i // hyper_apply.TILE)
+    groups, per = plan["groups"]
+    assert 1 <= per <= hyper_apply.PER_MAX and groups == -(-o // per)
+    seen = {}
+    for m, grp, lo, hi in units:
+        assert lo < hi and lo == grp * per                 # none empty
+        seen.setdefault(m, []).extend(range(lo, hi))
+    assert sorted(seen) == list(range(m_tiles))
+    assert all(v == list(range(o)) for v in seen.values())
+    assert len(units) <= max(sms, m_tiles * -(-o // hyper_apply.PER_MAX))
+
+
+def test_hyper_apply_wrapper_passes_its_plan(monkeypatch):
+    """Off the CPU the forward wrapper makes one call of the C entry with
+    the plan for the card's SM count, and allocates the output and nothing
+    else: no P (B, O*I + O). Meta tensors stand in for the card's, and
+    stubs for the library and the card."""
+    calls, allocated = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        allocated.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(hyper_apply, "_entry",
+                        lambda *a: lambda *b: calls.append(b) or 0)
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    monkeypatch.setattr(build, "sm_count", lambda index: 114)
+    monkeypatch.setattr(torch, "empty", empty)
+    meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
+    n, c, i, o = 300, 64, 32, 48
+    before = hyper_apply.hyper_apply.launches
+    out = hyper_apply.hyper_apply(meta(n, c), meta(o * i + o, c),
+                                  meta(o * i + o), meta(n, i), o)
+    assert out.shape == (n, o) and out.dtype == torch.bfloat16
+    assert hyper_apply.hyper_apply.launches == before + 1
+    assert allocated == [(n, o)]
+    groups, per = hyper_apply.fwd_plan(n, c, i, o, 114)["groups"]
+    (call,) = calls
+    assert call[4] == out.data_ptr()
+    assert call[5:11] == (n, c, i, o, groups, per)
+    assert groups == -(-o // per) and per <= hyper_apply.PER_MAX
+
+
 def test_hyper_apply_bwd_dhdx_wrapper_passes_its_plan(monkeypatch):
     """Off the CPU the wrapper makes one call of the C entry with the plan
     for the card's SM count and the f32 partial planes that plan needs:
