@@ -1,4 +1,7 @@
 from .optim import AdamW, project_params
-from .trainer import Trainer, TrainerConfig
+from .trainer import (CheckpointManager, MetricsLogger, Trainer,
+                      TrainerConfig, load_trainer, resume_trainer)
 
-__all__ = ["AdamW", "Trainer", "TrainerConfig", "project_params"]
+__all__ = ["AdamW", "CheckpointManager", "MetricsLogger", "Trainer",
+           "TrainerConfig", "load_trainer", "project_params",
+           "resume_trainer"]

@@ -57,6 +57,37 @@ class AdamW:
         """``1 - decay**count`` in f32, as optax computes it."""
         return float(np.float32(1) - np.float32(decay) ** np.int32(self.count))
 
+    def state_dict(self) -> dict:
+        """The optimizer's state: the update count and both moments (the
+        learning rate is set per epoch and is not part of it)."""
+        return {"step": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore what ``state_dict`` gave. The first moment's dtype must
+        be this optimizer's: a checkpoint written with another
+        ``--moment-dtype`` raises rather than changing it."""
+        mu, nu = state["mu"], state["nu"]
+        if len(mu) != len(self.mu) or len(nu) != len(self.nu):
+            raise ValueError(f"optimizer state holds {len(mu)} moments, "
+                             f"this model has {len(self.mu)} parameters")
+        names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+        have = {m.dtype for m in mu}
+        want = self.mu[0].dtype if self.mu else None
+        if self.mu and have != {want}:
+            got = ", ".join(sorted(names.get(d, str(d)) for d in have))
+            raise ValueError(
+                f"the checkpoint's first moment (mu) is {got} but this run "
+                f"keeps it in {names.get(want, str(want))}; resume with "
+                f"--moment-dtype {got} (TrainerConfig.moment_dtype)")
+        for own, new in zip(self.mu + self.nu, list(mu) + list(nu)):
+            if own.shape != new.shape:
+                raise ValueError(f"optimizer moment of shape "
+                                 f"{tuple(new.shape)} for a parameter of "
+                                 f"shape {tuple(own.shape)}")
+            own.copy_(new)
+        self.count = int(state["step"])
+
     @torch.no_grad()
     def step(self) -> None:
         grads = self._grads()

@@ -1,4 +1,4 @@
-"""Single-device in-memory trainer, counterpart of ``Trainer`` in
+"""Single-device trainer, counterpart of ``Trainer`` in
 ``cgat_tpu/training/trainer.py`` (reference CGAT/lightning_module.py and
 CGAT/train.py).
 
@@ -7,27 +7,35 @@ normalised target, the backward, AdamW, then the damping projection. The
 learning rate is set per epoch from the cyclical or plateau schedule; the
 normalisation mean and std come from the training split (torch's unbiased
 std). Metrics: the loss on the normalised scale, MAE and RMSE of the
-denormalised predictions against the raw targets.
+denormalised predictions against the raw targets. ``fit`` logs each epoch
+to ``metrics.jsonl`` (and TensorBoard on request) and keeps the top-1
+``val_mae`` checkpoint ``best`` and the crash-safe ``last``, from which
+``resume_trainer`` continues a run exactly.
 
 Not ported yet, each named by the ``TrainerConfig`` field that asks for it
-(which raises ``NotImplementedError``): checkpoints, metric logs and
-TensorBoard, streaming and prefetch, ``steps_per_dispatch``,
-``flat_optimizer``, the optimizers other than AdamW, ``only_residual``,
-``acc_batches``, the parallel and edge-sharded trainers, model plug-ins and
-profiling. ``fit`` keeps no checkpoint and returns the per-epoch metrics.
+(which raises ``NotImplementedError`` with the slice that brings it):
+streaming and prefetch, ``steps_per_dispatch``, ``flat_optimizer``, the
+optimizers other than AdamW, ``only_residual``, ``acc_batches``, model
+plug-ins, the parallel and edge-sharded trainers, and profiling.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
+import sys
+import time
 
 import numpy as np
 import torch
 
 from ..data.batching import CrystalBatch
-from ..data.dataset import GraphLoader, split_dataset
+from ..data.dataset import GraphLoader, load_dataset_dir, split_dataset
 from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.init import init_state_dict
+from ..utils.profiling import ThroughputMeter
 from . import losses as L
 from . import schedules
 from .optim import AdamW, project_params
@@ -37,13 +45,15 @@ _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """Optimisation and data flags: the JAX package's ``TrainerConfig``
-    (reference argparse, lightning_module.py:426-593 and train.py:82-131)
-    less the fields of what the port reads from elsewhere (the dataset
-    paths and target: ``Trainer`` takes the graphs) or has no counterpart
-    for (``momentum`` of SGD, the checkpoint naming, the attention backend:
-    the kernel is the only one)."""
-    # data (the graphs are passed to ``Trainer``)
+    """Optimisation, data and output flags: the JAX package's
+    ``TrainerConfig`` (reference argparse, lightning_module.py:426-593 and
+    train.py:82-131) less what the port has no counterpart for
+    (``momentum`` of SGD, the attention backend: the kernel is the only
+    one)."""
+    # data
+    data_path: str = "data/"
+    fea_path: str | None = None
+    target: str = "e_above_hull_new"
     max_nbr: int = 24
     val_size: float = 0.1
     test_size: float = 0.1
@@ -70,9 +80,13 @@ class TrainerConfig:
     # batching
     node_bucket: int = 64
     num_comp_slots: int | None = None
-    # io
-    ckpt_dir: str | None = None       # no checkpoints yet
+    # io: runs go to ckpt_dir/runs/run_name (a timestamped name by default)
+    ckpt_dir: str = "tb_logs"
+    run_name: str | None = None
     log_tensorboard: bool = False
+    # refresh the crash-safe "last" checkpoint every N non-improving
+    # validation epochs (1 = every one)
+    last_ckpt_every: int = 1
     # observability
     profile_epoch: int = -1
     nan_guard: bool = True
@@ -87,17 +101,14 @@ class TrainerConfig:
 # (field, the value the port runs, the slice of the port that brings the rest)
 _NOT_PORTED = (
     ("streaming", False, "slice 5 (streaming and prefetch)"),
-    ("val_path", None, "slice 3 (dataset loading)"),
-    ("test_path", None, "slice 3 (dataset loading)"),
-    ("optim", "AdamW", "slice 3 (SGD, Adam and LAMB)"),
-    ("acc_batches", 1, "slice 3 (gradient accumulation)"),
-    ("only_residual", False, "slice 3 (transfer learning)"),
-    ("ckpt_dir", None, "slice 3 (checkpoints)"),
-    ("log_tensorboard", False, "slice 3 (metric logs)"),
+    ("optim", "AdamW", "slice 3b (SGD, Adam and LAMB)"),
+    ("acc_batches", 1, "slice 3b (gradient accumulation)"),
+    ("only_residual", False, "slice 3b (transfer learning of the head)"),
     ("profile_epoch", -1, "slice 9 (tracing)"),
-    ("steps_per_dispatch", 1, "slice 3 (multi-step dispatch)"),
-    ("version", "", "slice 3 (model plug-ins)"),
-    ("flat_optimizer", False, "slice 3 (flat optimizer)"),
+    ("steps_per_dispatch", 1, "slice 3b (launch count: multi-step "
+                              "dispatch)"),
+    ("version", "", "slice 3b (model plug-ins)"),
+    ("flat_optimizer", False, "slice 3b (launch count: flat optimizer)"),
     ("n_devices", 1, "slice 4 (data parallel)"),
     ("edge_shards", 1, "slice 4 (edge sharding)"),
 )
@@ -121,39 +132,93 @@ def _metrics(output, log_std, target, mask, mean, std, criterion):
                   "rmse": torch.sqrt(L.mse(pred, target, mask))}
 
 
+def _load(cfg: TrainerConfig, path: str):
+    return load_dataset_dir(path, fea_path=cfg.fea_path,
+                            max_neighbor_number=cfg.max_nbr,
+                            target=cfg.target)
+
+
+class MetricsLogger:
+    """``metrics.jsonl`` (one record per call: ``step``, ``time`` and the
+    metrics as floats) and, on request, TensorBoard scalars (the reference
+    used TensorBoardLogger, train.py:40)."""
+
+    def __init__(self, log_dir: str, tensorboard: bool = False):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, "metrics.jsonl")
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"warning: TensorBoard logging was asked for but "
+                      f"torch.utils.tensorboard does not import ({e}); "
+                      f"logging to {self.path} only", file=sys.stderr)
+            else:
+                self._tb = SummaryWriter(log_dir)
+
+    def log(self, step: int, **metrics):
+        rec = {"step": step, "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(k, float(v), step)
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
+
+
 class Trainer:
     """End-to-end trainer on one device (the CUDA card unless ``device``
-    says otherwise; raises if there is none)."""
+    says otherwise; raises if there is none). Without ``graphs`` it loads
+    ``cfg.data_path``, unless ``mean`` and ``std`` are given (a model
+    rebuilt for inference only)."""
 
     def __init__(self, cfg: TrainerConfig, model_cfg: CGATConfig,
-                 graphs=None, *, device=None):
+                 graphs=None, *, mean: float | None = None,
+                 std: float | None = None, device=None):
         _check_ported(cfg)
-        if graphs is None:
-            raise NotImplementedError("loading a dataset directory is not "
-                                      "ported yet; it comes with slice 3")
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.criterion = L.make_loss(cfg.loss, cfg.robust_loss)
         self.model: CGAtNet | None = None
         self.opt: AdamW | None = None
-        self._setup_data(graphs)
+        self.step = 0
+        self._plateau = None
+        if graphs is not None:
+            self._setup_data(graphs)
+        elif mean is not None:
+            self.mean, self.std = float(mean), float(std)
+            self.train_graphs = self.val_graphs = self.test_graphs = []
+        else:
+            self._setup_data(_load(cfg, cfg.data_path))
 
     def _setup_data(self, graphs):
-        """Split the graphs and take the normalisation from the training
+        """Split the graphs (or take the validation and test sets from
+        their own paths) and take the normalisation from the training
         split."""
         cfg = self.cfg
-        tr, va, te = split_dataset(len(graphs), seed=cfg.seed,
-                                   val_size=cfg.val_size,
-                                   test_size=cfg.test_size,
-                                   train_percentage=cfg.train_percentage)
-        self.train_graphs = [graphs[i] for i in tr]
-        self.val_graphs = [graphs[i] for i in va]
-        self.test_graphs = [graphs[i] for i in te]
+        if cfg.val_path is None or cfg.test_path is None:
+            tr, va, te = split_dataset(len(graphs), seed=cfg.seed,
+                                       val_size=cfg.val_size,
+                                       test_size=cfg.test_size,
+                                       train_percentage=cfg.train_percentage)
+            self.train_graphs = [graphs[i] for i in tr]
+            self.val_graphs = [graphs[i] for i in va]
+            self.test_graphs = [graphs[i] for i in te]
+        else:
+            self.train_graphs = list(graphs)
+            self.val_graphs = _load(cfg, cfg.val_path)
+            self.test_graphs = _load(cfg, cfg.test_path)
         ys = np.asarray([g.target for g in self.train_graphs], np.float64)
         # torch.std default is unbiased (ddof=1), lightning_module.py:124-126
         self.mean = float(ys.mean())
         self.std = float(ys.std(ddof=1)) if len(ys) > 1 else 1.0
+        print(f"mean: {self.mean} std: {self.std}")
 
     # ------------------------------------------------------------- state
 
@@ -169,6 +234,9 @@ class Trainer:
         self.opt = AdamW(self.model.parameters(), self.cfg.learning_rate,
                          weight_decay=self.cfg.weight_decay,
                          mu_dtype=_MOMENT_DTYPES[self.cfg.moment_dtype])
+        self.step = 0
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"this model has {n_params:d} parameters")
         return self.model
 
     def loader(self, graphs, *, shuffle: bool) -> GraphLoader:
@@ -193,6 +261,7 @@ class Trainer:
     def apply_update(self) -> None:
         self.opt.step()
         project_params(self.model)
+        self.step += 1
 
     def train_step(self, batch: CrystalBatch) -> dict:
         """One optimisation step; returns the step's metrics as device
@@ -205,44 +274,95 @@ class Trainer:
 
     # --------------------------------------------------------------- fit
 
-    def fit(self, *, epochs: int | None = None) -> list[dict]:
-        """Train ``epochs`` epochs (``cfg.epochs`` by default); returns one
-        record of host metrics per epoch, with the validation metrics on the
-        epochs that validate."""
+    def fit(self, *, epochs: int | None = None, start_epoch: int = 0,
+            best_val: float = float("inf"),
+            plateau_state: dict | None = None,
+            last_val_mae: float | None = None) -> list[dict]:
+        """Train from ``start_epoch`` up to ``epochs`` (exclusive;
+        ``cfg.epochs`` by default). Logs each epoch to
+        ``ckpt_dir/runs/<run_name>/metrics.jsonl`` and keeps the top-1
+        ``val_mae`` checkpoint ``best`` and the crash-safe ``last`` there.
+        ``start_epoch``, ``best_val``, ``plateau_state`` and
+        ``last_val_mae`` continue an interrupted run exactly (the
+        reference's resume_from_checkpoint, train.py:64-76; see
+        ``resume_trainer``). Returns one record of host metrics per epoch
+        run, with the validation metrics on the epochs that validate."""
         cfg = self.cfg
         epochs = epochs or cfg.epochs
         if self.model is None:
             self.init_state()
+        run_name = cfg.run_name or \
+            f"f-{cfg.seed}_t-{time.strftime('%Y-%m-%d_%H-%M-%S')}"
+        log_dir = os.path.join(cfg.ckpt_dir, "runs", run_name)
+        logger = MetricsLogger(log_dir, cfg.log_tensorboard)
+        ckpt = CheckpointManager(log_dir)
         if cfg.clr:
             sched = schedules.cyclical_lr(period=cfg.clr_period,
                                           cycle_mul=0.1, tune_mul=0.05)
             lr_of_epoch = lambda e, _: cfg.learning_rate * sched(e)
+            self._plateau = None
         else:
             plateau = schedules.ReduceLROnPlateau()
+            if plateau_state:
+                plateau.__dict__.update(plateau_state)
+            self._plateau = plateau
             lr_of_epoch = lambda e, m: cfg.learning_rate * (
                 plateau.step(m) if m is not None else plateau.scale)
         loader = self.loader(self.train_graphs, shuffle=True)
-        history, val_mae = [], None
-        for epoch in range(epochs):
-            loader.set_epoch(epoch)
-            self.opt.lr = lr_of_epoch(epoch, val_mae)
-            steps = [self.train_step(batch) for batch in loader]
-            if not steps:
-                raise RuntimeError("training split smaller than one batch")
-            rec = {"epoch": epoch, "lr": self.opt.lr}
-            rec.update({f"train_{k}": float(torch.stack(
-                [m[k] for m in steps]).mean()) for k in steps[0]})
-            if cfg.nan_guard and not all(
-                    np.isfinite(v) for k, v in rec.items()
-                    if k.startswith("train_")):
-                raise FloatingPointError(
-                    f"non-finite training metrics at epoch {epoch}: {rec}")
-            if (epoch + 1) % cfg.check_val_every_n_epoch == 0 \
-                    and self.val_graphs:
-                val = self.evaluate_split(self.val_graphs)
-                val_mae = val["mae"]
-                rec.update({f"val_{k}": v for k, v in val.items()})
-            history.append(rec)
+        history, val_mae, vals_since_last = [], last_val_mae, 0
+        try:
+            for epoch in range(start_epoch, epochs):
+                loader.set_epoch(epoch)
+                self.opt.lr = lr_of_epoch(epoch, val_mae)
+                meter = ThroughputMeter()
+                steps = []
+                for batch in loader:
+                    steps.append(self.train_step(batch))
+                    meter.update(**loader.last_counts)
+                if not steps:
+                    raise RuntimeError("training split smaller than one "
+                                       "batch")
+                train_m = {k: float(torch.stack([m[k] for m in steps]).mean())
+                           for k in steps[0]}
+                if cfg.nan_guard and not all(
+                        np.isfinite(v) for v in train_m.values()):
+                    raise FloatingPointError(
+                        f"non-finite training metrics at epoch {epoch}: "
+                        f"{train_m}")
+                rates = meter.rates()
+                rec = {"epoch": epoch, "lr": self.opt.lr,
+                       **{f"train_{k}": v for k, v in train_m.items()},
+                       **rates}
+                logger.log(self.step, epoch=epoch,
+                           train_loss=train_m["loss"],
+                           train_mae=train_m["mae"],
+                           train_rmse=train_m["rmse"], **rates)
+                if (epoch + 1) % cfg.check_val_every_n_epoch == 0 \
+                        and self.val_graphs:
+                    val = self.evaluate_split(self.val_graphs)
+                    val_mae = val["mae"]
+                    rec.update({f"val_{k}": v for k, v in val.items()})
+                    logger.log(self.step, epoch=epoch, val_loss=val["loss"],
+                               val_mae=val["mae"], val_rmse=val["rmse"])
+                    # best on improvement; last beside it for resume,
+                    # copied when the two coincide, else every
+                    # last_ckpt_every validations
+                    if val_mae < best_val:
+                        best_val = val_mae
+                        ckpt.save(self, epoch=epoch, val_mae=val_mae,
+                                  best_val=best_val)
+                        ckpt.clone("best", "last")
+                        vals_since_last = 0
+                    else:
+                        vals_since_last += 1
+                        if vals_since_last >= cfg.last_ckpt_every:
+                            ckpt.save(self, epoch=epoch, val_mae=val_mae,
+                                      tag="last", best_val=best_val)
+                            vals_since_last = 0
+                history.append(rec)
+        finally:
+            logger.close()
+        self.last_log_dir = log_dir
         return history
 
     @torch.no_grad()
@@ -276,3 +396,139 @@ class Trainer:
             out = self.model(batch)[:, 0] * self.std + self.mean
             preds.append(out[batch.graph_mask].cpu().numpy())
         return np.concatenate(preds) if preds else np.zeros((0,))
+
+    @torch.no_grad()
+    def embeddings(self, graphs) -> np.ndarray:
+        """Graph embeddings (n, embedding_dim) as f32, in dataset order
+        (calculate_embeddings.py flow)."""
+        loader = self.loader(graphs, shuffle=False)
+        loader.drop_last = False
+        out = []
+        for batch in loader:
+            batch = batch.to(self.device)
+            e = self.model(batch, return_graph_embedding=True)
+            out.append(e[batch.graph_mask].float().cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0,))
+
+
+class CheckpointManager:
+    """Top-1 ``val_mae`` checkpointing (the reference's ModelCheckpoint,
+    train.py:42-48) into ``<log_dir>/checkpoints``: ``{tag}.pt`` holds the
+    f32 master weights, AdamW's state and the step count (``torch.save``);
+    ``{tag}.json`` the epoch, the validation numbers, the plateau state, the
+    normalisation and both configs, so ``load_trainer`` rebuilds the run
+    (lightning_module.py:413-424)."""
+
+    def __init__(self, log_dir: str):
+        self.dir = os.path.abspath(os.path.join(log_dir, "checkpoints"))
+        os.makedirs(self.dir, exist_ok=True)
+
+    def save(self, trainer: Trainer, *, epoch: int, val_mae: float,
+             tag: str = "best", best_val: float | None = None):
+        path = os.path.join(self.dir, f"{tag}.pt")
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"model": trainer.model.state_dict(),
+                    "optimizer": trainer.opt.state_dict(),
+                    "step": trainer.step}, tmp)
+        os.replace(tmp, path)
+        plateau = trainer._plateau
+        meta = {
+            "epoch": epoch, "val_mae": float(val_mae),
+            "best_val": float(best_val if best_val is not None else val_mae),
+            "plateau": dict(plateau.__dict__) if plateau is not None else None,
+            "mean": trainer.mean, "std": trainer.std,
+            "trainer_config": dataclasses.asdict(trainer.cfg),
+            "model_config": dataclasses.asdict(trainer.model_cfg),
+        }
+        with open(os.path.join(self.dir, f"{tag}.json"), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+
+    def clone(self, src_tag: str, dst_tag: str):
+        """Copy a checkpoint's files under another tag."""
+        for ext in (".pt", ".json"):
+            shutil.copyfile(os.path.join(self.dir, src_tag + ext),
+                            os.path.join(self.dir, dst_tag + ext))
+
+    @staticmethod
+    def _resolve(ckpt_dir: str) -> str:
+        d = ckpt_dir
+        if os.path.isdir(os.path.join(d, "checkpoints")):
+            d = os.path.join(d, "checkpoints")
+        return os.path.abspath(d)
+
+    @staticmethod
+    def _read(ckpt_dir: str, tag: str, map_location):
+        d = CheckpointManager._resolve(ckpt_dir)
+        with open(os.path.join(d, f"{tag}.json")) as f:
+            meta = json.load(f)
+        payload = torch.load(os.path.join(d, f"{tag}.pt"),
+                             map_location=map_location, weights_only=True)
+        return payload, meta
+
+    @staticmethod
+    def load(ckpt_dir: str, tag: str = "best", map_location=None):
+        """Returns (state_dict, meta). ``ckpt_dir`` is .../checkpoints or the
+        run dir holding it; ``tag`` selects best|last."""
+        payload, meta = CheckpointManager._read(ckpt_dir, tag, map_location)
+        return payload["model"], meta
+
+    @staticmethod
+    def load_state(ckpt_dir: str, trainer: Trainer, tag: str = "last"):
+        """Restore the full training state (weights, AdamW's moments and
+        count, the step) into ``trainer``, whose model and optimizer are
+        already built; tensors go to the trainer's device. Raises
+        ``ValueError`` when the checkpoint's first moment has another dtype
+        than ``trainer.cfg.moment_dtype``."""
+        payload, _ = CheckpointManager._read(ckpt_dir, tag, trainer.device)
+        trainer.opt.load_state_dict(payload["optimizer"])
+        trainer.model.load_state_dict(payload["model"], strict=True)
+        trainer.step = int(payload["step"])
+
+
+def _config_from(cls, stored: dict):
+    """A config dataclass from a checkpoint's JSON, keeping the fields
+    ``cls`` has (JSON turns tuples into lists and, through ``default=str``,
+    may store None as "None")."""
+    kw = {k: (None if v == "None" else v) for k, v in stored.items()
+          if k in cls.__dataclass_fields__}
+    if "out_hidden" in kw:
+        kw["out_hidden"] = tuple(kw["out_hidden"])
+    return cls(**kw)
+
+
+def load_trainer(run_dir: str, *, train: bool = False, graphs=None,
+                 tag: str = "best", device=None, **overrides):
+    """Rebuild a Trainer, its model loaded from a checkpoint
+    (LightningModel.load, lightning_module.py:413-424). ``train`` loads the
+    checkpoint's dataset when no ``graphs`` are given; ``overrides``
+    replace TrainerConfig fields. The stored normalisation always wins.
+    Returns ``(trainer, meta)``."""
+    device = resolve_device(device)
+    state_dict, meta = CheckpointManager.load(run_dir, tag=tag,
+                                              map_location=device)
+    tcfg = _config_from(TrainerConfig,
+                        {**meta["trainer_config"], **overrides})
+    mcfg = _config_from(CGATConfig, meta["model_config"])
+    if train and graphs is None:
+        graphs = _load(tcfg, tcfg.data_path)
+    trainer = Trainer(tcfg, mcfg, graphs, mean=meta["mean"], std=meta["std"],
+                      device=device)
+    trainer.mean, trainer.std = meta["mean"], meta["std"]
+    trainer.init_state(state_dict)
+    return trainer, meta
+
+
+def resume_trainer(run_dir: str, *, graphs=None, tag: str = "last",
+                   device=None, **overrides):
+    """Rebuild a Trainer with its full training state for an exact resume.
+
+    Returns ``(trainer, meta)``; continue with
+    ``trainer.fit(start_epoch=meta['epoch'] + 1, best_val=meta['best_val'],
+    plateau_state=meta['plateau'], last_val_mae=meta['val_mae'])``, which
+    reproduces the uninterrupted run (reference resume_from_checkpoint,
+    train.py:64-76)."""
+    trainer, meta = load_trainer(run_dir, train=graphs is None,
+                                 graphs=graphs, tag=tag, device=device,
+                                 **overrides)
+    CheckpointManager.load_state(run_dir, trainer, tag=tag)
+    return trainer, meta

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Five phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Six phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -39,15 +39,41 @@ failure exits non-zero:
    calls, timed on events and on the device);
    one step is broken down into collate, copy, forward, backward and
    optimizer, and the card's busy time;
-5. report the card, and the eight kernels as one JSON line; the last line
-   is ``{"ok": true, "device": {...}}``.
+5. cli: the user's path through the command-line entry points, in this
+   process (so the launch counts see it) and in a temporary directory:
+   384 prototype crystals (``random_structures(0, 384)``) through
+   ``cli.prepare`` (the native kNN, held equal to its numpy oracle on the
+   first 8), ``cli.train --smoke-test`` with the CLI's defaults (the
+   reference-default model at full width and depth, bf16, batch 64: 2
+   epochs of 4 steps), ``cli.evaluate``, ``cli.predict`` with and without
+   ``--embeddings``, then ``cli.train --ckp <run> --epochs 3``, which must
+   start at epoch 2. Each call must launch each kernel exactly the count
+   its steps and evaluation batches imply, every metric and output must
+   be finite, and ``best`` and ``last`` must load; it prints the
+   featurisation ms per structure, each epoch's wall time and graphs/s
+   (``metrics.jsonl``) and the checkpoint's save and load ms;
+6. report the card, and the eight kernels as one JSON line (with their
+   launches in phase 5 as ``cli_launches``); the last line is
+   ``{"ok": true, "device": {...}}``.
+
+Each phase's start goes to stderr with the seconds since start, so a run
+that is stopped shows how far it got; past ``WATCHDOG_S`` seconds the
+script prints every thread's stack to stderr and exits with 1.
 """
 from __future__ import annotations
 
 import contextlib
+import faulthandler
+import gzip
+import io
 import json
+import math
+import os
+import pickle
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,6 +89,9 @@ N_TIMED = 10                   # extra timed requests after the checked ones
 N_TRAIN_GRAPHS = 320           # 256 in the training split: 4 batches of 64
 N_CHECKED_STEPS = 3
 N_TIMED_STEPS = 10
+N_CLI_STRUCTURES = 384         # 307 in the training split: 4 batches of 64
+N_NATIVE_CHECKED = 8           # structures held native == numpy
+WATCHDOG_S = 1080             # past this, dump every thread's stack and exit
 KERNEL_TOL = 2e-2              # kernel vs plain, times max|plain| (bf16 I/O)
 NORM_TOL = 1e-2                # ||kernel - plain|| / ||plain|| per output
 MODEL_RTOL = 5e-2              # card vs CPU forward (bf16 end to end)
@@ -89,6 +118,16 @@ SOURCES = {"segment_attention": "segment_attention", "mh_network": "mh_network",
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+_T0 = time.perf_counter()
+
+
+def progress(msg: str) -> None:
+    """A line on stderr with the seconds since start, so that a run that is
+    stopped shows on stderr how far it got."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:7.1f} s] {msg}",
+          file=sys.stderr, flush=True)
 
 
 def time_ms(fn, reps: int = 20, windows: int = 5) -> float:
@@ -205,11 +244,16 @@ def build_kernels() -> None:
     info = build.build()
     print(f"[build] {len(info)} kernels in {time.perf_counter() - t0:.1f} s "
           f"({build.BUILD_DIR})")
+    # one line a source: ptxas's full report stays in its .log beside the
+    # library, so that stdout stays short
     for name, rec in info.items():
-        for line in rec["log"].splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
-                print(f"[build] {name}: {line.strip()}")
+        log = rec["log"]
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", log))
+        print(f"[build] {name}: {log.count('entry function')} entry "
+              f"functions, {min(regs, default=0)}-{max(regs, default=0)} "
+              f"registers, {spills} bytes spilled")
 
 
 def check_kernels(model, batch) -> list[dict]:
@@ -805,16 +849,19 @@ def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
                  f"training steps")
 
     # the first step's loss against the port's own bf16 step on the CPU
+    t0 = time.perf_counter()
     cpu = Trainer(tcfg, cfg, graphs, device="cpu")
     cpu.init_state(state_dict)
     with torch.no_grad():
         want_loss = float(cpu.forward_loss(steps[0]["batch"])[0])
+    cpu_s = time.perf_counter() - t0
     got_loss = float(steps[0]["loss"])
     if not abs(got_loss - want_loss) <= MODEL_RTOL * 2 * abs(want_loss):
         fail(f"first step loss {got_loss} on the card vs {want_loss} on the "
              f"CPU")
     print(f"[train] first step loss: card {got_loss:.6f}, CPU bf16 "
-          f"{want_loss:.6f} (rtol {MODEL_RTOL}, atol {MODEL_RTOL} x |loss|)")
+          f"{want_loss:.6f} (rtol {MODEL_RTOL}, atol {MODEL_RTOL} x |loss|); "
+          f"the CPU trainer and forward took {cpu_s:.1f} s")
 
     keys = ("collate_ms", "to_card_ms", "forward_ms", "backward_ms",
             "optimizer_ms")
@@ -876,6 +923,173 @@ def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
 
 
 
+def cli_call(name: str, main, argv: list[str], want: dict[str, int]
+             ) -> tuple[dict[str, int], str]:
+    """One CLI entry point in this process: counts set to 0 just before,
+    read just after and held to ``want``; returns them and its stdout."""
+    progress(f"phase 5: {name}")
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+    except BaseException:
+        print(out.getvalue()[-4000:])
+        raise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    if rc != 0:
+        fail(f"{name} exited with {rc}")
+    if got != want:
+        fail(f"{name}: kernel launches {got} != {want}")
+    print(f"[cli] {name}: exit 0 in {seconds:.1f} s, launches {got}")
+    return got, out.getvalue()
+
+
+def finite_metrics(path: str) -> list[dict]:
+    recs = [json.loads(line) for line in open(path).read().splitlines()]
+    if not recs or not all(math.isfinite(v) for r in recs
+                           for v in r.values()):
+        fail(f"{path}: missing or non-finite metrics")
+    return recs
+
+
+def cli(tmp: str) -> tuple[dict, dict]:
+    """Phase 5: prepare -> train -> evaluate -> predict -> resume through
+    the CLIs' ``main``; returns the phase's numbers and every kernel's
+    launches in it."""
+    from cgat_tpu_torch import native
+    from cgat_tpu_torch.cli import evaluate as cli_evaluate
+    from cgat_tpu_torch.cli import predict as cli_predict
+    from cgat_tpu_torch.cli import prepare as cli_prepare
+    from cgat_tpu_torch.cli import train as cli_train
+    from cgat_tpu_torch.data.dataset import load_prepared, split_dataset
+    from cgat_tpu_torch.data.featurizer import periodic_neighbors
+    from cgat_tpu_torch.data.structures import random_structures
+    from cgat_tpu_torch.training import CheckpointManager, load_trainer
+
+    stats: dict = {"structures": N_CLI_STRUCTURES}
+    t0 = time.perf_counter()
+    native.load()
+    stats["native_build_s"] = time.perf_counter() - t0
+    entries = random_structures(0, N_CLI_STRUCTURES)
+    for i, s in enumerate(entries[:N_NATIVE_CHECKED]):
+        nat = periodic_neighbors(s["lattice"], s["frac_coords"])
+        ref = periodic_neighbors(s["lattice"], s["frac_coords"],
+                                 use_native=False)
+        if not (np.array_equal(nat[0], ref[0])
+                and np.array_equal(nat[1], ref[1])
+                and np.allclose(nat[2], ref[2], rtol=0, atol=1e-9)):
+            fail(f"structure {i}: native kNN differs from the numpy oracle")
+    with gzip.open(os.path.join(tmp, "structures.pickle.gz"), "wb") as f:
+        pickle.dump(entries, f)
+    zero = dict.fromkeys(launch_counts(), 0)
+    total = dict(zero)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    t0 = time.perf_counter()
+    cli_call("cli.prepare", cli_prepare.main,
+             ["--file", "structures.pickle.gz", "--source-dir", tmp,
+              "--target-dir", tmp, "--target-file", "prepared.pickle.gz"],
+             zero)
+    stats["prepare_ms_per_structure"] = (
+        (time.perf_counter() - t0) * 1e3 / N_CLI_STRUCTURES)
+    data = os.path.join(tmp, "prepared.pickle.gz")
+    n = len(load_prepared(data, target="e_above_hull"))
+    _, val, test = split_dataset(n, seed=0)
+    train_n = n - len(val) - len(test)
+    steps, evals = train_n // N_GRAPHS, -(-len(val) // N_GRAPHS)
+    print(f"[cli] {n} of {N_CLI_STRUCTURES} structures prepared (native kNN "
+          f"built in {stats['native_build_s']:.1f} s, equal to numpy on the "
+          f"first {N_NATIVE_CHECKED}), {stats['prepare_ms_per_structure']:.2f}"
+          f" ms per structure; split {train_n}/{len(val)}/{len(test)}: "
+          f"{steps} steps an epoch")
+
+    def want(fwd: int, bwd: int) -> dict[str, int]:
+        return {**zero, **{k: v * fwd for k, v in PER_FORWARD.items()},
+                **{k: v * bwd for k, v in PER_BACKWARD.items()}}
+
+    logs = os.path.join(tmp, "logs")
+    run = os.path.join(logs, "runs", "cli")
+    # epochs 0 and 1, validated after epoch 1 (every second epoch)
+    add(cli_call("cli.train --smoke-test", cli_train.main,
+                 ["--data-path", data, "--target", "e_above_hull",
+                  "--smoke-test", "--ckpt-dir", logs, "--run-name", "cli"],
+                 want(2 * steps + evals, 2 * steps))[0])
+    epochs = [r for r in finite_metrics(os.path.join(run, "metrics.jsonl"))
+              if "train_loss" in r]
+    counts, out = cli_call("cli.evaluate", cli_evaluate.main, [run],
+                           want(-(-len(test) // N_GRAPHS), 0))
+    add(counts)
+    test_m = json.loads(out.strip().splitlines()[-1])
+    if not all(math.isfinite(v) for v in test_m.values()):
+        fail(f"cli.evaluate: non-finite metrics {test_m}")
+    outputs = {}
+    for flag in ("", "--embeddings"):
+        path = os.path.join(tmp, f"predict{flag}.pickle.gz")
+        add(cli_call(f"cli.predict {flag}".strip(), cli_predict.main,
+                     [run, data, "--out", path] + ([flag] if flag else []),
+                     want(-(-n // N_GRAPHS), 0))[0])
+        with gzip.open(path, "rb") as f:
+            outputs[flag or "pred"] = pickle.load(f)
+    pred, emb = outputs["pred"]["pred"], outputs["--embeddings"]["embeddings"]
+    if pred.shape != (n,) or not np.isfinite(pred).all():
+        fail(f"cli.predict: predictions not finite with shape ({n},)")
+    if emb.shape != (n, 640) or not np.isfinite(emb).all():
+        fail(f"cli.predict --embeddings: embeddings not finite with shape "
+             f"({n}, 640)")
+    # epoch 2 only, not validated
+    counts, out = cli_call("cli.train --ckp", cli_train.main,
+                           ["--ckp", run, "--epochs", "3"],
+                           want(steps, steps))
+    add(counts)
+    resumed = [r for r in finite_metrics(os.path.join(run, "metrics.jsonl"))
+               if "train_loss" in r][len(epochs):]
+    if [r["epoch"] for r in resumed] != [2]:
+        fail(f"the resumed run ran epochs {[r['epoch'] for r in resumed]}, "
+             f"not [2]")
+
+    for tag in ("best", "last"):
+        trainer, meta = load_trainer(run, tag=tag, device="cuda")
+        if not all(torch.isfinite(p).all() for p in trainer.model.parameters()):
+            fail(f"checkpoint {tag}: non-finite weights")
+    progress("phase 5: checkpoint save and load")
+    ckpt = CheckpointManager(run)
+    save_ms, load_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(trainer, epoch=meta["epoch"], val_mae=meta["val_mae"],
+                  tag="timing")
+        t1 = time.perf_counter()
+        CheckpointManager.load_state(run, trainer, tag="timing")
+        torch.cuda.synchronize()
+        save_ms.append((t1 - t0) * 1e3)
+        load_ms.append((time.perf_counter() - t1) * 1e3)
+    size = os.path.getsize(os.path.join(ckpt.dir, "timing.pt"))
+    stats.update(
+        epochs=[{k: r[k] for k in ("epoch", "step", "epoch_time",
+                                   "graphs_per_sec", "train_loss")}
+                for r in epochs + resumed],
+        test=test_m, checkpoint_mb=size / 2 ** 20,
+        checkpoint_save_ms=float(np.median(save_ms)),
+        checkpoint_load_ms=float(np.median(load_ms)), launches=total)
+    for r in stats["epochs"]:
+        print(f"[cli] epoch {r['epoch']:.0f}: {r['epoch_time'] * 1e3:.0f} ms "
+              f"wall, {r['graphs_per_sec']:.1f} graphs/s, train loss "
+              f"{r['train_loss']:.5f}")
+    print(f"[cli] test {test_m}; checkpoint {stats['checkpoint_mb']:.1f} MiB: "
+          f"save {stats['checkpoint_save_ms']:.1f} ms, load into the trainer "
+          f"{stats['checkpoint_load_ms']:.1f} ms (medians of 3); best and "
+          f"last load")
+    return stats, total
+
+
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
     """The card's forward vs the port's own bf16 forward on the CPU (plain
     versions), same weights, same batch."""
@@ -885,7 +1099,9 @@ def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
                     max_nbr=24, orig_fea=200)
     with torch.inference_mode():
         got = model(batch.to("cuda")).cpu()
+        t0 = time.perf_counter()
         want = cpu_model(batch)
+    cpu_s = time.perf_counter() - t0
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     if not torch.isfinite(got).all() or not torch.allclose(
@@ -894,7 +1110,7 @@ def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
              f"(max|out| {scale:.3e})")
     print(f"[serve] card vs CPU bf16 forward: max abs diff {err:.3e}, "
           f"max|out| {scale:.3e} (rtol {MODEL_RTOL}, atol {MODEL_RTOL} x "
-          f"max|out|)")
+          f"max|out|); the CPU forward took {cpu_s:.1f} s")
     return err
 
 
@@ -902,6 +1118,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     from cgat_tpu_torch.data import collate, pad_to_bucket
     from cgat_tpu_torch.data.synthetic import random_graphs
     from cgat_tpu_torch.models import CGATConfig, CGAtNet, init_state_dict
@@ -912,8 +1130,10 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    progress("phase 1: build the kernels")
     build_kernels()
 
+    progress("phase 2: check the forward kernels")
     cfg = CGATConfig(compute_dtype="bfloat16")
     t0 = time.perf_counter()
     cpu_model = CGAtNet(cfg)
@@ -935,32 +1155,42 @@ def main() -> int:
                      num_edge_slots=n0 * 24, num_comp_slots=8, max_nbr=24,
                      orig_fea=200).to(device)
     rows = check_kernels(model, batch0)
+    progress("phase 3: serve")
     launches, stats = serve(model, requests)
     stats["breakdown"] = breakdown(model, requests[1], rows)
     for name, count in launches.items():
         if count != PER_FORWARD.get(name, 0) * N_REQUESTS:
             fail(f"{name} launched {count} times on the serving path")
     check_against_cpu(model, cpu_model, requests[0], n0)
+    progress("phase 4: train")
     train_rows, train_stats, train_launches = train(cfg, state_dict)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        progress(f"phase 5: cli in {tmp}")
+        cli_stats, cli_launches = cli(tmp)
+    progress("phase 6: report")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=120)
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
                                   "edge_slots": int(batch0.num_edge_slots),
                                   "node_slots": int(batch0.num_node_slots),
                                   **stats}}))
     print(json.dumps({"training": train_stats}))
+    print(json.dumps({"cli": cli_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
-    # is every kernel's count on the training path
+    # is every kernel's count on the training path, cli_launches in the
+    # cli phase
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": f"cgat_tpu_torch/csrc/{SOURCES[r['name']]}.cu",
                 "replaces": REPLACES[r["name"]],
                 "launches": (launches if r["name"] in PER_FORWARD
                              else train_launches)[r["name"]],
                 "train_launches": train_launches[r["name"]],
+                "cli_launches": cli_launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "tolerance": KERNEL_TOL,
                 "rel_norm_err": r["rel_norm_err"], "norm_tolerance": NORM_TOL,
                 "checks": r["checks"],
@@ -977,6 +1207,8 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    faulthandler.cancel_dump_traceback_later()
+    progress("done")
     return 0
 
 

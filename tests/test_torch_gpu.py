@@ -537,3 +537,42 @@ def test_train_step_on_card_matches_cpu(dev):
     card.apply_update()
     torch.testing.assert_close(loss.detach().cpu(), want, rtol=5e-2,
                                atol=5e-2)
+
+
+def test_cli_train_and_resume_on_card(dev, tmp_path):
+    """``cli.prepare`` -> ``cli.train --smoke-test`` on the card (its
+    default device) -> the checkpoint loads onto the card -> ``--ckp``
+    continues at epoch 2; every kernel launches, the metrics are finite."""
+    import gzip
+    import json
+    import pickle
+
+    from cgat_tpu_torch.cli import prepare as cli_prepare
+    from cgat_tpu_torch.cli import train as cli_train
+    from cgat_tpu_torch.data.structures import random_structures
+    from cgat_tpu_torch.training import load_trainer
+
+    with gzip.open(tmp_path / "s.pickle.gz", "wb") as f:
+        pickle.dump(random_structures(1, 40), f)
+    assert cli_prepare.main(["--file", "s.pickle.gz", "--source-dir",
+                             str(tmp_path), "--target-dir", str(tmp_path),
+                             "--target-file", "p.pickle.gz",
+                             "--max-nbr", "16"]) == 0
+    flags = ["--atom-fea-len", "128", "--n-graph", "2",
+             "--nbr-embedding-size", "128", "--msg-heads", "5",
+             "--n-graph-roost", "1", "--max-nbr", "16", "--batch-size", "6",
+             "--node-bucket", "16", "--target", "e_above_hull"]
+    before = _launches()
+    assert cli_train.main(["--data-path", str(tmp_path / "p.pickle.gz"),
+                           "--smoke-test", "--ckpt-dir", str(tmp_path),
+                           "--run-name", "r", *flags]) == 0
+    assert all(v > before[k] for k, v in _launches().items())
+    run = tmp_path / "runs" / "r"
+    trainer, meta = load_trainer(str(run), tag="last")
+    assert meta["epoch"] == 1
+    assert all(p.device.type == "cuda" for p in trainer.model.parameters())
+    assert cli_train.main(["--ckp", str(run), "--epochs", "3"]) == 0
+    recs = [json.loads(line) for line in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in recs if "train_loss" in r] == [0, 1, 2]
+    assert all(np.isfinite(v) for r in recs for v in r.values())

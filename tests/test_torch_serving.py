@@ -137,7 +137,11 @@ def test_port_imports_nothing_of_jax():
 def test_port_runs_without_jax_loaded():
     code = ("import sys, cgat_tpu_torch.serving, cgat_tpu_torch.models, "
             "cgat_tpu_torch.data.synthetic, cgat_tpu_torch.data.dataset, "
-            "cgat_tpu_torch.ops, cgat_tpu_torch.training; "
+            "cgat_tpu_torch.ops, cgat_tpu_torch.training, "
+            "cgat_tpu_torch.data.featurizer, cgat_tpu_torch.native, "
+            "cgat_tpu_torch.cli.common, cgat_tpu_torch.cli.prepare, "
+            "cgat_tpu_torch.cli.train, cgat_tpu_torch.cli.evaluate, "
+            "cgat_tpu_torch.cli.predict; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'sklearn', 'cgat_tpu')]; print(bad); "
             "sys.exit(bool(bad))")

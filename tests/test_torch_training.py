@@ -242,19 +242,19 @@ def test_bf16_train_step_runs_every_plain_backward(monkeypatch):
     assert torch.isfinite(loss)
 
 
-def test_trainer_refuses_what_is_not_ported():
+def test_trainer_refuses_what_is_not_ported(tmp_path):
     graphs = random_graphs(0, 12, **GRAPHS)
     for field, value in (("optim", "LAMB"), ("streaming", True),
                          ("n_devices", 2), ("acc_batches", 2),
-                         ("ckpt_dir", "runs")):
+                         ("steps_per_dispatch", 2)):
         with pytest.raises(NotImplementedError, match=field):
             Trainer(TrainerConfig(**{field: value}), CGATConfig(**TINY),
                     graphs, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(TrainerConfig(), CGATConfig(**TINY), graphs)
-    t = Trainer(TrainerConfig(**TRAIN), CGATConfig(**TINY), graphs,
-                device="cpu")
+    t = Trainer(TrainerConfig(**TRAIN, ckpt_dir=str(tmp_path)),
+                CGATConfig(**TINY), graphs, device="cpu")
     model = t.init_state()
     again = init_state_dict(model, seed=0)
     assert all(torch.equal(v, again[k]) for k, v in model.state_dict().items())
