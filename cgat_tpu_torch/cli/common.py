@@ -9,8 +9,10 @@ kept as deprecated aliases with their original (inverting) meaning. The
 flags, defaults and aliases are the JAX package's, so a command line means
 the same to both; ``--device`` (the CUDA card by default, ``cpu`` on
 request) is the port's own, its counterpart of choosing the JAX platform.
-Flags whose feature is not ported yet raise ``NotImplementedError`` naming
-the slice that brings it, before any data is read.
+Flags whose feature is not ported yet (``--devices`` above 1,
+``--edge-shards``, ``--streaming``, ``--steps-per-dispatch``,
+``--profile-epoch``) raise ``NotImplementedError`` naming the slice that
+brings it, before any data is read.
 """
 from __future__ import annotations
 
@@ -170,16 +172,6 @@ def device_from_args(args) -> torch.device:
 _NOT_PORTED = (
     ("--edge-shards", "edge_shards", 1, "slice 4 (edge sharding)"),
     ("--streaming", "streaming", False, "slice 5 (streaming and prefetch)"),
-    ("--optim", "optim", "AdamW", "slice 3b (SGD, Adam and LAMB)"),
-    ("--acc-batches", "acc_batches", 1, "slice 3b (gradient accumulation)"),
-    ("--only-residual", "only_residual", False,
-     "slice 3b (transfer learning of the head)"),
-    ("--version", "version", "", "slice 3b (model plug-ins)"),
-    ("--hyper-edges", "hyper_edges", False,
-     "slice 3b (model variants: no_hyper=False)"),
-    ("--no-update-edges", "update_edges", True,
-     "slice 3b (model variants: update_edges=False)"),
-    ("--remat", "remat", False, "slice 3b (model variants: remat)"),
     ("--steps-per-dispatch", "steps_per_dispatch", 1,
      "slice 3b (launch count: multi-step dispatch)"),
     ("--profile-epoch", "profile_epoch", -1, "slice 9 (tracing)"),
@@ -217,7 +209,7 @@ def configs_from_args(args) -> tuple[TrainerConfig, CGATConfig]:
         train_percentage=args.train_percentage, val_path=args.val_path,
         test_path=args.test_path, batch_size=args.batch_size,
         epochs=2 if args.smoke_test else args.epochs, optim=args.optim,
-        learning_rate=args.learning_rate,
+        learning_rate=args.learning_rate, momentum=args.momentum,
         weight_decay=args.weight_decay, loss=args.loss,
         robust_loss=args.robust_loss, clr=args.clr,
         clr_period=args.clr_period,
@@ -246,6 +238,6 @@ def configs_from_args(args) -> tuple[TrainerConfig, CGATConfig]:
         vector_attention=args.vector_attention,
         global_vector_attention=args.global_vector_attention,
         n_graph_roost=args.n_graph_roost, no_hyper=not args.hyper_edges,
-        compute_dtype=args.precision,
+        compute_dtype=args.precision, remat=args.remat,
     )
     return tcfg, mcfg

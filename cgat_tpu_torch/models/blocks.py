@@ -123,19 +123,39 @@ class MultiHeadNetwork(nn.Module):
         return mh_supported(self.input_dim, self.hidden_layer_dim,
                             self.output_dim, self.nb_heads, self.dtype)
 
-    def forward(self, x, *, flat=False):
+    def forward(self, x=None, *, split_parts=None, flat=False):
         """``x`` of shape (B, ..., input_dim) is flattened to
         (B', input_dim) like the reference's ``reshape(-1, input_dim, 1)``.
-        Callers of ``flat=True`` check :meth:`flat_supported` first."""
+        Callers of ``flat=True`` check :meth:`flat_supported` first.
+
+        ``split_parts`` instead of ``x``: ``(features, index or None)``
+        pairs whose widths take consecutive slices of ``input_dim``.
+        ``fc_in`` projects each part's rows first and the projections are
+        gathered by ``index``, which equals projecting the gathered concat
+        (the first layer is linear) with the same parameters."""
         H, hid, out = self.nb_heads, self.hidden_layer_dim, self.output_dim
         dt = self.dtype
         w_in = self.fc_in.weight.view(H * hid, self.input_dim).to(dt)
         w_out = self.fc_out.weight.view(H * out, hid).to(dt)
         b_in, b_out = self.fc_in.bias.to(dt), self.fc_out.bias.to(dt)
-        x = x.reshape(-1, self.input_dim).to(dt)
-        if flat:
+        if split_parts is not None:
+            h, off = None, 0
+            for feat, idx in split_parts:
+                d = feat.shape[-1]
+                p = torch.einsum("bi,hji->bhj", feat.to(dt),
+                                 w_in.view(H, hid, -1)[:, :, off:off + d])
+                p = p if idx is None else p[idx]
+                h = p if h is None else h + p
+                off += d
+            if off != self.input_dim:
+                raise ValueError(f"split parts cover {off} of "
+                                 f"{self.input_dim} input features")
+        elif flat:
+            x = x.reshape(-1, self.input_dim).to(dt)
             return mh_network_op(x.contiguous(), w_in, b_in, w_out, b_out, H)
-        h = torch.einsum("bi,hji->bhj", x, w_in.view(H, hid, -1))
+        else:
+            x = x.reshape(-1, self.input_dim).to(dt)
+            h = torch.einsum("bi,hji->bhj", x, w_in.view(H, hid, -1))
         h = F.leaky_relu(h + b_in.view(H, hid), LEAKY_SLOPE)
         y = torch.einsum("bhj,hoj->bho", h, w_out.view(H, out, hid))
         return y + b_out.view(H, out)

@@ -10,6 +10,12 @@ nothing of the JAX package. Layout transforms:
 * flax module names map to the reference's attributes (``graph_{i}_Node``
   -> ``graphs.{i}.Node``, ``layer_{j}`` / ``layer_last`` ->
   ``layers.{j}[.hyper_linear]``, ``fc_{k}_kernel`` -> ``net.{k}.net.0``, ...).
+
+An ``update_edges=False`` model has no reference layout (the reference's
+branch for it cannot run, CGAT.py:406-425, so the JAX package's exporter
+refuses it). The port defines its own: ``graphs.{i}.Node`` as in every
+model and no ``graphs.{i}.Edge`` module, which is what JAX's node-only
+tree (``graph_{i}_Node`` and no ``graph_{i}_Edge``) maps to.
 """
 from __future__ import annotations
 
@@ -42,9 +48,6 @@ def state_dict_from_jax(params: dict, cfg) -> dict:
     given as a nested dict or as flat ``a/b/c`` keys, of numpy arrays."""
     if any("/" in k for k in params):
         params = _unflatten(params)
-    if not cfg.update_edges:
-        raise ValueError("update_edges=False models have no reference "
-                         "parameter layout")
     sd: dict[str, np.ndarray] = {}
 
     def mh(ours: dict, ref: str):
@@ -101,7 +104,11 @@ def state_dict_from_jax(params: dict, cfg) -> dict:
     sd["nbr_embedding.weight"] = _np(params["nbr_embedding"]["embedding"])
     for i in range(cfg.n_graph):
         gat(params[f"graph_{i}_Node"], f"graphs.{i}.Node")
-        gat(params[f"graph_{i}_Edge"], f"graphs.{i}.Edge")
+        if cfg.update_edges:
+            gat(params[f"graph_{i}_Edge"], f"graphs.{i}.Edge")
+        elif f"graph_{i}_Edge" in params:
+            raise ValueError(f"update_edges=False but the parameter tree "
+                             f"has graph_{i}_Edge")
     roost = params["roost"]
     linear(roost["embedding"], "roost.embedding")
     i = 0

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.hyper_apply import hyper_apply_op
 from ..ops.kernels.hyper_apply import supported as hyper_supported
@@ -58,8 +59,12 @@ class HyperLinear(nn.Module):
 
     With kernel-eligible widths the last hypernetwork Linear and the apply
     run as the fused ``hyper_apply`` kernel, which never writes the
-    (B, out*in + out) predicted parameters to device memory."""
+    (B, out*in + out) predicted parameters to device memory. ``remat``
+    (the model's ``hyper_remat``) recomputes the layer in the backward
+    instead of keeping its activations, as ``nn.remat(HyperLinear)`` does
+    in the JAX package: the forward kernel then runs twice a step."""
     compute_dtype: torch.dtype | None = None
+    remat: bool = False
 
     def __init__(self, in_ch, out_ch, hyper_in_ch, hyper_num_hidden_layers,
                  hyper_hidden_ch):
@@ -71,6 +76,12 @@ class HyperLinear(nn.Module):
                                    in_ch * out_ch + out_ch)
 
     def forward(self, cond, x):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._predict_apply, cond, x,
+                              use_reentrant=False)
+        return self._predict_apply(cond, x)
+
+    def _predict_apply(self, cond, x):
         last = self.hypo_params.net[-1]
         dt = self.compute_dtype or last.weight.dtype
         hidden = self.hypo_params.hidden(cond)

@@ -27,8 +27,10 @@ _FORMAT = 2        # the manifest layout cgat_tpu's export_artifact writes
 
 
 def config_from_manifest(manifest: dict) -> CGATConfig:
-    """The manifest's model config without the JAX package's training-only
-    fields, which do not change the inference forward."""
+    """The manifest's model config as the port's ``CGATConfig``: every
+    field of the JAX package's config (``no_hyper``, ``update_edges``,
+    ``dropout``, ``split_projection`` and the remat flags included) keeps
+    its value; a field the port does not know is left out."""
     d = dict(manifest["model_config"])
     d["out_hidden"] = tuple(d.get("out_hidden", ()))
     fields = {f.name for f in dataclasses.fields(CGATConfig)}

@@ -1,7 +1,9 @@
-from .optim import AdamW, project_params
+from .optim import LAMB, SGD, Adam, AdamW, MultiSteps, project_params
 from .trainer import (CheckpointManager, MetricsLogger, Trainer,
-                      TrainerConfig, load_trainer, resume_trainer)
+                      TrainerConfig, load_trainer, make_optimizer,
+                      resume_trainer)
 
-__all__ = ["AdamW", "CheckpointManager", "MetricsLogger", "Trainer",
-           "TrainerConfig", "load_trainer", "project_params",
+__all__ = ["LAMB", "SGD", "Adam", "AdamW", "CheckpointManager",
+           "MetricsLogger", "MultiSteps", "Trainer", "TrainerConfig",
+           "load_trainer", "make_optimizer", "project_params",
            "resume_trainer"]

@@ -1,40 +1,69 @@
-"""AdamW as ``optax.adamw`` computes it, and the damping projection.
+"""The optimizers as optax computes them, and the damping projection.
 
-torch's AdamW has no low-precision first moment, and its arithmetic order
-differs from optax's, so the port writes the update out with
-``torch._foreach_*`` ops, in optax's order (``scale_by_adam`` ->
-``add_decayed_weights`` -> ``scale_by_learning_rate``):
+torch's optimizers have no low-precision first moment, and their
+arithmetic order differs from optax's, so the port writes each update out
+with ``torch._foreach_*`` ops in the order of the JAX package's optax
+chain (``cgat_tpu/training/trainer.py`` ``make_optimizer``):
 
-    mu  = (1 - b1) * g + b1 * mu         (b1 * mu rounded to mu's dtype)
-    nu  = (1 - b2) * g**2 + b2 * nu      (f32)
-    u   = (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps)
-    p  += -lr * (u + weight_decay * p)
+* ``AdamW`` (``optax.adamw``: ``scale_by_adam`` -> ``add_decayed_weights``
+  -> ``scale_by_learning_rate``)::
 
-with mu stored in ``mu_dtype`` (bf16 in the CLI's production profile) after
-the update is formed from its f32 value, as optax does. A parameter that
-got no gradient is updated as if its gradient were zero, as JAX's are.
+      mu  = (1 - b1) * g + b1 * mu         (b1 * mu rounded to mu's dtype)
+      nu  = (1 - b2) * g**2 + b2 * nu      (f32)
+      u   = (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps)
+      p  += -lr * (u + weight_decay * p)
+
+  with mu stored in ``mu_dtype`` (bf16 in the CLI's production profile)
+  after the update is formed from its f32 value, as optax does;
+* ``Adam`` (``add_decayed_weights`` -> ``optax.adam``): the same ``u`` of
+  ``g + weight_decay * p``, and ``p += -lr * u``;
+* ``SGD`` (``optax.sgd`` with momentum: a trace, not Nesterov, behind
+  ``add_decayed_weights`` when ``weight_decay != 0``)::
+
+      t  = g + momentum * t;   p += -lr * t
+
+* ``LAMB`` (``cgat_tpu/training/lamb.py``): no bias correction, eps
+  inside, weight decay added to the Adam step, and a per-tensor trust
+  ratio with the weight norm clamped to [0, 10] (1.0 where either norm
+  is 0)::
+
+      m = b1 * m + (1 - b1) * g;   v = b2 * v + (1 - b2) * g * g
+      s = m / (sqrt(v) + eps) + weight_decay * p
+      p += (-lr * clip(|p|, 0, 10) / (|s| + eps)) * s
+
+* ``MultiSteps`` (``optax.MultiSteps``, the trainer's ``acc_batches``):
+  a running mean of the gradients, ``acc += (g - acc) / (n + 1)``, handed
+  to the inner optimizer every k-th mini-step; the other mini-steps leave
+  the parameters as they are.
+
+A parameter that got no gradient is updated as if its gradient were
+zero, as JAX's are. Each optimizer's ``state_dict`` holds its count and
+its per-parameter state; ``load_state_dict`` refuses state of another
+optimizer, length, shape or dtype.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
-class AdamW:
-    """``optax.adamw(lr, b1, b2, eps, weight_decay=..., mu_dtype=...)`` over
-    a list of parameters; ``lr`` may be set between steps."""
 
-    def __init__(self, params, lr: float, *, weight_decay: float = 1e-4,
-                 mu_dtype: torch.dtype = torch.float32, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+def _dtype_name(dtype) -> str:
+    return _DTYPE_NAMES.get(dtype, str(dtype))
+
+
+class _Optimizer:
+    """What the optimizers share: the parameter list, the learning rate
+    (set between steps), the update count and the per-parameter state
+    lists named by ``_STATE``. ``step`` applies the update for the
+    parameters' ``.grad`` through the subclass's ``update(grads)``, which
+    takes given gradients."""
+    _STATE: tuple[str, ...] = ()
+
+    def __init__(self, params, lr: float):
         self.params = list(params)
         self.lr = lr
-        self.weight_decay = weight_decay
-        self.b1, self.b2, self.eps = b1, b2, eps
-        with torch.no_grad():
-            self.mu = [torch.zeros_like(p, dtype=mu_dtype)
-                       for p in self.params]
-            self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
         self._zeros: dict[int, torch.Tensor] = {}
 
@@ -53,44 +82,82 @@ class AdamW:
                 grads.append(p.grad)
         return grads
 
+    @torch.no_grad()
+    def step(self) -> None:
+        self.update(self._grads())
+
+    def state_dict(self) -> dict:
+        """The update count and the per-parameter state (the learning rate
+        is set per epoch and is not part of it)."""
+        return {"optimizer": type(self).__name__, "step": self.count,
+                **{name: list(getattr(self, name)) for name in self._STATE}}
+
+    def _check_dtype(self, name: str, own: list, new: list) -> None:
+        """Adam's and AdamW's first moment ``mu`` has the dtype the run
+        chose (``--moment-dtype``); every other state is f32."""
+        have = {t.dtype for t in new}
+        want = own[0].dtype
+        if have != {want}:
+            got = ", ".join(sorted(_dtype_name(d) for d in have))
+            what = ("first moment (mu)" if name == "mu"
+                    else f"{type(self).__name__} state {name!r}")
+            raise ValueError(
+                f"the checkpoint's {what} is {got} but this run keeps it in "
+                f"{_dtype_name(want)}"
+                + (f"; resume with --moment-dtype {got} "
+                   f"(TrainerConfig.moment_dtype)" if name == "mu" else ""))
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore what ``state_dict`` gave. State of another optimizer,
+        or of another dtype than this optimizer keeps, raises before
+        anything is restored."""
+        kind = state.get("optimizer", "AdamW")
+        if kind != type(self).__name__ or any(n not in state
+                                              for n in self._STATE):
+            raise ValueError(f"the checkpoint holds {kind} state; this run "
+                             f"uses {type(self).__name__} (--optim)")
+        for name in self._STATE:
+            own, new = getattr(self, name), state[name]
+            if len(new) != len(own):
+                raise ValueError(f"optimizer state holds {len(new)} "
+                                 f"{name} tensors, this model has "
+                                 f"{len(own)} parameters")
+            if own:
+                self._check_dtype(name, own, new)
+            for o, n in zip(own, new):
+                if o.shape != n.shape:
+                    raise ValueError(f"optimizer {name} of shape "
+                                     f"{tuple(n.shape)} for a parameter of "
+                                     f"shape {tuple(o.shape)}")
+        for name in self._STATE:
+            for o, n in zip(getattr(self, name), state[name]):
+                o.copy_(n)
+        self.count = int(state["step"])
+
+
+class _AdamBase(_Optimizer):
+    """``scale_by_adam`` with its first moment in ``mu_dtype``."""
+    _STATE = ("mu", "nu")
+
+    def __init__(self, params, lr: float, *, weight_decay: float,
+                 mu_dtype: torch.dtype = torch.float32, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, lr)
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(p, dtype=mu_dtype)
+                       for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
+
     def _bias_correction(self, decay: float) -> float:
         """``1 - decay**count`` in f32, as optax computes it."""
         return float(np.float32(1) - np.float32(decay) ** np.int32(self.count))
 
-    def state_dict(self) -> dict:
-        """The optimizer's state: the update count and both moments (the
-        learning rate is set per epoch and is not part of it)."""
-        return {"step": self.count, "mu": list(self.mu), "nu": list(self.nu)}
-
-    @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
-        """Restore what ``state_dict`` gave. The first moment's dtype must
-        be this optimizer's: a checkpoint written with another
-        ``--moment-dtype`` raises rather than changing it."""
-        mu, nu = state["mu"], state["nu"]
-        if len(mu) != len(self.mu) or len(nu) != len(self.nu):
-            raise ValueError(f"optimizer state holds {len(mu)} moments, "
-                             f"this model has {len(self.mu)} parameters")
-        names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-        have = {m.dtype for m in mu}
-        want = self.mu[0].dtype if self.mu else None
-        if self.mu and have != {want}:
-            got = ", ".join(sorted(names.get(d, str(d)) for d in have))
-            raise ValueError(
-                f"the checkpoint's first moment (mu) is {got} but this run "
-                f"keeps it in {names.get(want, str(want))}; resume with "
-                f"--moment-dtype {got} (TrainerConfig.moment_dtype)")
-        for own, new in zip(self.mu + self.nu, list(mu) + list(nu)):
-            if own.shape != new.shape:
-                raise ValueError(f"optimizer moment of shape "
-                                 f"{tuple(new.shape)} for a parameter of "
-                                 f"shape {tuple(own.shape)}")
-            own.copy_(new)
-        self.count = int(state["step"])
-
-    @torch.no_grad()
-    def step(self) -> None:
-        grads = self._grads()
+    def _adam(self, grads):
+        """The Adam direction u for ``grads``, and mu's new f32 value (to
+        be stored once the update is formed)."""
         self.count += 1
         bc1 = self._bias_correction(self.b1)
         bc2 = self._bias_correction(self.b2)
@@ -106,11 +173,169 @@ class AdamW:
         torch._foreach_add_(den, self.eps)
         update = torch._foreach_div(mu, bc1)
         torch._foreach_div_(update, den)
+        return update, mu
+
+
+class AdamW(_AdamBase):
+    """``optax.adamw(lr, b1, b2, eps, weight_decay=..., mu_dtype=...)`` over
+    a list of parameters; ``lr`` may be set between steps."""
+
+    def __init__(self, params, lr: float, *, weight_decay: float = 1e-4,
+                 **kw):
+        super().__init__(params, lr, weight_decay=weight_decay, **kw)
+
+    @torch.no_grad()
+    def update(self, grads) -> None:
+        update, mu = self._adam(grads)
         torch._foreach_add_(update,
                             torch._foreach_mul(self.params, self.weight_decay))
         torch._foreach_mul_(update, -self.lr)
         torch._foreach_add_(self.params, update)
         torch._foreach_copy_(self.mu, mu)
+
+
+class Adam(_AdamBase):
+    """``optax.chain(add_decayed_weights(weight_decay), optax.adam(lr,
+    mu_dtype=...))``: weight decay coupled to the gradient."""
+
+    def __init__(self, params, lr: float, *, weight_decay: float = 0.0,
+                 **kw):
+        super().__init__(params, lr, weight_decay=weight_decay, **kw)
+
+    @torch.no_grad()
+    def update(self, grads) -> None:
+        grads = torch._foreach_add(
+            grads, torch._foreach_mul(self.params, self.weight_decay))
+        update, mu = self._adam(grads)
+        torch._foreach_mul_(update, -self.lr)
+        torch._foreach_add_(self.params, update)
+        torch._foreach_copy_(self.mu, mu)
+
+
+class SGD(_Optimizer):
+    """``optax.sgd(lr, momentum)`` (a trace, not Nesterov), behind
+    ``add_decayed_weights(weight_decay)`` when ``weight_decay != 0``."""
+    _STATE = ("trace",)
+
+    def __init__(self, params, lr: float, *, momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        super().__init__(params, lr)
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        with torch.no_grad():
+            self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def update(self, grads) -> None:
+        self.count += 1
+        if self.weight_decay != 0:
+            grads = torch._foreach_add(
+                grads, torch._foreach_mul(self.params, self.weight_decay))
+        trace = torch._foreach_mul(self.trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        update = torch._foreach_mul(trace, -self.lr)
+        torch._foreach_add_(self.params, update)
+        torch._foreach_copy_(self.trace, trace)
+
+
+class LAMB(_Optimizer):
+    """``cgat_tpu.training.lamb.lamb(lr, weight_decay=...)`` (reference
+    CGAT/lambs.py:155-181)."""
+    _STATE = ("exp_avg", "exp_avg_sq")
+
+    def __init__(self, params, lr: float, *, weight_decay: float = 0.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6):
+        super().__init__(params, lr)
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        with torch.no_grad():
+            self.exp_avg = [torch.zeros_like(p) for p in self.params]
+            self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def update(self, grads) -> None:
+        self.count += 1
+        torch._foreach_mul_(self.exp_avg, self.b1)
+        torch._foreach_add_(self.exp_avg, torch._foreach_mul(grads,
+                                                             1 - self.b1))
+        g2 = torch._foreach_mul(grads, 1 - self.b2)
+        torch._foreach_mul_(g2, grads)
+        torch._foreach_mul_(self.exp_avg_sq, self.b2)
+        torch._foreach_add_(self.exp_avg_sq, g2)
+        den = torch._foreach_sqrt(self.exp_avg_sq)
+        torch._foreach_add_(den, self.eps)
+        step = torch._foreach_div(self.exp_avg, den)
+        torch._foreach_add_(step, torch._foreach_mul(self.params,
+                                                     self.weight_decay))
+        w_norm = torch.stack(torch._foreach_norm(self.params)).clamp(0.0,
+                                                                     10.0)
+        s_norm = torch.stack(torch._foreach_norm(step))
+        one = torch.ones_like(w_norm)
+        trust = w_norm / (s_norm + self.eps)
+        trust = torch.where(w_norm == 0.0, one, trust)
+        trust = torch.where(s_norm == 0.0, one, trust)
+        torch._foreach_mul_(step, list((-self.lr * trust).unbind()))
+        torch._foreach_add_(self.params, step)
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, k)``: gradients averaged over k
+    mini-steps (a running mean) and handed to ``inner`` every k-th one; in
+    between the parameters do not change. ``lr`` is the inner
+    optimizer's."""
+
+    def __init__(self, inner: _Optimizer, k: int):
+        self.inner = inner
+        self.k = k
+        self.mini_step = 0
+        with torch.no_grad():
+            self.acc = [torch.zeros_like(p) for p in inner.params]
+
+    @property
+    def params(self):
+        return self.inner.params
+
+    @property
+    def lr(self) -> float:
+        return self.inner.lr
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self.inner.lr = value
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        delta = torch._foreach_sub(self.inner._grads(), self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        if self.mini_step == self.k - 1:
+            self.inner.update(self.acc)
+            torch._foreach_zero_(self.acc)
+        self.mini_step = (self.mini_step + 1) % self.k
+
+    def state_dict(self) -> dict:
+        return {"optimizer": "MultiSteps", "mini_step": self.mini_step,
+                "acc": list(self.acc), "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("optimizer") != "MultiSteps":
+            raise ValueError(f"the checkpoint holds "
+                             f"{state.get('optimizer', 'AdamW')} state "
+                             f"without gradient accumulation; this run "
+                             f"accumulates (--acc-batches {self.k})")
+        if len(state["acc"]) != len(self.acc) or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for a, b in zip(self.acc, state["acc"])):
+            raise ValueError("the checkpoint's accumulated gradients do not "
+                             "match this model's parameters")
+        self.inner.load_state_dict(state["inner"])
+        for a, b in zip(self.acc, state["acc"]):
+            a.copy_(b)
+        self.mini_step = int(state["mini_step"])
 
 
 @torch.no_grad()

@@ -3,7 +3,12 @@
 CGAT/train.py).
 
 One step (``make_train_step`` there): the forward, the criterion on the
-normalised target, the backward, AdamW, then the damping projection. The
+normalised target, the backward, the optimizer (``make_optimizer``: SGD,
+Adam, AdamW or LAMB, only the output head's parameters under
+``only_residual``, gradients averaged over ``acc_batches`` mini-steps),
+then the damping projection. Under model dropout the masks come from
+``(seed, step)`` with ``step`` the count of training steps, which the
+checkpoint keeps, so a resumed run draws the same masks. The
 learning rate is set per epoch from the cyclical or plateau schedule; the
 normalisation mean and std come from the training split (torch's unbiased
 std). Metrics: the loss on the normalised scale, MAE and RMSE of the
@@ -15,12 +20,13 @@ to ``metrics.jsonl`` (and TensorBoard on request) and keeps the top-1
 Not ported yet, each named by the ``TrainerConfig`` field that asks for it
 (which raises ``NotImplementedError`` with the slice that brings it):
 streaming and prefetch, ``steps_per_dispatch``, ``flat_optimizer``, the
-optimizers other than AdamW, ``only_residual``, ``acc_batches``, model
-plug-ins, the parallel and edge-sharded trainers, and profiling.
+parallel and edge-sharded trainers, and profiling.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib
 import json
 import os
 import shutil
@@ -38,7 +44,7 @@ from ..models.init import init_state_dict
 from ..utils.profiling import ThroughputMeter
 from . import losses as L
 from . import schedules
-from .optim import AdamW, project_params
+from .optim import LAMB, SGD, Adam, AdamW, MultiSteps, project_params
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -47,9 +53,11 @@ _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class TrainerConfig:
     """Optimisation, data and output flags: the JAX package's
     ``TrainerConfig`` (reference argparse, lightning_module.py:426-593 and
-    train.py:82-131) less what the port has no counterpart for
-    (``momentum`` of SGD, the attention backend: the kernel is the only
-    one)."""
+    train.py:82-131) less the attention backend, which the port has no
+    counterpart for (the kernel is the only one). ``momentum`` is SGD's
+    (``optax.sgd``'s trace decay); the other optimizers ignore it.
+    ``version`` names a module whose ``CGAtNet`` class the trainer builds
+    instead of the port's (the reference's ``--version`` plug-in)."""
     # data
     data_path: str = "data/"
     fea_path: str | None = None
@@ -64,10 +72,11 @@ class TrainerConfig:
     # optimisation
     batch_size: int = 64
     epochs: int = 390
-    optim: str = "AdamW"
+    optim: str = "AdamW"            # SGD | Adam | AdamW | LAMB
     learning_rate: float = 0.000125
+    momentum: float = 0.9
     weight_decay: float = 1e-6
-    # dtype of AdamW's first moment; the second moment is always f32
+    # dtype of Adam's and AdamW's first moment; the second is always f32
     moment_dtype: str = "float32"
     loss: str = "L1"                # L1 | L2
     robust_loss: bool = False
@@ -101,13 +110,9 @@ class TrainerConfig:
 # (field, the value the port runs, the slice of the port that brings the rest)
 _NOT_PORTED = (
     ("streaming", False, "slice 5 (streaming and prefetch)"),
-    ("optim", "AdamW", "slice 3b (SGD, Adam and LAMB)"),
-    ("acc_batches", 1, "slice 3b (gradient accumulation)"),
-    ("only_residual", False, "slice 3b (transfer learning of the head)"),
     ("profile_epoch", -1, "slice 9 (tracing)"),
     ("steps_per_dispatch", 1, "slice 3b (launch count: multi-step "
                               "dispatch)"),
-    ("version", "", "slice 3b (model plug-ins)"),
     ("flat_optimizer", False, "slice 3b (launch count: flat optimizer)"),
     ("n_devices", 1, "slice 4 (data parallel)"),
     ("edge_shards", 1, "slice 4 (edge sharding)"),
@@ -122,6 +127,42 @@ def _check_ported(cfg: TrainerConfig) -> None:
                 f"yet; it comes with {where}")
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"moment_dtype must be one of {list(_MOMENT_DTYPES)}")
+    if cfg.acc_batches < 1:
+        raise ValueError(f"acc_batches must be at least 1, not "
+                         f"{cfg.acc_batches}")
+
+
+def make_optimizer(cfg: TrainerConfig, params):
+    """The optimizer of the JAX package's ``make_optimizer``
+    (lightning_module.py:306-355) over ``params``: SGD with momentum
+    (weight decay in front only when it is not 0), Adam (coupled weight
+    decay), AdamW or LAMB, with the first moment of Adam and AdamW in
+    ``moment_dtype``; wrapped in :class:`MultiSteps` when ``acc_batches``
+    is above 1. Under ``only_residual`` the caller passes the output
+    head's parameters only (``multi_transform`` with ``set_to_zero`` for
+    the rest: no update, no weight decay, no state)."""
+    mu_dtype = _MOMENT_DTYPES[cfg.moment_dtype]
+    lr, wd = cfg.learning_rate, cfg.weight_decay
+    if cfg.optim == "SGD":
+        opt = SGD(params, lr, momentum=cfg.momentum, weight_decay=wd)
+    elif cfg.optim == "Adam":
+        opt = Adam(params, lr, weight_decay=wd, mu_dtype=mu_dtype)
+    elif cfg.optim == "AdamW":
+        opt = AdamW(params, lr, weight_decay=wd, mu_dtype=mu_dtype)
+    elif cfg.optim == "LAMB":
+        opt = LAMB(params, lr, weight_decay=wd)
+    else:
+        raise NameError("Only SGD, Adam, AdamW, LAMB are allowed as optim")
+    return MultiSteps(opt, cfg.acc_batches) if cfg.acc_batches > 1 else opt
+
+
+def build_model(cfg: TrainerConfig, model_cfg: CGATConfig):
+    """The port's ``CGAtNet``, or the ``CGAtNet`` class of the module
+    ``cfg.version`` names (the reference's plug-in import,
+    lightning_module.py:161-176)."""
+    if cfg.version:
+        return importlib.import_module(cfg.version).CGAtNet(model_cfg)
+    return CGAtNet(model_cfg)
 
 
 def _metrics(output, log_std, target, mask, mean, std, criterion):
@@ -171,6 +212,21 @@ class MetricsLogger:
             self._tb.close()
 
 
+def _inference(method):
+    """A Trainer method run under ``torch.no_grad`` with the model in eval
+    mode (no dropout), its mode restored after."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return method(self, *args, **kwargs)
+        finally:
+            self.model.train(was_training)
+    return wrapped
+
+
 class Trainer:
     """End-to-end trainer on one device (the CUDA card unless ``device``
     says otherwise; raises if there is none). Without ``graphs`` it loads
@@ -186,7 +242,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.criterion = L.make_loss(cfg.loss, cfg.robust_loss)
         self.model: CGAtNet | None = None
-        self.opt: AdamW | None = None
+        self.opt = None
         self.step = 0
         self._plateau = None
         if graphs is not None:
@@ -225,15 +281,20 @@ class Trainer:
     def init_state(self, state_dict: dict | None = None) -> CGAtNet:
         """Build the model with f32 master weights (seeded from ``cfg.seed``
         unless a ``state_dict`` is given) and a fresh optimizer; returns the
-        model."""
-        model = CGAtNet(self.model_cfg)
+        model. Under ``only_residual`` every parameter outside
+        ``output_nn`` is frozen (``requires_grad`` False: no gradient, no
+        update, no optimizer state)."""
+        model = build_model(self.cfg, self.model_cfg)
         if state_dict is None:
             state_dict = init_state_dict(model, seed=self.cfg.seed)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).train()
-        self.opt = AdamW(self.model.parameters(), self.cfg.learning_rate,
-                         weight_decay=self.cfg.weight_decay,
-                         mu_dtype=_MOMENT_DTYPES[self.cfg.moment_dtype])
+        params = list(self.model.parameters())
+        if self.cfg.only_residual:
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(name.startswith("output_nn."))
+            params = [p for p in params if p.requires_grad]
+        self.opt = make_optimizer(self.cfg, params)
         self.step = 0
         n_params = sum(p.numel() for p in model.parameters())
         print(f"this model has {n_params:d} parameters")
@@ -249,8 +310,10 @@ class Trainer:
     # -------------------------------------------------------------- step
 
     def forward_loss(self, batch: CrystalBatch):
-        """The criterion and the metrics of one batch on the device."""
-        out = self.model(batch)
+        """The criterion and the metrics of one batch on the device. In
+        training mode, model dropout draws its masks from
+        ``(cfg.seed, step)``."""
+        out = self.model(batch, dropout_key=(self.cfg.seed, self.step))
         return _metrics(out[:, 0], out[:, 1], batch.target, batch.graph_mask,
                         self.mean, self.std, self.criterion)
 
@@ -365,7 +428,7 @@ class Trainer:
         self.last_log_dir = log_dir
         return history
 
-    @torch.no_grad()
+    @_inference
     def evaluate_split(self, graphs) -> dict:
         """Masked-exact metrics over every graph: tail batches are padded,
         not dropped."""
@@ -384,7 +447,7 @@ class Trainer:
                     "rmse": float("nan")}
         return {k: v / n for k, v in tot.items()}
 
-    @torch.no_grad()
+    @_inference
     def predict(self, graphs) -> np.ndarray:
         """Denormalised predictions in dataset order; the tail batch is
         padded, so every graph gets one."""
@@ -397,7 +460,7 @@ class Trainer:
             preds.append(out[batch.graph_mask].cpu().numpy())
         return np.concatenate(preds) if preds else np.zeros((0,))
 
-    @torch.no_grad()
+    @_inference
     def embeddings(self, graphs) -> np.ndarray:
         """Graph embeddings (n, embedding_dim) as f32, in dataset order
         (calculate_embeddings.py flow)."""
@@ -414,8 +477,8 @@ class Trainer:
 class CheckpointManager:
     """Top-1 ``val_mae`` checkpointing (the reference's ModelCheckpoint,
     train.py:42-48) into ``<log_dir>/checkpoints``: ``{tag}.pt`` holds the
-    f32 master weights, AdamW's state and the step count (``torch.save``);
-    ``{tag}.json`` the epoch, the validation numbers, the plateau state, the
+    f32 master weights, the optimizer's state and the step count
+    (``torch.save``); ``{tag}.json`` the epoch, the validation numbers, the plateau state, the
     normalisation and both configs, so ``load_trainer`` rebuilds the run
     (lightning_module.py:413-424)."""
 
@@ -474,8 +537,8 @@ class CheckpointManager:
 
     @staticmethod
     def load_state(ckpt_dir: str, trainer: Trainer, tag: str = "last"):
-        """Restore the full training state (weights, AdamW's moments and
-        count, the step) into ``trainer``, whose model and optimizer are
+        """Restore the full training state (weights, the optimizer's state
+        and count, the step) into ``trainer``, whose model and optimizer are
         already built; tensors go to the trainer's device. Raises
         ``ValueError`` when the checkpoint's first moment has another dtype
         than ``trainer.cfg.moment_dtype``."""

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Six phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Seven phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -52,9 +52,26 @@ failure exits non-zero:
    be finite, and ``best`` and ``last`` must load; it prints the
    featurisation ms per structure, each epoch's wall time and graphs/s
    (``metrics.jsonl``) and the checkpoint's save and load ms;
-6. report the card, and the eight kernels as one JSON line (with their
-   launches in phase 5 as ``cli_launches``); the last line is
-   ``{"ok": true, "device": {...}}``.
+6. variants: the hyper-edge model (``no_hyper=False``, the reference
+   width and depth, bf16) takes 3 checked steps of 64 crystals in a
+   ``Trainer``, each launching exactly 10/6/36 forward and 10/6/36/36/19
+   backward kernels (the last layer's edge update feeds nothing and is
+   skipped); the card's busy time and device events of one of
+   its steps; hyper_apply and its two backward kernels held against their
+   plain versions on an edge HNet's recorded inputs (at least 18,432 edge
+   rows), bit-identical in two launches and timed beside their bounds and
+   the yardsticks of phases 2 and 4; its bf16 forward against the CPU's
+   on 8 crystals; ``cli.train --hyper-edges --smoke-test`` and
+   ``cli.evaluate`` on phase 5's data with exact launches; then 2 steps
+   each of ``update_edges=False``, ``dropout=0.1``, ``remat``,
+   ``hyper_remat``, ``split_projection``, ``--optim SGD|Adam|LAMB``,
+   ``--acc-batches 2``, ``--only-residual`` and a ``--version`` plug-in
+   written to the temporary directory, each with a finite loss and its
+   own exact launches (``variant_launches``);
+7. report the card, and the eight kernels as one JSON line (with their
+   launches in phases 5 and 6 as ``cli_launches`` and
+   ``variants_launches``, and #5 to #7 at the edge rows as
+   ``edge_rows``); the last line is ``{"ok": true, "device": {...}}``.
 
 Each phase's start goes to stderr with the seconds since start, so a run
 that is stopped shows how far it got; past ``WATCHDOG_S`` seconds the
@@ -63,6 +80,7 @@ script prints every thread's stack to stderr and exits with 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import gzip
 import io
@@ -99,6 +117,75 @@ PER_FORWARD = {"mh_network": 10, "segment_attention": 6, "hyper_apply": 20}
 PER_BACKWARD = {"mh_network_bwd": 10, "segment_attention_bwd": 6,
                 "hyper_apply_bwd_dhdx": 20, "hyper_apply_bwd_dk": 20,
                 "segment_sum": 11}
+N_VARIANT_STEPS = 2
+N_CPU_CHECK_GRAPHS = 8         # crystals of the hyper-edge CPU cross-check
+MIN_EDGE_ROWS = 18432          # edge rows #5 to #7 are held at, at least
+PLUGIN = "chip_smoke_plugin"   # the --version module the variants phase writes
+
+
+def variant_launches(n: int):
+    """Kernel launches a training step of an ``n``-layer model: the
+    hyper-edge model's (forward, backward), and for each variant of phase
+    6 (name, CGATConfig fields, TrainerConfig fields, forward kernels with
+    the backward's recomputes, backward kernels)."""
+    fwd = {"mh_network": 2 * n, "segment_attention": n + 1,
+           "hyper_apply": 4 * n}
+    bwd = {"mh_network_bwd": 2 * n, "segment_attention_bwd": n + 1,
+           "hyper_apply_bwd_dhdx": 4 * n, "hyper_apply_bwd_dk": 4 * n,
+           "segment_sum": 2 * n + 1}
+    # the edge HNets add 4 hyper_apply launches a layer to the forward, and
+    # their gathers 2 segment sums to the backward; the last layer's edge
+    # update feeds nothing and is skipped, so n - 1 layers add them
+    hyper_edge = ({**fwd, "hyper_apply": 8 * n - 4},
+                  {**bwd, "hyper_apply_bwd_dhdx": 8 * n - 4,
+                   "hyper_apply_bwd_dk": 8 * n - 4,
+                   "segment_sum": 4 * n - 1})
+    table = (
+        ("update_edges=False", {"update_edges": False}, {}, fwd, bwd),
+        # node layers leave the flat path: segment softmax, dropout and sum
+        # as torch ops, the MH nets on the einsum path; the crystal pool
+        # keeps the segment-attention kernel
+        ("dropout=0.1", {"dropout": 0.1}, {},
+         {**fwd, "mh_network": 0, "segment_attention": 1},
+         {**bwd, "mh_network_bwd": 0, "segment_attention_bwd": 1}),
+        # every node layer's forward runs again in the backward
+        ("remat", {"remat": True}, {},
+         {"mh_network": 4 * n, "segment_attention": 2 * n + 1,
+          "hyper_apply": 8 * n}, bwd),
+        ("hyper_remat", {"hyper_remat": True}, {},
+         {**fwd, "hyper_apply": 8 * n}, bwd),
+        # the einsum path on per-node projections: no mh_network, no node
+        # gather (the crystal pool's stays)
+        ("split_projection", {"split_projection": True}, {},
+         {**fwd, "mh_network": 0},
+         {**bwd, "mh_network_bwd": 0, "segment_sum": 1}),
+        ("--optim SGD", {}, {"optim": "SGD"}, fwd, bwd),
+        ("--optim Adam", {}, {"optim": "Adam"}, fwd, bwd),
+        ("--optim LAMB", {}, {"optim": "LAMB"}, fwd, bwd),
+        ("--acc-batches 2", {}, {"acc_batches": 2}, fwd, bwd),
+        # only the output head trains: no backward reaches a kernel
+        ("--only-residual", {}, {"only_residual": True}, fwd,
+         dict.fromkeys(bwd, 0)),
+        ("--version", {}, {"version": PLUGIN}, fwd, bwd),
+    )
+    return hyper_edge, table
+
+
+PLUGIN_SOURCE = """
+import torch
+
+from cgat_tpu_torch.models import CGAtNet as _Base
+
+
+class CGAtNet(_Base):
+    \"\"\"A model plug-in: the port's CGAtNet, its output head's second
+    column (log_std) clamped to [-10, 10].\"\"\"
+
+    def head(self, crys_fea, *, last_layer=True):
+        out = super().head(crys_fea, last_layer=last_layer)
+        return out if not last_layer else torch.cat(
+            [out[:, :1], out[:, 1:].clamp(-10.0, 10.0)], dim=1)
+"""
 REPLACES = {
     "segment_attention": "cgat_tpu/ops/pallas/segment_attention.py:82",
     "mh_network": "cgat_tpu/ops/pallas/mh_network.py:63",
@@ -152,6 +239,51 @@ def bound(n_bytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hyper_work(b: int, c: int, i: int, o: int) -> dict[str, tuple]:
+    """(bytes, operations) of one call of #5, #6 and #7 on ``b`` rows
+    (hidden width C, I inputs, O outputs): each input read once, each
+    output written once."""
+    f = o * i + o
+    return {"hyper_apply": (2.0 * (b * c + f * c + f + b * i + b * o),
+                            2.0 * b * c * f + 2.0 * b * o * i),
+            "hyper_apply_bwd_dhdx": (
+                2.0 * (2 * b * c + 2 * b * i + b * o + f * c + f),
+                4.0 * b * f * c + 2.0 * b * o * i),
+            "hyper_apply_bwd_dk": (
+                2.0 * (b * c + b * i + b * o + o * i * c) + 4.0 * o * i,
+                2.0 * b * o * i * c)}
+
+
+def hyper_yardsticks(hidden, k, bias, x, g, o) -> dict:
+    """Per kernel, cuBLAS and PyTorch calls computing what #5, #6 and #7
+    compute (several calls, not one: a yardstick the port never calls):
+    P materialised by addmm, bmm of its weight part with x and its tail
+    added (#5); addmm for P, the g product and the sum over o, and
+    [dP | g] @ K materialised (#6); dP materialised, dP^T @ hidden and
+    dP's column sums (#7)."""
+    b, i = x.shape
+    w = o * i
+
+    def fwd():
+        p = torch.addmm(bias, hidden, k.T)
+        y = torch.bmm(p[:, :w].view(b, o, i), x.view(b, i, 1))
+        y.view(b, o) + p[:, w:]
+
+    def dhdx():
+        p = torch.addmm(bias[:w], hidden, k[:w].T)
+        (p.view(b, o, i) * g[:, :, None]).float().sum(1).to(x.dtype)
+        dp = torch.cat([(g[:, :, None] * x[:, None, :]).reshape(b, w), g],
+                       1)
+        torch.matmul(dp, k)
+
+    def dk():
+        dp = (g[:, :, None] * x[:, None, :]).reshape(b, w)
+        torch.matmul(dp.T, hidden)
+        dp.float().sum(0)
+    return {"hyper_apply": fwd, "hyper_apply_bwd_dhdx": dhdx,
+            "hyper_apply_bwd_dk": dk}
 
 
 def launch_counts() -> dict[str, int]:
@@ -371,20 +503,9 @@ def check_kernels(model, batch) -> list[dict]:
         checks = [compare("hyper_apply", hk.hyper_apply(*h_args),
                           hk.hyper_apply_plain(*h_args))]
         C, I, O = hidden.shape[1], hl.in_ch, hl.out_ch
-        F = O * I + O
-        flops = 2.0 * n_nodes * C * F + 2.0 * n_nodes * O * I
-        nbytes = 2.0 * (n_nodes * C + F * C + F + n_nodes * I + n_nodes * O)
-        b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
-        x_h = h_args[3]
-
-        # P materialised by addmm (bf16, B x (O*I + O)), bmm of its weight
-        # part with x, and its tail added: cuBLAS and PyTorch calls, a
-        # yardstick (several calls, not one) the port never calls
-        def cublas_h():
-            p = torch.addmm(last.bias, hidden, last.weight.T)
-            y = torch.bmm(p[:, :O * I].view(n_nodes, O, I),
-                          x_h.view(n_nodes, I, 1))
-            y.view(n_nodes, O) + p[:, O * I:]
+        b_ms, b_by = bound(*hyper_work(n_nodes, C, I, O)["hyper_apply"],
+                           BF16_TENSOR_FLOPS)
+        cublas_h = hyper_yardsticks(*h_args[:4], None, O)["hyper_apply"]
         rows.append({"name": "hyper_apply", "shape": [n_nodes, C, I, O],
                      **checks_row(checks),
                      "ms": time_ms(lambda: hk.hyper_apply(*h_args)),
@@ -575,7 +696,8 @@ def capture_backward_inputs():
     saved tensors, the cotangent and the Function's own settings. The
     segment attention and the gather are recorded once per node count
     (edges -> nodes and atoms -> crystals), since backward runs the crystal
-    pool first."""
+    pool first; the hyper apply also once per row count (nodes, and edges
+    under ``no_hyper=False``)."""
     from cgat_tpu_torch.ops import gather
     from cgat_tpu_torch.ops.kernels import hyper_apply as hk
     from cgat_tpu_torch.ops.kernels import mh_network as mk
@@ -589,14 +711,19 @@ def capture_backward_inputs():
     def recording(key, orig):
         def backward(ctx, g):
             name = key
+            names = [key]
             if key == "gather":
-                name = f"gather_{ctx.num_rows}"
+                names = [f"gather_{ctx.num_rows}"]
             elif key == "segment_attention":
-                name = f"segment_attention_{g.shape[0]}"
-            seen.setdefault(name, {
-                "saved": ctx.saved_tensors, "g": g.contiguous(),
-                **{a: getattr(ctx, a) for a in ("heads", "out_ch", "num_rows")
-                   if hasattr(ctx, a)}})
+                names = [f"segment_attention_{g.shape[0]}"]
+            elif key == "hyper_apply":
+                names.append(f"hyper_apply_{g.shape[0]}")
+            for name in names:
+                seen.setdefault(name, {
+                    "saved": ctx.saved_tensors, "g": g.contiguous(),
+                    **{a: getattr(ctx, a) for a in ("heads", "out_ch",
+                                                    "num_rows")
+                       if hasattr(ctx, a)}})
             return orig(ctx, g)
         return staticmethod(backward)
 
@@ -688,25 +815,16 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
         g = rec["g"]
         b, c = hidden.shape
         i = xh.shape[1]
-        f = k.shape[0]
         args = (hidden, k, bias, xh, g, o)
-        w = o * i
-
-        # P = addmm(bias, hidden, K_w^T), bf16(g P) summed over o, and dh as
-        # a materialised [dP | g] @ K: cuBLAS and PyTorch calls, a yardstick
-        # (several calls, not one) the port never calls
-        def cublas():
-            p = torch.addmm(bias[:w], hidden, k[:w].T)
-            (p.view(b, o, i) * g[:, :, None]).float().sum(1).to(xh.dtype)
-            dp = torch.cat([(g[:, :, None] * xh[:, None, :]).reshape(b, w),
-                            g], 1)
-            torch.matmul(dp, k)
+        work = hyper_work(b, c, i, o)
+        yard = hyper_yardsticks(*args)
+        cublas = yard["hyper_apply_bwd_dhdx"]
+        nbytes, flops = work["hyper_apply_bwd_dhdx"]
         row("hyper_apply_bwd_dhdx", lambda: hk.hyper_apply_bwd_dhdx(*args),
             lambda: hk.hyper_apply_bwd_dhdx_plain(*args),
             hk.hyper_apply_bwd_dhdx(*args),
             hk.hyper_apply_bwd_dhdx_plain(*args), [b, c, i, o],
-            nbytes=2.0 * (2 * b * c + 2 * b * i + b * o + f * c + f),
-            flops=4.0 * b * f * c + 2.0 * b * o * i, peak=BF16_TENSOR_FLOPS,
+            nbytes=nbytes, flops=flops, peak=BF16_TENSOR_FLOPS,
             deterministic=deterministic(
                 "hyper_apply_bwd_dhdx",
                 lambda: hk.hyper_apply_bwd_dhdx(*args)),
@@ -718,20 +836,12 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             device_split=kernel_device_ms(
                 lambda: hk.hyper_apply_bwd_dhdx(*args), split=True))
         args = (hidden, xh, g, o)
-
-        # dP materialised, dP^T @ hidden and dP's column sums: cuBLAS and
-        # PyTorch calls, a yardstick (several calls, not one) the port
-        # never calls
-        def cublas_dk():
-            dp = (g[:, :, None] * xh[:, None, :]).reshape(b, w)
-            torch.matmul(dp.T, hidden)
-            dp.float().sum(0)
+        cublas_dk = yard["hyper_apply_bwd_dk"]
+        nbytes, flops = work["hyper_apply_bwd_dk"]
         row("hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args),
             lambda: hk.hyper_apply_bwd_dk_plain(*args),
             hk.hyper_apply_bwd_dk(*args), hk.hyper_apply_bwd_dk_plain(*args),
-            [b, c, i, o],
-            nbytes=2.0 * (b * c + b * i + b * o + o * i * c) + 4.0 * o * i,
-            flops=2.0 * b * o * i * c, peak=BF16_TENSOR_FLOPS,
+            [b, c, i, o], nbytes=nbytes, flops=flops, peak=BF16_TENSOR_FLOPS,
             deterministic=deterministic(
                 "hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args)),
             cublas_ms=time_ms(cublas_dk),
@@ -923,11 +1033,11 @@ def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
 
 
 
-def cli_call(name: str, main, argv: list[str], want: dict[str, int]
-             ) -> tuple[dict[str, int], str]:
+def cli_call(name: str, main, argv: list[str], want: dict[str, int],
+             phase: int = 5) -> tuple[dict[str, int], str]:
     """One CLI entry point in this process: counts set to 0 just before,
     read just after and held to ``want``; returns them and its stdout."""
-    progress(f"phase 5: {name}")
+    progress(f"phase {phase}: {name}")
     reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -1078,7 +1188,9 @@ def cli(tmp: str) -> tuple[dict, dict]:
                 for r in epochs + resumed],
         test=test_m, checkpoint_mb=size / 2 ** 20,
         checkpoint_save_ms=float(np.median(save_ms)),
-        checkpoint_load_ms=float(np.median(load_ms)), launches=total)
+        checkpoint_load_ms=float(np.median(load_ms)), launches=total,
+        data_path=data, steps_per_epoch=steps, val_batches=evals,
+        test_batches=-(-len(test) // N_GRAPHS))
     for r in stats["epochs"]:
         print(f"[cli] epoch {r['epoch']:.0f}: {r['epoch_time'] * 1e3:.0f} ms "
               f"wall, {r['graphs_per_sec']:.1f} graphs/s, train loss "
@@ -1087,6 +1199,251 @@ def cli(tmp: str) -> tuple[dict, dict]:
           f"save {stats['checkpoint_save_ms']:.1f} ms, load into the trainer "
           f"{stats['checkpoint_load_ms']:.1f} ms (medians of 3); best and "
           f"last load")
+    return stats, total
+
+
+def check_hyper_kernels_at_edge_rows(rec) -> dict[str, dict]:
+    """#5, #6 and #7 against their plain versions on one edge HNet's
+    recorded inputs and cotangent (E rows), two launches bit-identical,
+    timed beside their bounds and the yardsticks of phases 2 and 4. The
+    plain versions hold P (E x 16,512) in f32, about 1.2 GB at E =
+    18,432: one call at a time."""
+    from cgat_tpu_torch.ops.kernels import hyper_apply as hk
+    hidden, k, bias, x = rec["saved"]
+    g, o = rec["g"], rec["out_ch"]
+    b, c = hidden.shape
+    i = x.shape[1]
+    work = hyper_work(b, c, i, o)
+    yard = hyper_yardsticks(hidden, k, bias, x, g, o)
+    calls = {
+        "hyper_apply": (lambda: (hk.hyper_apply(hidden, k, bias, x, o),),
+                        lambda: (hk.hyper_apply_plain(hidden, k, bias, x,
+                                                      o),)),
+        "hyper_apply_bwd_dhdx": (
+            lambda: hk.hyper_apply_bwd_dhdx(hidden, k, bias, x, g, o),
+            lambda: hk.hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, g, o)),
+        "hyper_apply_bwd_dk": (
+            lambda: hk.hyper_apply_bwd_dk(hidden, x, g, o),
+            lambda: hk.hyper_apply_bwd_dk_plain(hidden, x, g, o))}
+    rows = {}
+    with torch.no_grad():
+        for name, (fn, plain) in calls.items():
+            checks = [compare(f"{name} (E rows)", a, p)
+                      for a, p in zip(fn(), plain())]
+            b_ms, b_by = bound(*work[name], BF16_TENSOR_FLOPS)
+            r = rows[name] = {
+                "shape": [b, c, i, o], **checks_row(checks),
+                "deterministic": deterministic(f"{name} (E rows)", fn),
+                "ms": time_ms(fn), "device_ms": kernel_device_ms(fn),
+                "plain_ms": time_ms(plain, reps=3, windows=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "cublas_ms": time_ms(yard[name], reps=5),
+                "cublas_device_ms": kernel_device_ms(yard[name], n_runs=3)}
+            torch.cuda.empty_cache()
+            print(f"[variants] {name} at {b} edge rows (C {c}, I {i}, O "
+                  f"{o}): max_abs_err {r['max_abs_err']:.3e}, norm-wise "
+                  f"{r['rel_norm_err']:.3e}, two launches bit-identical, "
+                  f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
+                  f"bound {b_ms:.4f} ms ({b_by}), plain "
+                  f"{r['plain_ms']:.4f} ms, yardstick {r['cublas_ms']:.4f} "
+                  f"ms (device {fmt_ms(r['cublas_device_ms'])})")
+    return rows
+
+
+def variant_steps(name, trainer, n_steps, want_fwd, want_bwd, seen=None
+                  ) -> list[float]:
+    """``n_steps`` training steps of ``trainer``, each with its kernel
+    launches held to ``want_fwd`` and ``want_bwd`` (counts set to 0 just
+    before the step, read just after) and a finite loss."""
+    loader = trainer.loader(trainer.train_graphs, shuffle=True)
+    want = {**dict.fromkeys(launch_counts(), 0), **want_fwd, **want_bwd}
+    losses = []
+    with (capture_backward_inputs() if seen is not None
+          else contextlib.nullcontext({})) as rec:
+        for i, batch in zip(range(n_steps), loader):
+            reset_counts()
+            loss = trainer.train_step(batch)["loss"]
+            torch.cuda.synchronize()
+            got = launch_counts()
+            if got != want:
+                fail(f"{name}, step {i}: kernel launches {got} != {want}")
+            if not torch.isfinite(loss):
+                fail(f"{name}, step {i}: non-finite loss {float(loss)}")
+            losses.append(float(loss))
+    if seen is not None:
+        seen.update(rec)
+    return losses
+
+
+def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
+    """Phase 6: the model variants and trainer options at full width.
+
+    1. The hyper-edge model (``no_hyper=False``, seeded weights) in a
+       ``Trainer`` at phase 4's shapes: checked steps with exact launches,
+       its card busy time and device events a step, and #5, #6 and #7 held
+       against their plain versions on an edge HNet's recorded inputs
+       (E rows); its bf16 forward against the CPU's at 8 crystals.
+    2. ``cli.train --hyper-edges --smoke-test`` on phase 5's prepared data,
+       then ``cli.evaluate`` on its run, each with exact launches.
+    3. Each variant of ``variant_launches``: ``N_VARIANT_STEPS`` steps of the
+       reference-default model from phase 2's weights, each with a finite
+       loss and exact launches.
+    Returns the phase's numbers and every kernel's launches in it."""
+    from cgat_tpu_torch.cli import evaluate as cli_evaluate
+    from cgat_tpu_torch.cli import train as cli_train
+    from cgat_tpu_torch.data import collate
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    from cgat_tpu_torch.models import CGAtNet
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+
+    total = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for key, v in counts.items():
+            total[key] += v
+
+    stats: dict = {}
+    (he_fwd, he_bwd), table = variant_launches(cfg.n_graph)
+    graphs = random_graphs(100, N_TRAIN_GRAPHS, n_atoms_range=(8, 16),
+                           max_nbr=24, full_degree=True)
+    tcfg = TrainerConfig(batch_size=N_GRAPHS, moment_dtype="bfloat16")
+
+    # 1. the hyper-edge model at phase 4's shapes
+    progress("phase 6: hyper-edge model")
+    hcfg = dataclasses.replace(cfg, no_hyper=False)
+    trainer = Trainer(tcfg, hcfg, graphs, device="cuda")
+    trainer.init_state()
+    seen: dict = {}
+    losses = variant_steps("hyper-edge", trainer, N_CHECKED_STEPS, he_fwd,
+                           he_bwd, seen)
+    add({k: v * N_CHECKED_STEPS for k, v in {**he_fwd, **he_bwd}.items()})
+    rows_seen = sorted(int(key.rsplit("_", 1)[1]) for key in seen
+                       if key.startswith("hyper_apply_"))
+    if not rows_seen or rows_seen[-1] < MIN_EDGE_ROWS:
+        fail(f"no edge HNet backward of at least {MIN_EDGE_ROWS} rows was "
+             f"recorded (row counts {rows_seen})")
+    edge_rows = check_hyper_kernels_at_edge_rows(
+        seen[f"hyper_apply_{rows_seen[-1]}"])
+    seen.clear()
+    batch = next(iter(trainer.loader(trainer.train_graphs,
+                                     shuffle=True))).to("cuda")
+
+    def one_step():
+        loss, _ = trainer.forward_loss(batch)
+        trainer.backward(loss)
+        trainer.apply_update()
+
+    torch.cuda.reset_peak_memory_stats()      # the steps', not the checks'
+    one_step()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    per_name = device_ms(one_step, 3)
+    wall = float(np.median(walls))
+    busy = sum(v[0] for v in per_name.values()) if per_name else None
+    events = sum(v[1] for v in per_name.values()) if per_name else None
+    stats["hyper_edge"] = {
+        "edge_slots": int(batch.num_edge_slots),
+        "node_slots": int(batch.num_node_slots), "losses": losses,
+        "step_ms": wall, "device_busy_ms": busy, "device_events": events,
+        "device_idle_share": None if busy is None else 1.0 - busy / wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "top_device_ms": None if not per_name else [
+            [k[:70], v[0], v[1]] for k, v in sorted(
+                per_name.items(), key=lambda kv: -kv[1][0])[:8]],
+        "edge_rows": edge_rows}
+    print(f"[variants] hyper-edge model, {int(batch.num_node_slots)} node "
+          f"and {int(batch.num_edge_slots)} edge slots: losses "
+          f"{[round(v, 5) for v in losses]}; one step on a resident batch "
+          f"{wall:.2f} ms, device busy {fmt_ms(busy)} in "
+          f"{events if events is None else round(events)} device events")
+    for name, ms, count in stats["hyper_edge"]["top_device_ms"] or []:
+        print(f"[variants]   {ms:8.4f} ms  {count:5.0f} x  {name}")
+
+    # its bf16 forward on the card against the CPU's, at a small batch
+    small = random_graphs(7, N_CPU_CHECK_GRAPHS, n_atoms_range=(8, 16),
+                          max_nbr=24, full_degree=True)
+    sb = collate(small, max_nbr=24, node_bucket=64, orig_fea=200)
+    cpu_model = CGAtNet(hcfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               trainer.model.state_dict().items()})
+    trainer.model.eval()
+    with torch.inference_mode():
+        got = trainer.model(sb.to("cuda")).cpu()
+        t0 = time.perf_counter()
+        want = cpu_model.eval()(sb)
+    cpu_s = time.perf_counter() - t0
+    trainer.model.train()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not torch.allclose(
+            got, want, rtol=MODEL_RTOL, atol=MODEL_RTOL * scale):
+        fail(f"hyper-edge model, card vs CPU forward: max abs diff "
+             f"{err:.3e} (max|out| {scale:.3e})")
+    stats["hyper_edge"].update(cpu_check_abs_err=err, cpu_check_s=cpu_s)
+    print(f"[variants] hyper-edge model, card vs CPU bf16 forward on "
+          f"{N_CPU_CHECK_GRAPHS} crystals: max abs diff {err:.3e}, max|out| "
+          f"{scale:.3e} (rtol {MODEL_RTOL}, atol {MODEL_RTOL} x max|out|); "
+          f"the CPU forward took {cpu_s:.1f} s")
+    del trainer, cpu_model, batch
+    torch.cuda.empty_cache()
+
+    # 2. the CLIs with --hyper-edges on phase 5's prepared data
+    steps, evals_val = data["steps_per_epoch"], data["val_batches"]
+
+    def want(fwd_n, bwd_n):
+        return {**dict.fromkeys(total, 0),
+                **{k: v * fwd_n for k, v in he_fwd.items()},
+                **{k: v * bwd_n for k, v in he_bwd.items()}}
+
+    logs = os.path.join(tmp, "logs")
+    run = os.path.join(logs, "runs", "hyper_edges")
+    add(cli_call("cli.train --hyper-edges --smoke-test", cli_train.main,
+                 ["--data-path", data["data_path"], "--target", "e_above_hull",
+                  "--smoke-test", "--hyper-edges", "--ckpt-dir", logs,
+                  "--run-name", "hyper_edges"],
+                 want(2 * steps + evals_val, 2 * steps), phase=6)[0])
+    finite_metrics(os.path.join(run, "metrics.jsonl"))
+    counts, out = cli_call("cli.evaluate (hyper edges)", cli_evaluate.main,
+                           [run], want(data["test_batches"], 0), phase=6)
+    add(counts)
+    stats["hyper_edge_cli_test"] = json.loads(out.strip().splitlines()[-1])
+    if not all(math.isfinite(v) for v in stats["hyper_edge_cli_test"].values()):
+        fail(f"cli.evaluate --hyper-edges: non-finite metrics "
+             f"{stats['hyper_edge_cli_test']}")
+
+    # 3. the other variants from phase 2's weights
+    with open(os.path.join(tmp, f"{PLUGIN}.py"), "w") as fh:
+        fh.write(PLUGIN_SOURCE)
+    sys.path.insert(0, tmp)
+    try:
+        stats["variants"] = {}
+        for name, mkw, tkw, fwd, bwd in table:
+            progress(f"phase 6: {name}")
+            vcfg = dataclasses.replace(cfg, **mkw)
+            sd = state_dict if vcfg.update_edges else {
+                k: v for k, v in state_dict.items() if ".Edge." not in k}
+            t0 = time.perf_counter()
+            trainer = Trainer(dataclasses.replace(tcfg, **tkw), vcfg, graphs,
+                              device="cuda")
+            trainer.init_state(sd)
+            losses = variant_steps(name, trainer, N_VARIANT_STEPS, fwd, bwd)
+            add({k: v * N_VARIANT_STEPS for k, v in {**fwd, **bwd}.items()})
+            if tkw.get("version") and type(trainer.model).__module__ != PLUGIN:
+                fail(f"--version built {type(trainer.model).__module__}")
+            stats["variants"][name] = {"losses": losses,
+                                       "s": time.perf_counter() - t0}
+            print(f"[variants] {name}: {N_VARIANT_STEPS} steps, losses "
+                  f"{[round(v, 5) for v in losses]}, launches a step "
+                  f"{ {**fwd, **bwd} }")
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        sys.path.remove(tmp)
     return stats, total
 
 
@@ -1167,7 +1524,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         progress(f"phase 5: cli in {tmp}")
         cli_stats, cli_launches = cli(tmp)
-    progress("phase 6: report")
+        progress("phase 6: variants")
+        var_stats, var_launches = variants(tmp, cfg, state_dict, cli_stats)
+    progress("phase 7: report")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1180,10 +1539,14 @@ def main() -> int:
                                   **stats}}))
     print(json.dumps({"training": train_stats}))
     print(json.dumps({"cli": cli_stats}))
+    print(json.dumps({"variants": var_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
-    # cli phase
+    # cli phase, variants_launches in the variants phase's checked steps
+    # and CLI calls; edge_rows: #5 to #7 at the hyper-edge model's edge
+    # rows
+    edge_rows = var_stats["hyper_edge"]["edge_rows"]
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": f"cgat_tpu_torch/csrc/{SOURCES[r['name']]}.cu",
                 "replaces": REPLACES[r["name"]],
@@ -1191,6 +1554,7 @@ def main() -> int:
                              else train_launches)[r["name"]],
                 "train_launches": train_launches[r["name"]],
                 "cli_launches": cli_launches[r["name"]],
+                "variants_launches": var_launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "tolerance": KERNEL_TOL,
                 "rel_norm_err": r["rel_norm_err"], "norm_tolerance": NORM_TOL,
                 "checks": r["checks"],
@@ -1201,7 +1565,9 @@ def main() -> int:
                 **{k: r[k] for k in ("cublas_ms", "cublas_device_ms",
                                      "library_device_ms",
                                      "deterministic", "device_split")
-                   if k in r}}
+                   if k in r},
+                **({"edge_rows": edge_rows[r["name"]]}
+                   if r["name"] in edge_rows else {})}
                for r in rows + train_rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

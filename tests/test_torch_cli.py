@@ -24,7 +24,7 @@ from cgat_tpu_torch.cli import train as cli_train
 from cgat_tpu_torch.data.structures import random_structures
 from cgat_tpu_torch.models import CGATConfig, state_dict_from_jax
 from cgat_tpu_torch.training import (MetricsLogger, Trainer, TrainerConfig,
-                                     load_trainer)
+                                     load_trainer, resume_trainer)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 # Start torch's CPU thread pool now: its first parallel kernel after JAX's
@@ -273,10 +273,6 @@ def test_cli_flags_equal_cgat_tpu(argv):
 @pytest.mark.parametrize("argv,slice_", [
     (["--devices", "2"], "slice 4"), (["--gpus", "4"], "slice 4"),
     (["--edge-shards", "2"], "slice 4"), (["--streaming"], "slice 5"),
-    (["--optim", "LAMB"], "slice 3b"), (["--acc-batches", "2"], "slice 3b"),
-    (["--only-residual"], "slice 3b"), (["--version", "m"], "slice 3b"),
-    (["--hyper-edges"], "slice 3b"), (["--no-update-edges"], "slice 3b"),
-    (["--update_edges"], "slice 3b"), (["--remat"], "slice 3b"),
     (["--steps-per-dispatch", "2"], "slice 3b"),
     (["--profile-epoch", "0"], "slice 9"),
 ])
@@ -320,3 +316,84 @@ def test_metrics_logger_warns_without_tensorboard(tmp_path, monkeypatch,
     rec = json.loads((tmp_path / "metrics.jsonl").read_text())
     assert rec.keys() == {"step", "time", "epoch", "train_loss"}
     assert (rec["step"], rec["train_loss"]) == (3, 0.5)
+
+
+PLUGIN = """
+from cgat_tpu_torch.models import CGAtNet as _Base
+
+
+class CGAtNet(_Base):
+    \"\"\"A model plug-in: the port's CGAtNet with its output halved.\"\"\"
+
+    def head(self, crys_fea, *, last_layer=True):
+        return super().head(crys_fea, last_layer=last_layer) * 0.5
+"""
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--optim", "LAMB"], "optim", "LAMB"),
+    (["--acc-batches", "2"], "acc_batches", 2),
+    (["--only-residual"], "only_residual", True),
+    (["--version", "cli_plugin_model"], "version", "cli_plugin_model"),
+    (["--hyper-edges"], "no_hyper", False),
+    (["--no-update-edges"], "update_edges", False),
+    (["--update_edges"], "update_edges", False),
+    (["--remat"], "remat", True),
+])
+def test_ported_flags_reach_the_config_and_train(argv, field, value,
+                                                 prepared, tmp_path,
+                                                 monkeypatch):
+    """Each flag of a trainer option or model variant sets its config field
+    as cgat_tpu's CLI sets it, and a tiny CPU run with it trains,
+    validates and checkpoints; the run's checkpoint rebuilds the same
+    model class (the plug-in's under ``--version``)."""
+    (tmp_path / "cli_plugin_model.py").write_text(PLUGIN)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    jp, p = _parsers()
+    args, jargs = p.parse_args(argv), jp.parse_args(argv)
+    tcfg, mcfg = common.configs_from_args(args)
+    jcfgs = jcommon.configs_from_args(jargs)
+    cfg = tcfg if hasattr(tcfg, field) else mcfg
+    assert getattr(cfg, field) == value
+    assert getattr(jcfgs[0 if cfg is tcfg else 1], field) == value
+    assert tcfg.momentum == jcfgs[0].momentum
+    assert cli_train.main(["--data-path", str(prepared), "--smoke-test",
+                           "--ckpt-dir", str(tmp_path), "--run-name", "r",
+                           *TINY_FLAGS, *argv]) == 0
+    run = tmp_path / "runs" / "r"
+    recs = _metrics(run)
+    assert recs and all(np.isfinite(v) for r in recs for v in r.values())
+    trainer, _ = load_trainer(str(run), device="cpu")
+    assert getattr(trainer.cfg if cfg is tcfg else trainer.model_cfg,
+                   field) == value
+    assert type(trainer.model).__module__ == (
+        "cli_plugin_model" if field == "version"
+        else "cgat_tpu_torch.models.cgat")
+
+
+def test_resume_is_exact_for_lamb_with_accumulation(prepared, tmp_path):
+    """LAMB with 3 mini-steps an update, 4 steps an epoch: 3 epochs
+    straight, and 2 then ``--ckp`` to 3, log the same metrics; the
+    checkpoint is taken 2 mini-steps into an accumulation, which the
+    resume continues (LAMB with 2 resumed at an odd step:
+    ``tests/test_torch_training.py::test_dropout_masks_replay_on_resume``)."""
+    flags = ["--data-path", str(prepared), "--learning-rate", "1e-3",
+             "--ckpt-dir", str(tmp_path), "--optim", "LAMB",
+             "--acc-batches", "3", *TINY_FLAGS]
+    assert cli_train.main([*flags, "--run-name", "straight",
+                           "--epochs", "3"]) == 0
+    assert cli_train.main([*flags, "--run-name", "split",
+                           "--epochs", "2"]) == 0
+    run = tmp_path / "runs" / "split"
+    trainer, _ = resume_trainer(str(run), device="cpu")
+    assert trainer.opt.mini_step == 2 and trainer.step == 8
+    assert trainer.opt.inner.count == 2
+    assert cli_train.main(["--ckp", str(run), "--epochs", "3",
+                           "--device", "cpu"]) == 0
+    straight, split = (_metrics(tmp_path / "runs" / name)
+                       for name in ("straight", "split"))
+    assert [m["step"] for m in split] == [m["step"] for m in straight]
+    for a, b in zip(split, straight, strict=True):
+        for k in a:
+            if k.startswith(("train_", "val_")):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)

@@ -576,3 +576,72 @@ def test_cli_train_and_resume_on_card(dev, tmp_path):
             (run / "metrics.jsonl").read_text().splitlines()]
     assert [r["epoch"] for r in recs if "train_loss" in r] == [0, 1, 2]
     assert all(np.isfinite(v) for r in recs for v in r.values())
+
+
+@pytest.mark.parametrize("rows", [18432, 19968])
+def test_hyper_apply_kernels_at_edge_rows(dev, rows):
+    """The hyper-edge model's edge HNets at the reference width: 24 edge
+    rows a node slot at 768 and 832 node slots, C = I = O = 128, 144 and
+    156 row tiles, so the persistent forward and dh/dx kernels each walk
+    several units a CTA. Forward, dh/dx and dK against their plain
+    versions, and the same bits in two launches."""
+    c = i = o = 128
+    g = torch.Generator(device=dev).manual_seed(11)
+    hidden = torch.randn(rows, c, generator=g, device=dev).tanh().bfloat16()
+    k = (torch.randn(o * i + o, c, generator=g, device=dev)
+         * (0.1 * (2 / c) ** 0.5)).bfloat16()
+    bias = (torch.rand(o * i + o, generator=g, device=dev) * 0.1).bfloat16()
+    x = torch.randn(rows, i, generator=g, device=dev).bfloat16()
+    cot = torch.randn(rows, o, generator=g, device=dev).bfloat16()
+    got = hyper_apply.hyper_apply(hidden, k, bias, x, o)
+    _close(got, hyper_apply.hyper_apply_plain(hidden, k, bias, x, o),
+           torch.bfloat16)
+    assert torch.equal(hyper_apply.hyper_apply(hidden, k, bias, x, o), got)
+    got = hyper_apply.hyper_apply_bwd_dhdx(hidden, k, bias, x, cot, o)
+    want = hyper_apply.hyper_apply_bwd_dhdx_plain(hidden, k, bias, x, cot, o)
+    for a, b in zip(got, want):
+        _close(a, b, torch.bfloat16)
+    del want
+    again = hyper_apply.hyper_apply_bwd_dhdx(hidden, k, bias, x, cot, o)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    got = hyper_apply.hyper_apply_bwd_dk(hidden, x, cot, o)
+    want = hyper_apply.hyper_apply_bwd_dk_plain(hidden, x, cot, o)
+    _close(got[0], want[0], torch.bfloat16)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    again = hyper_apply.hyper_apply_bwd_dk(hidden, x, cot, o)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_hyper_edge_train_step_launch_counts(dev):
+    """One bf16 training step of the 2-layer hyper-edge model on the card:
+    the first layer's edge HNets and gathers (the last layer's edge update
+    feeds nothing and is skipped) add 4 hyper_apply launches to the
+    forward and 4 dh/dx, 4 dK and 2 segment sums to the backward;
+    the loss agrees with the CPU's and the grads are finite."""
+    graphs = random_graphs(2, 30, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    cfg = TrainerConfig(batch_size=6, node_bucket=16, max_nbr=16,
+                        moment_dtype="bfloat16", optim="LAMB")
+    mcfg = CGATConfig(**SMALL, compute_dtype="bfloat16", no_hyper=False)
+    cpu = Trainer(cfg, mcfg, graphs, device="cpu")
+    card = Trainer(cfg, mcfg, graphs, device=dev)
+    sd = init_state_dict(cpu.init_state(), seed=0)
+    cpu.init_state(sd)
+    card.init_state(sd)
+    batch = next(iter(cpu.loader(cpu.train_graphs, shuffle=True)))
+    with torch.no_grad():
+        want, _ = cpu.forward_loss(batch)
+    before = _launches()
+    loss, _ = card.forward_loss(batch.to(dev))
+    card.backward(loss)
+    n = mcfg.n_graph
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        "segment_attention": n + 1, "mh_network": 2 * n,
+        "hyper_apply": 8 * n - 4, "segment_attention_bwd": n + 1,
+        "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 8 * n - 4,
+        "hyper_apply_bwd_dk": 8 * n - 4, "segment_sum": 4 * n - 1}
+    grads = [p.grad for p in card.model.parameters() if p.grad is not None]
+    assert torch.isfinite(torch.stack(torch._foreach_norm(grads))).all()
+    card.apply_update()
+    torch.testing.assert_close(loss.detach().cpu(), want, rtol=5e-2,
+                               atol=5e-2)

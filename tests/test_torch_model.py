@@ -18,6 +18,7 @@ from cgat_tpu_torch.data import collate
 from cgat_tpu_torch.data.synthetic import random_graphs
 from cgat_tpu_torch.models import (CGATConfig, CGAtNet, init_state_dict,
                                    state_dict_from_jax)
+from cgat_tpu_torch.models.cgat import dropout
 from cgat_tpu_torch.ops.kernels import hyper_apply, mh_network
 from cgat_tpu_torch.ops.kernels import segment_attention
 
@@ -52,7 +53,14 @@ def _pair(kw, seed=0, n=5, atoms=(3, 7), bucket=8):
 
 @pytest.mark.parametrize("variant", [{}, {"vector_attention": False,
                                           "global_vector_attention": False,
-                                          "mean_pooling": True}])
+                                          "mean_pooling": True},
+                                     {"no_hyper": False},
+                                     {"no_hyper": False,
+                                      "vector_attention": False},
+                                     {"update_edges": False},
+                                     {"split_projection": True},
+                                     {"remat": True}, {"hyper_remat": True},
+                                     {"dropout": 0.1}])
 def test_f32_forward_matches_jax(variant):
     kw = {**SMALL, **variant}
     jmodel, params, jbatch, model, batch = _pair(kw)
@@ -173,8 +181,135 @@ def test_init_state_dict_follows_host_init_rules():
             assert v.abs().max() <= 1 / np.sqrt(v.shape[1]), k
 
 
-def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        CGAtNet(CGATConfig(**SMALL, no_hyper=False))
-    with pytest.raises(NotImplementedError):
-        CGAtNet(CGATConfig(**SMALL, update_edges=False))
+def test_bf16_hyper_edge_forward_matches_jax_f32():
+    """``no_hyper=False`` in bf16, 128 wide: every edge row runs the edge
+    HNets (the hyper_apply plain versions on E rows here), held against
+    cgat_tpu's f32 XLA forward on the same weights (ADVICE.md:3) with the
+    bf16 tolerances of the bf16 forward test."""
+    kw = {**BF16, "no_hyper": False}
+    jmodel, params, jbatch, model, batch = _pair(
+        {**kw, "compute_dtype": "float32"}, n=6, atoms=(5, 9))
+    want = np.asarray(jmodel.apply({"params": params}, jbatch), np.float32)
+    cfg = CGATConfig(**kw)
+    bf16 = CGAtNet(cfg)
+    bf16.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
+    with torch.no_grad():
+        got = bf16.to_compute_dtype().eval()(batch)
+    assert got.dtype == torch.float32 and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-2,
+                               atol=5e-2 * np.abs(want).max())
+
+
+def _count_plain(monkeypatch):
+    calls = {}
+    for mod in (mh_network, hyper_apply, segment_attention):
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                real = getattr(mod, name)
+
+                def counted(*a, _real=real, _name=name, **k):
+                    calls[_name] = calls.get(_name, 0) + 1
+                    return _real(*a, **k)
+                monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("variant,extra", [
+    ({"remat": True}, {"mh_network_plain": 2, "segment_attention_plain": 1,
+                       "hyper_apply_plain": 4}),
+    ({"hyper_remat": True}, {"hyper_apply_plain": 4}),
+    ({"no_hyper": False}, {"hyper_apply_plain": 4}),
+])
+def test_variant_grads_and_kernel_calls(variant, extra, monkeypatch):
+    """A bf16 backward of the 128-wide 2-layer model under remat,
+    hyper_remat and no_hyper=False: remat and hyper_remat give the same
+    loss and grads as the default model (the recompute is the same
+    function), and each layer runs ``extra`` more forward plain kernel
+    versions than in the default model's step (the recompute, or the edge
+    HNets: all but the last layer's, whose edge update nothing reads); the
+    edge HNets of a hyper-edge model get finite grads, the last layer's
+    none."""
+    _, params, _, _, batch = _pair(BF16, n=4, atoms=(5, 9))
+    results = {}
+    for name, cfg in (("default", CGATConfig(**BF16)),
+                      ("variant", CGATConfig(**BF16, **variant))):
+        model = CGAtNet(cfg)
+        sd = (state_dict_from_jax(params, cfg)
+              if name == "default" or "no_hyper" not in variant
+              else init_state_dict(model, seed=1))
+        model.load_state_dict(sd, strict=True)
+        calls = _count_plain(monkeypatch)
+        loss = model(batch)[:, 0].float().square().sum()
+        loss.backward()
+        results[name] = (float(loss.detach()), dict(calls),
+                         {n: p.grad for n, p in model.named_parameters()})
+        monkeypatch.undo()
+    (l0, c0, g0), (l1, c1, g1) = results["default"], results["variant"]
+    layers = BF16["n_graph"] - ("no_hyper" in variant)
+    for k in ("mh_network_plain", "segment_attention_plain",
+              "hyper_apply_plain"):
+        assert c1[k] == c0[k] + layers * extra.get(k, 0), (k, c1)
+    if "no_hyper" in variant:
+        edge = [g for n, g in g1.items()
+                if n.startswith("graphs.0.Edge.Pooling_NN.")]
+        assert np.isfinite(l1) and edge and all(
+            g is not None and torch.isfinite(g).all() for g in edge)
+        assert all(g is None for n, g in g1.items()
+                   if n.startswith("graphs.1.Edge."))
+        return
+    assert l1 == l0
+    for n, g in g0.items():
+        assert (g is None) == (g1[n] is None), n
+        if g is not None:
+            assert torch.equal(g, g1[n]), n
+
+
+def test_dropout_keep_rate_scaling_and_replay():
+    """Kept with probability 1 - p and scaled by 1/(1 - p); the same
+    (seed, step, site) draws the same mask and another step another one;
+    p = 0 in training and any p in eval give the default forward's bits.
+    The masks cannot be JAX's bit for bit (torch's Philox generator, not
+    JAX's threefry), so a training forward under dropout is not held
+    against cgat_tpu; its eval forward is, in
+    ``test_f32_forward_matches_jax``."""
+    x = torch.ones(200_000)
+    y = dropout(x, 0.25, (0, 7, 3))
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.75) < 0.005
+    assert torch.equal(y[kept], torch.full_like(y[kept], 1 / 0.75))
+    assert torch.equal(y, dropout(x, 0.25, (0, 7, 3)))
+    assert not torch.equal(y, dropout(x, 0.25, (0, 8, 3)))
+    assert not torch.equal(y, dropout(x, 0.25, (1, 7, 3)))
+    _, params, _, _, batch = _pair(SMALL)
+    outs = {}
+    for p, mode in ((0.0, "eval"), (0.0, "train"), (0.3, "eval"),
+                    (0.3, "train")):
+        cfg = CGATConfig(**SMALL, dropout=p)
+        model = CGAtNet(cfg)
+        model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
+        model.train(mode == "train")
+        with torch.no_grad():
+            outs[p, mode] = model(batch, dropout_key=(0, 5))
+    assert torch.equal(outs[0.0, "train"], outs[0.0, "eval"])
+    assert torch.equal(outs[0.3, "eval"], outs[0.0, "eval"])
+    assert not torch.equal(outs[0.3, "train"], outs[0.0, "eval"])
+    with pytest.raises(ValueError, match="dropout_key"):
+        model(batch)
+
+
+def test_node_only_layout_and_converter():
+    """``update_edges=False``: ``graphs.{i}.Node`` only, which JAX's
+    node-only tree maps to with strict loading; a JAX tree with an Edge
+    subtree for such a config raises."""
+    kw = {**SMALL, "update_edges": False}
+    _, params, _, model, _ = _pair(kw)
+    keys = list(model.state_dict())
+    assert not any(".Edge." in k for k in keys)
+    assert any(k.startswith("graphs.1.Node.") for k in keys)
+    _, full, _, _, _ = _pair(SMALL)
+    with pytest.raises(ValueError, match="graph_0_Edge"):
+        state_dict_from_jax(full, CGATConfig(**kw))
+    sd = init_state_dict(CGAtNet(CGATConfig(**SMALL, no_hyper=False)))
+    assert sd["graphs.0.Edge.Pooling_NN.Hyper.layers.3.hypo_params.net.4"
+              ".weight"].shape == (8 * 8 + 8, 8)
+    assert "graphs.1.Edge.Pooling_NN.damping" in sd

@@ -33,12 +33,9 @@ def _signature(n):
             "files": {"cpu": f"fn_c{C}_n{n}_cpu.bin"}}
 
 
-@pytest.fixture(scope="module")
-def artifact(tmp_path_factory):
+def _write_artifact(out, cfg):
     """An artifact directory written the way export_artifact writes one
     (the JAX fn_*.bin modules are not needed by the port)."""
-    out = tmp_path_factory.mktemp("artifact")
-    cfg = JConfig(**KW)
     model = JNet(cfg)
     example = jcollate(jrandom_graphs(0, 2, max_nbr=4, orig_fea=16),
                        max_nbr=4, node_bucket=8)
@@ -52,6 +49,11 @@ def artifact(tmp_path_factory):
                 "signatures": [_signature(16), _signature(32)]}
     (out / "manifest.json").write_text(json.dumps(manifest))
     return str(out), model, params
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    return _write_artifact(tmp_path_factory.mktemp("artifact"), JConfig(**KW))
 
 
 def _jax_predict(model, params, graphs):
@@ -87,6 +89,22 @@ def test_predict_matches_jax_in_input_order(artifact):
         np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-5)
     again, _ = served.predict(random_graphs(3, 10, **kw))
     np.testing.assert_array_equal(again, preds)
+
+
+@pytest.mark.parametrize("variant", [{"no_hyper": False},
+                                     {"update_edges": False}])
+def test_variant_artifacts_match_jax(variant, tmp_path):
+    """An artifact of a hyper-edge or a node-only model: the manifest's
+    config keeps the variant, and the port predicts what JAX does."""
+    path, model, params = _write_artifact(tmp_path, JConfig(**KW, **variant))
+    served = load_artifact(path, device="cpu")
+    for k, v in variant.items():
+        assert getattr(served.model.config, k) == v
+    kw = dict(n_atoms_range=(2, 7), max_nbr=4, orig_fea=16)
+    got = served.predict(random_graphs(4, 6, **kw), return_embeddings=True)
+    want = _jax_predict(model, params, jrandom_graphs(4, 6, **kw))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
 
 
 def test_predict_rejects_batches_beyond_every_signature(artifact):

@@ -1,6 +1,8 @@
 """The port's training slice against cgat_tpu's trainer, on the CPU: splits,
 loader, losses, schedules, AdamW against optax, and the slice as a whole,
 a 25-step loss curve of the same model, weights and batches."""
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -16,14 +18,17 @@ from cgat_tpu.training import Trainer as JTrainer
 from cgat_tpu.training import TrainerConfig as JTrainerConfig
 from cgat_tpu.training import losses as jlosses
 from cgat_tpu.training import schedules as jschedules
-from cgat_tpu.training.trainer import make_train_step
+from cgat_tpu.training.trainer import make_optimizer as jmake_optimizer
+from cgat_tpu.training.trainer import make_train_step, set_learning_rate
 from cgat_tpu_torch.data.dataset import GraphLoader, split_dataset
 from cgat_tpu_torch.data.synthetic import random_graphs
 from cgat_tpu_torch.models import (CGATConfig, init_state_dict,
                                    state_dict_from_jax)
 from cgat_tpu_torch.ops.kernels import (hyper_apply, mh_network,
                                         segment_attention, segment_sum)
-from cgat_tpu_torch.training import AdamW, Trainer, TrainerConfig
+from cgat_tpu_torch.training import (AdamW, MultiSteps, Trainer,
+                                     TrainerConfig, make_optimizer,
+                                     resume_trainer)
 from cgat_tpu_torch.training import losses, schedules
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -129,6 +134,191 @@ def test_adamw_matches_optax(mu_dtype):
     for m, w in zip(opt.mu, mu):
         np.testing.assert_allclose(m.float().numpy(), np.asarray(w, np.float32),
                                    rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("optim,kw", [
+    ("SGD", dict(weight_decay=0.0)),
+    ("SGD", dict(weight_decay=0.01, momentum=0.5)),
+    ("Adam", dict(weight_decay=0.01)),
+    ("Adam", dict(weight_decay=0.01, moment_dtype="bfloat16")),
+    ("LAMB", dict(weight_decay=0.01)),
+    ("LAMB", dict(weight_decay=0.0)),
+    ("LAMB", dict(weight_decay=0.01, acc_batches=2)),
+    ("Adam", dict(weight_decay=0.01, acc_batches=3)),
+])
+def test_optimizers_match_optax(optim, kw):
+    """SGD, Adam and LAMB against the JAX package's ``make_optimizer``
+    (optax, and ``cgat_tpu.training.lamb``; ``optax.MultiSteps`` under
+    ``acc_batches``): 20 updates of the same parameters with the same
+    gradients, the learning rate changed half way as ``set_learning_rate``
+    changes it (through MultiSteps to the inner optimizer). f32 to 1e-6
+    relative. An all-zero parameter and a zero gradient take LAMB's 1.0
+    trust fallbacks."""
+    rng = np.random.default_rng(2)
+    shapes = [(7, 5), (5,), (1,), (3,)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    params[3][:] = 0.0
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(20)]
+    grads[3][2][:] = 0.0
+    jp = [jnp.asarray(p) for p in params]
+    tx = jmake_optimizer(JTrainerConfig(optim=optim, learning_rate=1e-2,
+                                        **kw), jp)
+    state = tx.init(jp)
+    tp = [torch.tensor(p, requires_grad=True) for p in params]
+    opt = make_optimizer(TrainerConfig(optim=optim, learning_rate=1e-2,
+                                       **kw), tp)
+    inner = opt.inner if kw.get("acc_batches", 1) > 1 else opt
+    assert type(inner).__name__ == optim
+    for i, g in enumerate(grads):
+        lr = 1e-2 if i < 10 else 3e-3
+        state = set_learning_rate(state, lr)
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.lr = lr
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x)
+        opt.step()
+        for p, w in zip(tp, jp):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(w),
+                                       rtol=1e-6, atol=1e-7)
+    if optim == "Adam":
+        assert all(m.dtype == getattr(torch, kw.get("moment_dtype",
+                                                    "float32"))
+                   for m in inner.mu)
+
+
+def test_multisteps_and_optimizer_state_round_trip():
+    """MultiSteps leaves the parameters as they are on all but every k-th
+    mini-step, and every optimizer's state_dict restores into a fresh one
+    that then takes the same next step; state of another optimizer or
+    dtype raises."""
+    rng = np.random.default_rng(3)
+    init = [rng.standard_normal(s).astype(np.float32) for s in [(4, 3), (3,)]]
+    grads = [[rng.standard_normal(p.shape).astype(np.float32) for p in init]
+             for _ in range(7)]
+
+    def build(optim, acc):
+        tp = [torch.tensor(p, requires_grad=True) for p in init]
+        return tp, make_optimizer(TrainerConfig(optim=optim, acc_batches=acc,
+                                                weight_decay=0.01), tp)
+
+    def step(tp, opt, g):
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x)
+        opt.step()
+
+    for optim in ("SGD", "Adam", "AdamW", "LAMB"):
+        tp, opt = build(optim, 3)
+        assert isinstance(opt, MultiSteps)
+        for i, g in enumerate(grads[:5]):
+            before = [p.detach().clone() for p in tp]
+            step(tp, opt, g)
+            same = all(torch.equal(a, b) for a, b in zip(before, tp))
+            assert same == (i % 3 != 2), (optim, i)
+        tp2, opt2 = build(optim, 3)
+        for p, q in zip(tp2, tp):
+            p.data.copy_(q.data)
+        opt2.load_state_dict(opt.state_dict())
+        for g in grads[5:]:
+            step(tp, opt, g)
+            step(tp2, opt2, g)
+        assert all(torch.equal(a, b) for a, b in zip(tp, tp2)), optim
+    _, sgd = build("SGD", 1)
+    _, lamb = build("LAMB", 1)
+    with pytest.raises(ValueError, match="SGD"):
+        lamb.load_state_dict(sgd.state_dict())
+    _, acc = build("LAMB", 2)
+    with pytest.raises(ValueError, match="acc-batches 2"):
+        acc.load_state_dict(lamb.state_dict())
+    state = lamb.state_dict()
+    state["exp_avg"] = [t.to(torch.bfloat16) for t in state["exp_avg"]]
+    with pytest.raises(ValueError, match="bfloat16"):
+        lamb.load_state_dict(state)
+
+
+@pytest.mark.parametrize("tkw", [dict(acc_batches=3),
+                                 dict(only_residual=True),
+                                 dict(optim="LAMB", acc_batches=2),
+                                 dict(no_hyper=False),
+                                 dict(update_edges=False)])
+def test_trainer_variants_match_cgat_tpu(tkw):
+    """9 steps of the f32 tiny model under gradient accumulation, with
+    only the output head training, or as the hyper-edge or node-only
+    model (``tkw``'s CGATConfig fields), from the same weights over the
+    same batches as cgat_tpu's train step: the losses agree to 1e-4
+    relative, a mini-step that emits no update leaves every parameter
+    bit-identical, and under only_residual every parameter outside
+    ``output_nn`` stays bit-identical to its initial value."""
+    model_fields = {f.name for f in dataclasses.fields(CGATConfig)}
+    mkw = {k: v for k, v in tkw.items() if k in model_fields}
+    tkw = {k: v for k, v in tkw.items() if k not in model_fields}
+    graphs = random_graphs(0, 40, **GRAPHS)
+    jt = JTrainer(JTrainerConfig(**TRAIN, **tkw), JConfig(**TINY, **mkw),
+                  jrandom_graphs(0, 40, **GRAPHS))
+    state = jt.init_state()
+    cfg = CGATConfig(**TINY, **mkw)
+    t = Trainer(TrainerConfig(**TRAIN, **tkw), cfg, graphs, device="cpu")
+    t.init_state(state_dict_from_jax(jax.tree.map(np.array, state.params),
+                                     cfg))
+    init = {k: v.clone() for k, v in t.model.state_dict().items()}
+    step = make_train_step(jt.model, jt.tx, jt.criterion, jt.mean, jt.std,
+                           donate=False)
+    batches = list(t.loader(t.train_graphs, shuffle=True))
+    jbatches = list(jt._loader(jt.train_graphs, shuffle=True))
+    acc = tkw.get("acc_batches", 1)
+    got, want = [], []
+    for i in range(9):
+        state, m = step(state, jbatches[i % len(jbatches)])
+        want.append(float(m["loss"]))
+        before = [p.detach().clone() for p in t.model.parameters()]
+        got.append(float(t.train_step(batches[i % len(batches)])["loss"]))
+        unchanged = all(torch.equal(a, b)
+                        for a, b in zip(before, t.model.parameters()))
+        assert unchanged == (i % acc != acc - 1), i
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    if tkw.get("only_residual"):
+        for k, v in t.model.state_dict().items():
+            assert torch.equal(v, init[k]) != k.startswith("output_nn."), k
+        assert all(not p.requires_grad
+                   for n, p in t.model.named_parameters()
+                   if not n.startswith("output_nn."))
+
+
+def test_dropout_masks_replay_on_resume(tmp_path):
+    """Model dropout in training: 3 epochs straight, and 1 epoch then a
+    resume to 3, log the same metrics (the masks come from the seed and
+    the step count, which the checkpoint keeps); the masks change the
+    losses against a dropout-free run; evaluation runs without dropout."""
+    graphs = random_graphs(0, 40, **GRAPHS)
+    mcfg = CGATConfig(**TINY, dropout=0.2)
+    tkw = dict(TRAIN, ckpt_dir=str(tmp_path), epochs=3, optim="LAMB",
+               acc_batches=2, batch_size=10, learning_rate=1e-3)
+    hist = {}
+    for name, cfg, epochs in (("straight", mcfg, 3), ("split", mcfg, 1),
+                              ("plain", CGATConfig(**TINY), 3)):
+        t = Trainer(TrainerConfig(**tkw, run_name=name), cfg, graphs,
+                    device="cpu")
+        hist[name] = t.fit(epochs=epochs)
+    run = tmp_path / "runs" / "split"
+    t, meta = resume_trainer(str(run), graphs=graphs, device="cpu")
+    assert isinstance(t.opt, MultiSteps) and t.opt.mini_step == 1
+    hist["split"] += t.fit(start_epoch=meta["epoch"] + 1,
+                           best_val=meta["best_val"],
+                           plateau_state=meta["plateau"],
+                           last_val_mae=meta["val_mae"])
+    keys = [k for k in hist["straight"][0] if k.startswith(("train_",
+                                                            "val_"))]
+    for a, b in zip(hist["split"], hist["straight"], strict=True):
+        for k in keys:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
+    assert hist["plain"][0]["train_loss"] != hist["straight"][0]["train_loss"]
+    no_drop = Trainer(TrainerConfig(**tkw), CGATConfig(**TINY), graphs,
+                      device="cpu")
+    no_drop.init_state(t.model.state_dict())
+    assert t.model.training
+    assert t.evaluate_split(t.val_graphs) == no_drop.evaluate_split(
+        no_drop.val_graphs)
 
 
 def test_train_steps_match_cgat_tpu():
@@ -244,8 +434,8 @@ def test_bf16_train_step_runs_every_plain_backward(monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     graphs = random_graphs(0, 12, **GRAPHS)
-    for field, value in (("optim", "LAMB"), ("streaming", True),
-                         ("n_devices", 2), ("acc_batches", 2),
+    for field, value in (("flat_optimizer", True), ("streaming", True),
+                         ("n_devices", 2), ("edge_shards", 2),
                          ("steps_per_dispatch", 2)):
         with pytest.raises(NotImplementedError, match=field):
             Trainer(TrainerConfig(**{field: value}), CGATConfig(**TINY),
