@@ -10,8 +10,7 @@ flags, defaults and aliases are the JAX package's, so a command line means
 the same to both; ``--device`` (the CUDA card by default, ``cpu`` on
 request) is the port's own, its counterpart of choosing the JAX platform.
 Flags whose feature is not ported yet (``--devices`` above 1,
-``--edge-shards``, ``--streaming``, ``--steps-per-dispatch``,
-``--profile-epoch``) raise ``NotImplementedError`` naming the slice that
+``--edge-shards``, ``--streaming``, ``--profile-epoch``) raise ``NotImplementedError`` naming the slice that
 brings it, before any data is read.
 """
 from __future__ import annotations
@@ -172,8 +171,6 @@ def device_from_args(args) -> torch.device:
 _NOT_PORTED = (
     ("--edge-shards", "edge_shards", 1, "slice 4 (edge sharding)"),
     ("--streaming", "streaming", False, "slice 5 (streaming and prefetch)"),
-    ("--steps-per-dispatch", "steps_per_dispatch", 1,
-     "slice 3b (launch count: multi-step dispatch)"),
     ("--profile-epoch", "profile_epoch", -1, "slice 9 (tracing)"),
 )
 

@@ -83,10 +83,21 @@ class CrystalBatch:
     def num_edge_slots(self) -> int:
         return self.edge_src.shape[0]
 
+    def map(self, fn) -> "CrystalBatch":
+        """The batch of ``fn`` applied to every tensor."""
+        return CrystalBatch(**{f.name: fn(getattr(self, f.name))
+                               for f in dataclasses.fields(self)})
+
     def to(self, device) -> "CrystalBatch":
         """The same batch with every tensor on ``device``."""
-        return CrystalBatch(**{f.name: getattr(self, f.name).to(device)
-                               for f in dataclasses.fields(self)})
+        return self.map(lambda t: t.to(device))
+
+    def copy_(self, src: "CrystalBatch") -> "CrystalBatch":
+        """Copy ``src``'s tensors, of the same shapes, into this batch's
+        (in place, in stream order on a card)."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(src, f.name))
+        return self
 
 
 def _round_up(x: int, m: int) -> int:

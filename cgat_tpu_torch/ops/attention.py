@@ -40,7 +40,9 @@ def edge_softmax_aggregate(alpha, m, edge_dst, num_nodes, *, edge_mask=None,
     if edge_mask is not None:
         n_real = edge_mask.sum(dtype=torch.int32)
     else:
-        n_real = torch.tensor(e, dtype=torch.int32, device=m.device)
+        # filled on the device: no host-to-device copy, which a CUDA graph
+        # capture of the step would refuse
+        n_real = torch.full((), e, dtype=torch.int32, device=m.device)
     if offn is None:
         offn = torch.searchsorted(
             edge_dst, torch.arange(num_nodes + 1, dtype=edge_dst.dtype,

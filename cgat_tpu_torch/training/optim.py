@@ -40,10 +40,21 @@ A parameter that got no gradient is updated as if its gradient were
 zero, as JAX's are. Each optimizer's ``state_dict`` holds its count and
 its per-parameter state; ``load_state_dict`` refuses state of another
 optimizer, length, shape or dtype.
+
+What changes from one step to the next and enters the arithmetic, the
+update count (so Adam's bias corrections) and the learning rate, lives on
+the parameters' device as 0-dim tensors (the count int32, as optax keeps
+it, the learning rate f32), so that a CUDA graph of the step (every
+``Trainer.train_step`` on the card) reads each step's values when it is
+replayed: the count is advanced on the device, and the learning rate is
+set between steps with ``fill_``. The constants (b1, b2, eps, momentum,
+weight decay) stay Python scalars: a 0-dim f32 tensor multiplied into a
+bf16 first moment could round it first. ``step`` is ``apply`` (the work on
+the device) then ``advance`` (the host's bookkeeping: ``MultiSteps``'
+mini-step); ``phase`` is what the device work branches on, on the host.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -53,18 +64,13 @@ def _dtype_name(dtype) -> str:
     return _DTYPE_NAMES.get(dtype, str(dtype))
 
 
-class _Optimizer:
-    """What the optimizers share: the parameter list, the learning rate
-    (set between steps), the update count and the per-parameter state
-    lists named by ``_STATE``. ``step`` applies the update for the
-    parameters' ``.grad`` through the subclass's ``update(grads)``, which
-    takes given gradients."""
-    _STATE: tuple[str, ...] = ()
+class _Params:
+    """A parameter list and its gradients: ``_grads`` gives a zero tensor,
+    made once and kept, for a parameter without a gradient."""
+    phase = 0       # the host state ``apply`` branches on: none
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params):
         self.params = list(params)
-        self.lr = lr
-        self.count = 0
         self._zeros: dict[int, torch.Tensor] = {}
 
     def zero_grad(self) -> None:
@@ -83,14 +89,54 @@ class _Optimizer:
         return grads
 
     @torch.no_grad()
-    def step(self) -> None:
+    def apply(self) -> None:
+        """The update for the parameters' ``.grad``, on the device only."""
         self.update(self._grads())
 
-    def state_dict(self) -> dict:
+    def advance(self) -> None:
+        """The host's bookkeeping after ``apply``: nothing here."""
+
+    def step(self) -> None:
+        self.apply()
+        self.advance()
+
+
+class _Optimizer(_Params):
+    """What the optimizers share: the parameter list, the learning rate
+    (set between steps), the update count and the per-parameter state
+    lists named by ``_STATE``. ``step`` applies the update for the
+    parameters' ``.grad`` through the subclass's ``update(grads)``, which
+    takes given gradients."""
+    _STATE: tuple[str, ...] = ()
+
+    def __init__(self, params, lr: float):
+        super().__init__(params)
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self._count = torch.zeros((), dtype=torch.int32, device=dev)
+        self._neg_lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.lr = lr
+
+    @property
+    def lr(self) -> float:
+        return self._lr
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self._lr = float(value)
+        self._neg_lr.fill_(-self._lr)
+
+    @property
+    def count(self) -> int:
+        """The number of updates applied (read from the device)."""
+        return int(self._count)
+
+    def state_dict(self, own: dict | None = None) -> dict:
         """The update count and the per-parameter state (the learning rate
-        is set per epoch and is not part of it)."""
+        is set per epoch and is not part of it). ``own`` gives the state
+        lists in another layout (a flat optimizer's per-parameter views)."""
+        own = own or {name: getattr(self, name) for name in self._STATE}
         return {"optimizer": type(self).__name__, "step": self.count,
-                **{name: list(getattr(self, name)) for name in self._STATE}}
+                **{name: list(own[name]) for name in self._STATE}}
 
     def _check_dtype(self, name: str, own: list, new: list) -> None:
         """Adam's and AdamW's first moment ``mu`` has the dtype the run
@@ -108,17 +154,19 @@ class _Optimizer:
                    f"(TrainerConfig.moment_dtype)" if name == "mu" else ""))
 
     @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
-        """Restore what ``state_dict`` gave. State of another optimizer,
-        or of another dtype than this optimizer keeps, raises before
+    def load_state_dict(self, state: dict, own: dict | None = None) -> None:
+        """Restore what ``state_dict`` gave (into ``own``'s state lists,
+        as in ``state_dict``). State of another optimizer, or of another
+        length, shape or dtype than this optimizer keeps, raises before
         anything is restored."""
+        own_lists = own or {name: getattr(self, name) for name in self._STATE}
         kind = state.get("optimizer", "AdamW")
         if kind != type(self).__name__ or any(n not in state
                                               for n in self._STATE):
             raise ValueError(f"the checkpoint holds {kind} state; this run "
                              f"uses {type(self).__name__} (--optim)")
         for name in self._STATE:
-            own, new = getattr(self, name), state[name]
+            own, new = own_lists[name], state[name]
             if len(new) != len(own):
                 raise ValueError(f"optimizer state holds {len(new)} "
                                  f"{name} tensors, this model has "
@@ -131,9 +179,9 @@ class _Optimizer:
                                      f"{tuple(n.shape)} for a parameter of "
                                      f"shape {tuple(o.shape)}")
         for name in self._STATE:
-            for o, n in zip(getattr(self, name), state[name]):
+            for o, n in zip(own_lists[name], state[name]):
                 o.copy_(n)
-        self.count = int(state["step"])
+        self._count.fill_(int(state["step"]))
 
 
 class _AdamBase(_Optimizer):
@@ -151,16 +199,15 @@ class _AdamBase(_Optimizer):
                        for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
 
-    def _bias_correction(self, decay: float) -> float:
-        """``1 - decay**count`` in f32, as optax computes it."""
-        return float(np.float32(1) - np.float32(decay) ** np.int32(self.count))
-
     def _adam(self, grads):
         """The Adam direction u for ``grads``, and mu's new f32 value (to
-        be stored once the update is formed)."""
-        self.count += 1
-        bc1 = self._bias_correction(self.b1)
-        bc2 = self._bias_correction(self.b2)
+        be stored once the update is formed). The bias corrections
+        ``1 - decay**count`` are f32 on the device, as optax computes
+        them."""
+        self._count.add_(1)
+        count = self._count.to(torch.float32)
+        bc1 = 1.0 - torch.pow(self.b1, count)
+        bc2 = 1.0 - torch.pow(self.b2, count)
         torch._foreach_mul_(self.mu, self.b1)
         mu = torch._foreach_mul(grads, 1 - self.b1)
         torch._foreach_add_(mu, self.mu)
@@ -189,7 +236,7 @@ class AdamW(_AdamBase):
         update, mu = self._adam(grads)
         torch._foreach_add_(update,
                             torch._foreach_mul(self.params, self.weight_decay))
-        torch._foreach_mul_(update, -self.lr)
+        torch._foreach_mul_(update, self._neg_lr)
         torch._foreach_add_(self.params, update)
         torch._foreach_copy_(self.mu, mu)
 
@@ -207,7 +254,7 @@ class Adam(_AdamBase):
         grads = torch._foreach_add(
             grads, torch._foreach_mul(self.params, self.weight_decay))
         update, mu = self._adam(grads)
-        torch._foreach_mul_(update, -self.lr)
+        torch._foreach_mul_(update, self._neg_lr)
         torch._foreach_add_(self.params, update)
         torch._foreach_copy_(self.mu, mu)
 
@@ -227,13 +274,13 @@ class SGD(_Optimizer):
 
     @torch.no_grad()
     def update(self, grads) -> None:
-        self.count += 1
+        self._count.add_(1)
         if self.weight_decay != 0:
             grads = torch._foreach_add(
                 grads, torch._foreach_mul(self.params, self.weight_decay))
         trace = torch._foreach_mul(self.trace, self.momentum)
         torch._foreach_add_(trace, grads)
-        update = torch._foreach_mul(trace, -self.lr)
+        update = torch._foreach_mul(trace, self._neg_lr)
         torch._foreach_add_(self.params, update)
         torch._foreach_copy_(self.trace, trace)
 
@@ -254,7 +301,7 @@ class LAMB(_Optimizer):
 
     @torch.no_grad()
     def update(self, grads) -> None:
-        self.count += 1
+        self._count.add_(1)
         torch._foreach_mul_(self.exp_avg, self.b1)
         torch._foreach_add_(self.exp_avg, torch._foreach_mul(grads,
                                                              1 - self.b1))
@@ -274,7 +321,7 @@ class LAMB(_Optimizer):
         trust = w_norm / (s_norm + self.eps)
         trust = torch.where(w_norm == 0.0, one, trust)
         trust = torch.where(s_norm == 0.0, one, trust)
-        torch._foreach_mul_(step, list((-self.lr * trust).unbind()))
+        torch._foreach_mul_(step, list((self._neg_lr * trust).unbind()))
         torch._foreach_add_(self.params, step)
 
 
@@ -282,7 +329,8 @@ class MultiSteps:
     """``optax.MultiSteps(inner, k)``: gradients averaged over k
     mini-steps (a running mean) and handed to ``inner`` every k-th one; in
     between the parameters do not change. ``lr`` is the inner
-    optimizer's."""
+    optimizer's. The mini-step is host state: ``apply`` branches on it and
+    divides by it, so a CUDA graph of the step holds for one ``phase``."""
 
     def __init__(self, inner: _Optimizer, k: int):
         self.inner = inner
@@ -303,18 +351,28 @@ class MultiSteps:
     def lr(self, value: float) -> None:
         self.inner.lr = value
 
+    @property
+    def phase(self) -> int:
+        return self.mini_step
+
     def zero_grad(self) -> None:
         self.inner.zero_grad()
 
     @torch.no_grad()
-    def step(self) -> None:
+    def apply(self) -> None:
         delta = torch._foreach_sub(self.inner._grads(), self.acc)
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
         if self.mini_step == self.k - 1:
             self.inner.update(self.acc)
             torch._foreach_zero_(self.acc)
+
+    def advance(self) -> None:
         self.mini_step = (self.mini_step + 1) % self.k
+
+    def step(self) -> None:
+        self.apply()
+        self.advance()
 
     def state_dict(self) -> dict:
         return {"optimizer": "MultiSteps", "mini_step": self.mini_step,

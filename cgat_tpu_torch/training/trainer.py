@@ -17,10 +17,23 @@ to ``metrics.jsonl`` (and TensorBoard on request) and keeps the top-1
 ``val_mae`` checkpoint ``best`` and the crash-safe ``last``, from which
 ``resume_trainer`` continues a run exactly.
 
+SGD, Adam and AdamW always run over the small parameters flattened
+(``training/flatten.py``: the same bits, a fifth of the tensors), so
+``flat_optimizer`` is kept for the JAX package's configs and has no
+effect. On the card every training step is a replay of a CUDA graph of
+the whole step, one per batch shape signature and optimizer phase
+(``training/dispatch.py``), the counterpart of the JAX package's jitted
+step; on the CPU, and on the card under model dropout (whose masks come
+from host generators, which a replay would repeat), it is an eager step.
+``steps_per_dispatch`` K groups K batches padded to one shape
+(``parallel.ParallelLoader``) and runs them as K steps in one call
+(``train_group``); the trajectory is that of K single steps. Model
+dropout with K > 1 raises.
+
 Not ported yet, each named by the ``TrainerConfig`` field that asks for it
 (which raises ``NotImplementedError`` with the slice that brings it):
-streaming and prefetch, ``steps_per_dispatch``, ``flat_optimizer``, the
-parallel and edge-sharded trainers, and profiling.
+streaming and prefetch, the parallel and edge-sharded trainers, and
+profiling.
 """
 from __future__ import annotations
 
@@ -41,9 +54,12 @@ from ..data.dataset import GraphLoader, load_dataset_dir, split_dataset
 from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.init import init_state_dict
+from ..parallel import ParallelLoader
 from ..utils.profiling import ThroughputMeter
 from . import losses as L
 from . import schedules
+from .dispatch import StepGraphs
+from .flatten import FlatLayout, FlatOptimizer
 from .optim import LAMB, SGD, Adam, AdamW, MultiSteps, project_params
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -101,6 +117,8 @@ class TrainerConfig:
     nan_guard: bool = True
     steps_per_dispatch: int = 1
     version: str = ""
+    # the JAX package's flag; no effect here: make_optimizer flattens
+    # wherever the update is elementwise
     flat_optimizer: bool = False
     # parallelism
     n_devices: int = 1
@@ -111,9 +129,6 @@ class TrainerConfig:
 _NOT_PORTED = (
     ("streaming", False, "slice 5 (streaming and prefetch)"),
     ("profile_epoch", -1, "slice 9 (tracing)"),
-    ("steps_per_dispatch", 1, "slice 3b (launch count: multi-step "
-                              "dispatch)"),
-    ("flat_optimizer", False, "slice 3b (launch count: flat optimizer)"),
     ("n_devices", 1, "slice 4 (data parallel)"),
     ("edge_shards", 1, "slice 4 (edge sharding)"),
 )
@@ -127,9 +142,10 @@ def _check_ported(cfg: TrainerConfig) -> None:
                 f"yet; it comes with {where}")
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"moment_dtype must be one of {list(_MOMENT_DTYPES)}")
-    if cfg.acc_batches < 1:
-        raise ValueError(f"acc_batches must be at least 1, not "
-                         f"{cfg.acc_batches}")
+    for field in ("acc_batches", "steps_per_dispatch"):
+        if getattr(cfg, field) < 1:
+            raise ValueError(f"{field} must be at least 1, not "
+                             f"{getattr(cfg, field)}")
 
 
 def make_optimizer(cfg: TrainerConfig, params):
@@ -137,22 +153,34 @@ def make_optimizer(cfg: TrainerConfig, params):
     (lightning_module.py:306-355) over ``params``: SGD with momentum
     (weight decay in front only when it is not 0), Adam (coupled weight
     decay), AdamW or LAMB, with the first moment of Adam and AdamW in
-    ``moment_dtype``; wrapped in :class:`MultiSteps` when ``acc_batches``
-    is above 1. Under ``only_residual`` the caller passes the output
-    head's parameters only (``multi_transform`` with ``set_to_zero`` for
-    the rest: no update, no weight decay, no state)."""
+    ``moment_dtype``; SGD, Adam and AdamW over the small parameters
+    flattened (:class:`FlatOptimizer`, which makes them views into flat
+    vectors: the same bits over a fifth of the tensors) whatever
+    ``flat_optimizer`` says, except under ``only_residual``, as in the JAX
+    package (LAMB's trust ratio is per tensor); wrapped in
+    :class:`MultiSteps` when ``acc_batches`` is above 1. Under
+    ``only_residual`` the caller passes the output head's parameters only
+    (``multi_transform`` with ``set_to_zero`` for the rest: no update, no
+    weight decay, no state)."""
     mu_dtype = _MOMENT_DTYPES[cfg.moment_dtype]
     lr, wd = cfg.learning_rate, cfg.weight_decay
+    params = list(params)
+    layout = None
+    if cfg.optim in ("SGD", "Adam", "AdamW") and not cfg.only_residual:
+        layout = FlatLayout(params)
+    inner = params if layout is None else layout.inner
     if cfg.optim == "SGD":
-        opt = SGD(params, lr, momentum=cfg.momentum, weight_decay=wd)
+        opt = SGD(inner, lr, momentum=cfg.momentum, weight_decay=wd)
     elif cfg.optim == "Adam":
-        opt = Adam(params, lr, weight_decay=wd, mu_dtype=mu_dtype)
+        opt = Adam(inner, lr, weight_decay=wd, mu_dtype=mu_dtype)
     elif cfg.optim == "AdamW":
-        opt = AdamW(params, lr, weight_decay=wd, mu_dtype=mu_dtype)
+        opt = AdamW(inner, lr, weight_decay=wd, mu_dtype=mu_dtype)
     elif cfg.optim == "LAMB":
-        opt = LAMB(params, lr, weight_decay=wd)
+        opt = LAMB(inner, lr, weight_decay=wd)
     else:
         raise NameError("Only SGD, Adam, AdamW, LAMB are allowed as optim")
+    if layout is not None:
+        opt = FlatOptimizer(params, opt, layout)
     return MultiSteps(opt, cfg.acc_batches) if cfg.acc_batches > 1 else opt
 
 
@@ -237,6 +265,12 @@ class Trainer:
                  graphs=None, *, mean: float | None = None,
                  std: float | None = None, device=None):
         _check_ported(cfg)
+        if cfg.steps_per_dispatch > 1 and model_cfg.dropout > 0:
+            raise NotImplementedError(
+                f"dropout {model_cfg.dropout} with steps_per_dispatch "
+                f"{cfg.steps_per_dispatch} is not ported yet: the masks come "
+                f"from host generators, which a replayed step would repeat; "
+                f"it comes with device-side dropout masks (ROADMAP queue 1)")
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
@@ -244,6 +278,9 @@ class Trainer:
         self.model: CGAtNet | None = None
         self.opt = None
         self.step = 0
+        # the CUDA graphs of the step (dispatch.StepGraphs), made at the
+        # first training step on the card
+        self.step_graphs: StepGraphs | None = None
         self._plateau = None
         if graphs is not None:
             self._setup_data(graphs)
@@ -296,6 +333,7 @@ class Trainer:
             params = [p for p in params if p.requires_grad]
         self.opt = make_optimizer(self.cfg, params)
         self.step = 0
+        self.step_graphs = None
         n_params = sum(p.numel() for p in model.parameters())
         print(f"this model has {n_params:d} parameters")
         return self.model
@@ -306,6 +344,15 @@ class Trainer:
                            seed=cfg.seed, max_nbr=cfg.max_nbr,
                            node_bucket=cfg.node_bucket,
                            num_comp_slots=cfg.num_comp_slots)
+
+    def grouped_loader(self, graphs) -> ParallelLoader:
+        """The shuffled training loader of groups of
+        ``steps_per_dispatch`` batches padded to one shape."""
+        cfg = self.cfg
+        return ParallelLoader(graphs, cfg.batch_size, cfg.steps_per_dispatch,
+                              shuffle=True, seed=cfg.seed, max_nbr=cfg.max_nbr,
+                              node_bucket=cfg.node_bucket,
+                              num_comp_slots=cfg.num_comp_slots)
 
     # -------------------------------------------------------------- step
 
@@ -321,19 +368,50 @@ class Trainer:
         self.opt.zero_grad()
         loss.backward()
 
-    def apply_update(self) -> None:
-        self.opt.step()
+    def _update_on_device(self) -> None:
+        self.opt.apply()
         project_params(self.model)
+
+    def _advance(self) -> None:
+        """The host's part of a step: the optimizer's bookkeeping and the
+        step count."""
+        self.opt.advance()
         self.step += 1
+
+    def apply_update(self) -> None:
+        self._update_on_device()
+        self._advance()
+
+    def _step_on_device(self, batch: CrystalBatch) -> dict:
+        """A step's work on the device, host state untouched (what a CUDA
+        graph of the step captures)."""
+        loss, metrics = self.forward_loss(batch)
+        self.backward(loss)
+        self._update_on_device()
+        return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, batch: CrystalBatch) -> dict:
         """One optimisation step; returns the step's metrics as device
-        scalars (read them on the host only where needed)."""
+        scalars (read them on the host only where needed). On a CUDA card
+        without model dropout, a replay of the step's CUDA graph for the
+        batch's shapes and the optimizer's phase (captured after the
+        first, eager, step of each); else an eager step."""
         batch = batch.to(self.device)
-        loss, metrics = self.forward_loss(batch)
-        self.backward(loss)
-        self.apply_update()
-        return {k: v.detach() for k, v in metrics.items()}
+        if self.device.type == "cuda" and not self.model_cfg.dropout:
+            if self.step_graphs is None:
+                self.step_graphs = StepGraphs(self.device)
+            return self.step_graphs.step(batch, self.opt.phase,
+                                         self._step_on_device, self._advance)
+        metrics = self._step_on_device(batch)
+        self._advance()
+        return metrics
+
+    def train_group(self, group: CrystalBatch) -> list[dict]:
+        """One step per batch of a stacked group (``grouped_loader``), in
+        one call; returns each step's metrics as device scalars."""
+        group = group.to(self.device)
+        return [self.train_step(group.map(lambda t: t[i]))
+                for i in range(group.target.shape[0])]
 
     # --------------------------------------------------------------- fit
 
@@ -371,7 +449,9 @@ class Trainer:
             self._plateau = plateau
             lr_of_epoch = lambda e, m: cfg.learning_rate * (
                 plateau.step(m) if m is not None else plateau.scale)
-        loader = self.loader(self.train_graphs, shuffle=True)
+        grouped = cfg.steps_per_dispatch > 1
+        loader = (self.grouped_loader(self.train_graphs) if grouped
+                  else self.loader(self.train_graphs, shuffle=True))
         history, val_mae, vals_since_last = [], last_val_mae, 0
         try:
             for epoch in range(start_epoch, epochs):
@@ -380,8 +460,12 @@ class Trainer:
                 meter = ThroughputMeter()
                 steps = []
                 for batch in loader:
-                    steps.append(self.train_step(batch))
-                    meter.update(**loader.last_counts)
+                    if grouped:
+                        steps += self.train_group(batch)
+                    else:
+                        steps.append(self.train_step(batch))
+                    meter.update(**loader.last_counts,
+                                 steps=cfg.steps_per_dispatch)
                 if not steps:
                     raise RuntimeError("training split smaller than one "
                                        "batch")

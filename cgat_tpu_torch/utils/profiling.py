@@ -20,8 +20,8 @@ class ThroughputMeter:
         self.edges = 0
         self.graphs = 0
 
-    def update(self, *, edges: int = 0, graphs: int = 0):
-        self.steps += 1
+    def update(self, *, edges: int = 0, graphs: int = 0, steps: int = 1):
+        self.steps += steps
         self.edges += edges
         self.graphs += graphs
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Seven phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Eight phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -47,16 +47,19 @@ failure exits non-zero:
    reference-default model at full width and depth, bf16, batch 64: 2
    epochs of 4 steps), ``cli.evaluate``, ``cli.predict`` with and without
    ``--embeddings``, then ``cli.train --ckp <run> --epochs 3``, which must
-   start at epoch 2. Each call must launch each kernel exactly the count
-   its steps and evaluation batches imply, every metric and output must
-   be finite, and ``best`` and ``last`` must load; it prints the
+   start at epoch 2. Each training step on the card replays its batch
+   shape's CUDA graph, and a shape's first step runs eagerly and is then
+   captured, each calling every kernel wrapper once: each call must
+   launch each kernel exactly the count its captures (``cli_graph_keys``)
+   and evaluation batches imply, every metric and output must be finite, and ``best`` and ``last`` must load; it prints the
    featurisation ms per structure, each epoch's wall time and graphs/s
    (``metrics.jsonl``) and the checkpoint's save and load ms;
 6. variants: the hyper-edge model (``no_hyper=False``, the reference
    width and depth, bf16) takes 3 checked steps of 64 crystals in a
-   ``Trainer``, each launching exactly 10/6/36 forward and 10/6/36/36/19
-   backward kernels (the last layer's edge update feeds nothing and is
-   skipped); the card's busy time and device events of one of
+   ``Trainer`` (``train_step``), each launching exactly 10/6/36 forward
+   and 10/6/36/36/19 backward kernels twice when it captures a graph and
+   never when it replays one (the last layer's edge update feeds nothing
+   and is skipped); the card's busy time and device events of one of
    its steps; hyper_apply and its two backward kernels held against their
    plain versions on an edge HNet's recorded inputs (at least 18,432 edge
    rows), bit-identical in two launches and timed beside their bounds and
@@ -67,11 +70,25 @@ failure exits non-zero:
    ``hyper_remat``, ``split_projection``, ``--optim SGD|Adam|LAMB``,
    ``--acc-batches 2``, ``--only-residual`` and a ``--version`` plug-in
    written to the temporary directory, each with a finite loss and its
-   own exact launches (``variant_launches``);
-7. report the card, and the eight kernels as one JSON line (with their
+   own exact launches (``variant_launches``; dropout's steps are eager,
+   once each);
+7. dispatch: ``TrainerConfig(steps_per_dispatch=4)`` on phase 4's model
+   and traffic, each step of a group a replay of a CUDA graph of the
+   step: the replayed steps' losses equal eager steps' bit for bit on the
+   same groups; the flat AdamW every run uses and AdamW on the parameters
+   as they are give the same bits after one update from the same
+   gradients; a replayed step launches
+   exactly 10/6/20 forward and 10/6/20/20/11 backward kernels (device
+   events by kernel name, from the profiler: a replay calls no wrapper);
+   eager and replayed step times, the card's busy time, idle share and
+   device events a step, the optimizers' host ms and
+   ``multi_tensor_apply`` launches, capture seconds and peak memory; then
+   ``cli.train --steps-per-dispatch 2 --smoke-test`` on phase 5's data;
+8. report the card, and the eight kernels as one JSON line (with their
    launches in phases 5 and 6 as ``cli_launches`` and
-   ``variants_launches``, and #5 to #7 at the edge rows as
-   ``edge_rows``); the last line is ``{"ok": true, "device": {...}}``.
+   ``variants_launches``, a replayed step's as ``replay_launches``, and
+   #5 to #7 at the edge rows as ``edge_rows``); the last line is
+   ``{"ok": true, "device": {...}}``.
 
 Each phase's start goes to stderr with the seconds since start, so a run
 that is stopped shows how far it got; past ``WATCHDOG_S`` seconds the
@@ -121,6 +138,21 @@ N_VARIANT_STEPS = 2
 N_CPU_CHECK_GRAPHS = 8         # crystals of the hyper-edge CPU cross-check
 MIN_EDGE_ROWS = 18432          # edge rows #5 to #7 are held at, at least
 PLUGIN = "chip_smoke_plugin"   # the --version module the variants phase writes
+N_DISPATCH = 4                 # steps a dispatch in phase 7
+N_DISPATCH_CHECKED = 2         # groups held graph against eager
+N_DISPATCH_TIMED = 20          # resident steps timed on each path
+N_DISPATCH_LOOP = 6            # groups timed with their collate and copy
+# a substring of the name of the device kernel each wrapper launches (a
+# fixed number of times a call): phase 7 counts a replayed step's launches
+# by these names
+REPLAY_KERNELS = {"segment_attention": "segment_attention_fwd",
+                  "mh_network": "sm90::gemm_kernel<",
+                  "hyper_apply": "fwd::kernel(",
+                  "segment_attention_bwd": "segment_attention_bwd",
+                  "mh_network_bwd": "pass_a::kernel(",
+                  "hyper_apply_bwd_dhdx": "dhdx::bwd_kernel(",
+                  "hyper_apply_bwd_dk": "dk::kernel(",
+                  "segment_sum": "segment_sum_kernel"}
 
 
 def variant_launches(n: int):
@@ -205,6 +237,15 @@ SOURCES = {"segment_attention": "segment_attention", "mh_network": "mh_network",
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=120)
+    return smi.stdout.strip().splitlines()[0]
 
 
 _T0 = time.perf_counter()
@@ -719,8 +760,12 @@ def capture_backward_inputs():
             elif key == "hyper_apply":
                 names.append(f"hyper_apply_{g.shape[0]}")
             for name in names:
+                # detached: a saved tensor's autograd graph would outlive
+                # the step (and hold its AccumulateGrad nodes' stream)
                 seen.setdefault(name, {
-                    "saved": ctx.saved_tensors, "g": g.contiguous(),
+                    "saved": tuple(None if t is None else t.detach()
+                                   for t in ctx.saved_tensors),
+                    "g": g.contiguous(),
                     **{a: getattr(ctx, a) for a in ("heads", "out_ch",
                                                     "num_rows")
                        if hasattr(ctx, a)}})
@@ -1066,6 +1111,45 @@ def finite_metrics(path: str) -> list[dict]:
     return recs
 
 
+def cli_graph_keys(argv: list[str], epochs) -> tuple[int, int]:
+    """What ``cli.train argv`` does in ``epochs``: the CUDA graphs it
+    captures (one per batch shape signature among its training batches;
+    one optimizer phase) and the training steps it takes."""
+    import argparse
+
+    from cgat_tpu_torch.cli import common as cli_common
+    from cgat_tpu_torch.training import Trainer
+    from cgat_tpu_torch.training.dispatch import signature
+
+    p = argparse.ArgumentParser()
+    cli_common.add_trainer_args(p)
+    cli_common.add_model_args(p)
+    cli_common.add_device_arg(p)
+    tcfg, mcfg = cli_common.configs_from_args(p.parse_args(argv))
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe = Trainer(tcfg, mcfg, device="cuda")
+    k = tcfg.steps_per_dispatch
+    loader = (probe.grouped_loader(probe.train_graphs) if k > 1
+              else probe.loader(probe.train_graphs, shuffle=True))
+    sigs, steps = set(), 0
+    for e in epochs:
+        loader.set_epoch(e)
+        for b in loader:
+            sigs.add(signature(b.map(lambda t: t[0]) if k > 1 else b))
+            steps += k
+    return len(sigs), steps
+
+
+def eager_step(trainer, batch) -> dict:
+    """One eager training step of ``trainer`` on a batch on the card: the
+    work a CUDA graph of the step captures, which ``train_step`` replays;
+    returns its metrics."""
+    loss, metrics = trainer.forward_loss(batch)
+    trainer.backward(loss)
+    trainer.apply_update()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 def cli(tmp: str) -> tuple[dict, dict]:
     """Phase 5: prepare -> train -> evaluate -> predict -> resume through
     the CLIs' ``main``; returns the phase's numbers and every kernel's
@@ -1126,11 +1210,14 @@ def cli(tmp: str) -> tuple[dict, dict]:
 
     logs = os.path.join(tmp, "logs")
     run = os.path.join(logs, "runs", "cli")
+    argv = ["--data-path", data, "--target", "e_above_hull", "--smoke-test",
+            "--ckpt-dir", logs, "--run-name", "cli"]
+    # each training step a replay of its shape's CUDA graph, each shape's
+    # first step eager and then captured: the wrappers count those two
+    keys, _ = cli_graph_keys(argv, range(2))
     # epochs 0 and 1, validated after epoch 1 (every second epoch)
-    add(cli_call("cli.train --smoke-test", cli_train.main,
-                 ["--data-path", data, "--target", "e_above_hull",
-                  "--smoke-test", "--ckpt-dir", logs, "--run-name", "cli"],
-                 want(2 * steps + evals, 2 * steps))[0])
+    add(cli_call("cli.train --smoke-test", cli_train.main, argv,
+                 want(2 * keys + evals, 2 * keys))[0])
     epochs = [r for r in finite_metrics(os.path.join(run, "metrics.jsonl"))
               if "train_loss" in r]
     counts, out = cli_call("cli.evaluate", cli_evaluate.main, [run],
@@ -1153,10 +1240,11 @@ def cli(tmp: str) -> tuple[dict, dict]:
     if emb.shape != (n, 640) or not np.isfinite(emb).all():
         fail(f"cli.predict --embeddings: embeddings not finite with shape "
              f"({n}, 640)")
-    # epoch 2 only, not validated
+    # epoch 2 only, not validated, in a new trainer with graphs of its own
+    keys_2, _ = cli_graph_keys(argv, [2])
     counts, out = cli_call("cli.train --ckp", cli_train.main,
                            ["--ckp", run, "--epochs", "3"],
-                           want(steps, steps))
+                           want(2 * keys_2, 2 * keys_2))
     add(counts)
     resumed = [r for r in finite_metrics(os.path.join(run, "metrics.jsonl"))
                if "train_loss" in r][len(epochs):]
@@ -1190,11 +1278,13 @@ def cli(tmp: str) -> tuple[dict, dict]:
         checkpoint_save_ms=float(np.median(save_ms)),
         checkpoint_load_ms=float(np.median(load_ms)), launches=total,
         data_path=data, steps_per_epoch=steps, val_batches=evals,
-        test_batches=-(-len(test) // N_GRAPHS))
+        test_batches=-(-len(test) // N_GRAPHS), graph_keys=[keys, keys_2])
     for r in stats["epochs"]:
         print(f"[cli] epoch {r['epoch']:.0f}: {r['epoch_time'] * 1e3:.0f} ms "
               f"wall, {r['graphs_per_sec']:.1f} graphs/s, train loss "
               f"{r['train_loss']:.5f}")
+    print(f"[cli] cli.train captured {keys} step graphs in epochs 0 and 1, "
+          f"the resumed run {keys_2} in epoch 2 (one a batch shape)")
     print(f"[cli] test {test_m}; checkpoint {stats['checkpoint_mb']:.1f} MiB: "
           f"save {stats['checkpoint_save_ms']:.1f} ms, load into the trainer "
           f"{stats['checkpoint_load_ms']:.1f} ms (medians of 3); best and "
@@ -1250,29 +1340,46 @@ def check_hyper_kernels_at_edge_rows(rec) -> dict[str, dict]:
     return rows
 
 
+def graph_keys(trainer) -> int:
+    """The CUDA graphs of the step ``trainer`` has captured."""
+    return 0 if trainer.step_graphs is None else len(
+        trainer.step_graphs.graphs)
+
+
 def variant_steps(name, trainer, n_steps, want_fwd, want_bwd, seen=None
-                  ) -> list[float]:
-    """``n_steps`` training steps of ``trainer``, each with its kernel
-    launches held to ``want_fwd`` and ``want_bwd`` (counts set to 0 just
-    before the step, read just after) and a finite loss."""
+                  ) -> tuple[list[float], dict[str, int]]:
+    """``n_steps`` training steps of ``trainer`` (``train_step``), each
+    with a finite loss and its kernel launches (counts set to 0 just
+    before the step, read just after) held to ``want_fwd`` and
+    ``want_bwd`` once for an eager step (dropout), twice for a step whose
+    key is new (its eager first step, then the capture) and never for a
+    replay. Returns the losses and the launches of all the steps."""
     loader = trainer.loader(trainer.train_graphs, shuffle=True)
-    want = {**dict.fromkeys(launch_counts(), 0), **want_fwd, **want_bwd}
+    zero = dict.fromkeys(launch_counts(), 0)
+    total = dict(zero)
     losses = []
     with (capture_backward_inputs() if seen is not None
           else contextlib.nullcontext({})) as rec:
         for i, batch in zip(range(n_steps), loader):
+            keys = graph_keys(trainer)
             reset_counts()
             loss = trainer.train_step(batch)["loss"]
             torch.cuda.synchronize()
             got = launch_counts()
+            times = (1 if trainer.step_graphs is None
+                     else 2 * (graph_keys(trainer) - keys))
+            want = {**zero, **{k: v * times for k, v in
+                               {**want_fwd, **want_bwd}.items()}}
             if got != want:
                 fail(f"{name}, step {i}: kernel launches {got} != {want}")
             if not torch.isfinite(loss):
                 fail(f"{name}, step {i}: non-finite loss {float(loss)}")
             losses.append(float(loss))
+            for k, v in got.items():
+                total[k] += v
     if seen is not None:
         seen.update(rec)
-    return losses
+    return losses, total
 
 
 def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
@@ -1314,9 +1421,9 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
     trainer = Trainer(tcfg, hcfg, graphs, device="cuda")
     trainer.init_state()
     seen: dict = {}
-    losses = variant_steps("hyper-edge", trainer, N_CHECKED_STEPS, he_fwd,
-                           he_bwd, seen)
-    add({k: v * N_CHECKED_STEPS for k, v in {**he_fwd, **he_bwd}.items()})
+    losses, counts = variant_steps("hyper-edge", trainer, N_CHECKED_STEPS,
+                                   he_fwd, he_bwd, seen)
+    add(counts)
     rows_seen = sorted(int(key.rsplit("_", 1)[1]) for key in seen
                        if key.startswith("hyper_apply_"))
     if not rows_seen or rows_seen[-1] < MIN_EDGE_ROWS:
@@ -1393,7 +1500,7 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # 2. the CLIs with --hyper-edges on phase 5's prepared data
-    steps, evals_val = data["steps_per_epoch"], data["val_batches"]
+    evals_val = data["val_batches"]
 
     def want(fwd_n, bwd_n):
         return {**dict.fromkeys(total, 0),
@@ -1402,11 +1509,12 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
 
     logs = os.path.join(tmp, "logs")
     run = os.path.join(logs, "runs", "hyper_edges")
+    argv = ["--data-path", data["data_path"], "--target", "e_above_hull",
+            "--smoke-test", "--hyper-edges", "--ckpt-dir", logs,
+            "--run-name", "hyper_edges"]
+    keys, _ = cli_graph_keys(argv, range(2))
     add(cli_call("cli.train --hyper-edges --smoke-test", cli_train.main,
-                 ["--data-path", data["data_path"], "--target", "e_above_hull",
-                  "--smoke-test", "--hyper-edges", "--ckpt-dir", logs,
-                  "--run-name", "hyper_edges"],
-                 want(2 * steps + evals_val, 2 * steps), phase=6)[0])
+                 argv, want(2 * keys + evals_val, 2 * keys), phase=6)[0])
     finite_metrics(os.path.join(run, "metrics.jsonl"))
     counts, out = cli_call("cli.evaluate (hyper edges)", cli_evaluate.main,
                            [run], want(data["test_batches"], 0), phase=6)
@@ -1431,13 +1539,16 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
             trainer = Trainer(dataclasses.replace(tcfg, **tkw), vcfg, graphs,
                               device="cuda")
             trainer.init_state(sd)
-            losses = variant_steps(name, trainer, N_VARIANT_STEPS, fwd, bwd)
-            add({k: v * N_VARIANT_STEPS for k, v in {**fwd, **bwd}.items()})
+            losses, counts = variant_steps(name, trainer, N_VARIANT_STEPS,
+                                           fwd, bwd)
+            add(counts)
             if tkw.get("version") and type(trainer.model).__module__ != PLUGIN:
                 fail(f"--version built {type(trainer.model).__module__}")
             stats["variants"][name] = {"losses": losses,
+                                       "graph_keys": graph_keys(trainer),
                                        "s": time.perf_counter() - t0}
-            print(f"[variants] {name}: {N_VARIANT_STEPS} steps, losses "
+            print(f"[variants] {name}: {N_VARIANT_STEPS} steps "
+                  f"({graph_keys(trainer)} step graphs captured), losses "
                   f"{[round(v, 5) for v in losses]}, launches a step "
                   f"{ {**fwd, **bwd} }")
             del trainer
@@ -1445,6 +1556,284 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
     finally:
         sys.path.remove(tmp)
     return stats, total
+
+
+def kernel_events(per_name: dict) -> dict[str, float]:
+    """Device events a run of each wrapper's kernel (``REPLAY_KERNELS``)
+    in a ``device_ms`` result."""
+    return {w: round(sum(v[1] for k, v in per_name.items() if pat in k), 6)
+            for w, pat in REPLAY_KERNELS.items()}
+
+
+def timed_ms(fn, n: int) -> list[float]:
+    """Host-clock ms of ``n`` calls of ``fn``, each ended by a
+    synchronise."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def flat_against_plain(tcfg, eager, batch) -> dict:
+    """Flat AdamW (``make_optimizer``'s, as in every AdamW run) and AdamW
+    on the parameters as they are (bf16 first moment both) from the same
+    parameters and the same gradients of one real step: the same bits
+    after one update (parameters and state); then each optimizer's host ms
+    to issue an update and wall ms with it done, and its device events a
+    step (``multi_tensor_apply`` launches among them)."""
+    from cgat_tpu_torch.training import make_optimizer
+    from cgat_tpu_torch.training.flatten import FlatOptimizer
+    from cgat_tpu_torch.training.optim import AdamW
+
+    loss, _ = eager.forward_loss(batch)
+    eager.backward(loss)
+    params = list(eager.model.parameters())
+    grads = [None if p.grad is None else p.grad.clone() for p in params]
+    runs = {}
+    for flat in (False, True):
+        ps = [p.detach().clone().requires_grad_() for p in params]
+        opt = (make_optimizer(tcfg, ps) if flat else
+               AdamW(ps, tcfg.learning_rate, weight_decay=tcfg.weight_decay,
+                     mu_dtype=torch.bfloat16))
+        if isinstance(opt, FlatOptimizer) != flat:
+            fail(f"make_optimizer gave {type(opt).__name__} for AdamW")
+        for p, g in zip(ps, grads):
+            p.grad = g
+        opt.step()
+        runs[flat] = ps, opt
+    torch.cuda.synchronize()
+    (pp, popt), (fp, fopt) = runs[False], runs[True]
+    pstate, fstate = popt.state_dict(), fopt.state_dict()
+    if not (all(torch.equal(a, b) for a, b in zip(pp, fp))
+            and all(torch.equal(a, b) for name in ("mu", "nu")
+                    for a, b in zip(pstate[name], fstate[name]))):
+        fail("flat and plain AdamW differ after one update from the same "
+             "gradients")
+    res = {"tensors": len(params), "bit_equal": True}
+    for flat, (ps, opt) in runs.items():
+        issue = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            issue.append((time.perf_counter() - t0) * 1e3)
+        wall = timed_ms(opt.step, 10)
+        per_name = device_ms(opt.step, 3)
+        key = "flat" if flat else "plain"
+        res[key] = {
+            "inner_tensors": len(opt.layout.inner) if flat else len(ps),
+            "host_issue_ms_median": float(np.median(issue)),
+            "wall_ms_median": float(np.median(wall)),
+            "device_busy_ms": sum(v[0] for v in per_name.values()),
+            "device_events": sum(v[1] for v in per_name.values()),
+            "multi_tensor_apply": sum(v[1] for k, v in per_name.items()
+                                      if "multi_tensor_apply" in k)}
+    eager.opt.zero_grad()
+    return res
+
+
+def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
+    """Phase 7: ``steps_per_dispatch`` as CUDA graphs of the training step
+    at full width (phase 4's model, traffic and AdamW with a bf16 first
+    moment, flat as every AdamW; ``TrainerConfig(steps_per_dispatch=4)``).
+
+    1. Two trainers from one state take the same groups of 4 batches,
+       one step by one step eagerly (``eager_step``) and one group by one
+       group (``train_group``: graph replays after each shape's first,
+       eager, step): the losses must be the same bits; the largest
+       parameter difference is printed.
+    2. Flat and plain AdamW take one update from the same gradients: the
+       same bits; their host ms, device events and ``multi_tensor_apply``
+       launches a step.
+    3. The launches a replayed step: each kernel's device events from the
+       profiler, divided by its events a call in an eager step (whose
+       wrapper counts are exact), must be 10/6/20 forward and
+       10/6/20/20/11 backward; a replay calls no wrapper.
+    4. Eager and replayed steps on a resident batch (median and minimum
+       of ``N_DISPATCH_TIMED``), and each path's ms a step over groups
+       collated on the host; the card's busy ms, idle share and device
+       events a step on each path; capture seconds per shape; peak
+       memory.
+    5. ``cli.train --steps-per-dispatch 2 --smoke-test`` on phase 5's data:
+       finite metrics, and the wrapper counts its eager steps and captures
+       imply (the first step of each shape runs eagerly and its capture
+       calls every wrapper once more; evaluation is eager).
+    Returns the phase's numbers and the launches a replayed step."""
+    from cgat_tpu_torch.cli import train as cli_train
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    graphs = random_graphs(100, N_TRAIN_GRAPHS, n_atoms_range=(8, 16),
+                           max_nbr=24, full_degree=True)
+    tcfg = TrainerConfig(batch_size=N_GRAPHS, moment_dtype="bfloat16",
+                         steps_per_dispatch=N_DISPATCH)
+    eager = Trainer(tcfg, cfg, graphs, device="cuda")
+    eager.init_state(state_dict)
+    graph = Trainer(tcfg, cfg, graphs, device="cuda")
+    graph.init_state(state_dict)
+    loader = graph.grouped_loader(graph.train_graphs)
+    epoch = 0
+
+    def next_group():
+        nonlocal epoch
+        loader.set_epoch(epoch)
+        epoch += 1
+        return next(iter(loader))
+
+    def eager_group(gdev):
+        return [eager_step(eager, gdev.map(lambda t: t[i]))
+                for i in range(N_DISPATCH)]
+
+    # 1. graph replays against eager steps on the same groups
+    progress("phase 7: graph against eager steps")
+    got = {"eager": [], "graph": []}
+    for _ in range(N_DISPATCH_CHECKED):
+        group = next_group()
+        gdev = group.to("cuda")
+        got["eager"] += [m["loss"] for m in eager_group(gdev)]
+        got["graph"] += [m["loss"] for m in graph.train_group(group)]
+    losses = {k: [float(x) for x in v] for k, v in got.items()}
+    with torch.no_grad():
+        param_diff = max(float((a - b).abs().max()) for a, b in zip(
+            eager.model.parameters(), graph.model.parameters()))
+    if losses["eager"] != losses["graph"] or not all(
+            map(math.isfinite, losses["graph"])):
+        fail(f"graph-replayed losses {losses['graph']} differ from the "
+             f"eager steps' {losses['eager']} (max parameter difference "
+             f"{param_diff:.3e})")
+    stats: dict = {"steps_per_dispatch": N_DISPATCH,
+                   "checked_steps": len(losses["graph"]),
+                   "losses": losses["graph"],
+                   "max_param_diff": param_diff}
+    print(f"[dispatch] {len(losses['graph'])} steps in groups of "
+          f"{N_DISPATCH}: graph-replayed losses equal the eager steps' bit "
+          f"for bit {[round(v, 5) for v in losses['graph']]}, max parameter "
+          f"difference {param_diff:.3e} ({card})")
+
+    # 2. flat against plain AdamW
+    progress("phase 7: flat optimizer")
+    batch = gdev.map(lambda t: t[0])
+    stats["optimizer"] = opt = flat_against_plain(tcfg, eager, batch)
+    for key in ("plain", "flat"):
+        r = opt[key]
+        print(f"[dispatch] AdamW {key} over {r['inner_tensors']} tensors: "
+              f"host issue {r['host_issue_ms_median']:.2f} ms, wall "
+              f"{r['wall_ms_median']:.2f} ms, device busy "
+              f"{r['device_busy_ms']:.3f} ms in {r['device_events']:.0f} "
+              f"events ({r['multi_tensor_apply']:.0f} multi_tensor_apply) "
+              f"a step ({card})")
+    print(f"[dispatch] flat and plain AdamW (bf16 first moment) give the "
+          f"same bits after one update of {opt['tensors']} parameter "
+          f"tensors")
+
+    # 3. the launches of a replayed step, from the profiler
+    progress("phase 7: launches under replay")
+    reset_counts()
+    eager_prof = device_ms(lambda: eager_step(eager, batch), 3)
+    calls = {k: v / 3 for k, v in launch_counts().items()}
+    want = {**PER_FORWARD, **PER_BACKWARD}
+    if calls != want:
+        fail(f"eager steps launched {calls} a step, not {want}")
+    if not eager_prof:
+        fail("the profiler recorded no device events")
+    per_call = {k: v / calls[k] for k, v in kernel_events(eager_prof).items()}
+    if any(v < 1 or v != round(v) for v in per_call.values()):
+        fail(f"device events a call {per_call} are not whole numbers")
+    reset_counts()
+    replay_prof = device_ms(lambda: graph.train_step(batch), 3)
+    if any(launch_counts().values()):
+        fail(f"a replay called kernel wrappers: {launch_counts()}")
+    replayed = {k: v / per_call[k]
+                for k, v in kernel_events(replay_prof).items()}
+    if replayed != want:
+        fail(f"a replayed step launched {replayed}, not {want}")
+    stats["replay_launches"] = {k: int(v) for k, v in replayed.items()}
+    stats["device_events_a_call"] = per_call
+    print(f"[dispatch] a replayed step launches {stats['replay_launches']} "
+          f"(device events by kernel name, {per_call} a call)")
+
+    # 4. step times, busy time, events, capture, memory
+    progress("phase 7: timing")
+    walls = {"eager": timed_ms(lambda: eager_step(eager, batch),
+                               N_DISPATCH_TIMED),
+             "graph": timed_ms(lambda: graph.train_step(batch),
+                               N_DISPATCH_TIMED)}
+    for name, prof in (("eager", eager_prof), ("graph", replay_prof)):
+        busy = sum(v[0] for v in prof.values())
+        med = float(np.median(walls[name]))
+        stats[name] = {
+            "step_ms_median": med, "step_ms_min": float(np.min(walls[name])),
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / med,
+            "device_events": sum(v[1] for v in prof.values()),
+            "top_device_ms": [[k[:70], v[0], v[1]] for k, v in sorted(
+                prof.items(), key=lambda kv: -kv[1][0])[:8]]}
+    for name, tr in (("eager", eager), ("graph", graph)):
+        per_step = []
+        for _ in range(N_DISPATCH_LOOP):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group = next_group()
+            if name == "graph":
+                tr.train_group(group)
+            else:
+                eager_group(group.to("cuda"))
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3 / N_DISPATCH)
+        stats[name].update(loop_ms_median=float(np.median(per_step)),
+                           loop_ms_min=float(np.min(per_step)))
+    stats["capture_s"] = {str(k[0][0][0]): s for k, s in
+                          graph.step_graphs.capture_s.items()}
+    stats["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("eager", "graph"):
+        r = stats[name]
+        print(f"[dispatch] {name} step on a resident batch: median "
+              f"{r['step_ms_median']:.2f} ms, min {r['step_ms_min']:.2f} ms "
+              f"of {N_DISPATCH_TIMED}; device busy {r['device_busy_ms']:.2f} "
+              f"ms in {r['device_events']:.0f} device events, idle share "
+              f"{r['device_idle_share']:.3f}; with the groups' collate and "
+              f"copy {r['loop_ms_median']:.2f} ms a step (min "
+              f"{r['loop_ms_min']:.2f}, {N_DISPATCH_LOOP} groups) ({card})")
+        for k, ms, count in r["top_device_ms"]:
+            print(f"[dispatch]   {ms:8.4f} ms  {count:5.0f} x  {k}")
+    print(f"[dispatch] capture s by node slots {stats['capture_s']}; peak "
+          f"device memory {stats['peak_memory_gib']:.2f} GiB ({card})")
+    del eager, graph, gdev, batch
+    torch.cuda.empty_cache()
+
+    # 5. the CLI with --steps-per-dispatch 2
+    argv = ["--data-path", data["data_path"], "--target", "e_above_hull",
+            "--smoke-test", "--steps-per-dispatch", "2", "--ckpt-dir",
+            os.path.join(tmp, "logs"), "--run-name", "dispatch"]
+    # 2 epochs; each shape's eager first step and capture call the wrappers
+    keys, steps = cli_graph_keys(argv, range(2))
+    cli_want = {**dict.fromkeys(launch_counts(), 0),
+                **{k: v * (2 * keys + data["val_batches"])
+                   for k, v in PER_FORWARD.items()},
+                **{k: v * 2 * keys for k, v in PER_BACKWARD.items()}}
+    counts, _ = cli_call("cli.train --steps-per-dispatch 2 --smoke-test",
+                         cli_train.main, argv, cli_want, phase=7)
+    recs = [r for r in finite_metrics(os.path.join(
+        tmp, "logs", "runs", "dispatch", "metrics.jsonl"))
+        if "train_loss" in r]
+    if [r["step"] for r in recs] != [steps // 2, steps]:
+        fail(f"cli.train --steps-per-dispatch 2 logged steps "
+             f"{[r['step'] for r in recs]}, not {[steps // 2, steps]}")
+    stats["cli"] = {"steps": steps, "graph_keys": keys,
+                    "epochs": [{k: r[k] for k in ("epoch", "epoch_time",
+                                                  "graphs_per_sec",
+                                                  "train_loss")}
+                               for r in recs]}
+    for r in stats["cli"]["epochs"]:
+        print(f"[dispatch] cli epoch {r['epoch']:.0f}: "
+              f"{r['epoch_time'] * 1e3:.0f} ms wall, "
+              f"{r['graphs_per_sec']:.1f} graphs/s, train loss "
+              f"{r['train_loss']:.5f} ({keys} step graphs captured)")
+    return stats, counts
 
 
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
@@ -1484,8 +1873,10 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+          f"{card}")
 
     progress("phase 1: build the kernels")
     build_kernels()
@@ -1526,13 +1917,11 @@ def main() -> int:
         cli_stats, cli_launches = cli(tmp)
         progress("phase 6: variants")
         var_stats, var_launches = variants(tmp, cfg, state_dict, cli_stats)
-    progress("phase 7: report")
+        progress("phase 7: dispatch")
+        disp_stats, _ = dispatch(tmp, cfg, state_dict, cli_stats, card)
+    progress("phase 8: report")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=120)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
                                   "edge_slots": int(batch0.num_edge_slots),
                                   "node_slots": int(batch0.num_node_slots),
@@ -1540,12 +1929,14 @@ def main() -> int:
     print(json.dumps({"training": train_stats}))
     print(json.dumps({"cli": cli_stats}))
     print(json.dumps({"variants": var_stats}))
+    print(json.dumps({"dispatch": disp_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
     # cli phase, variants_launches in the variants phase's checked steps
-    # and CLI calls; edge_rows: #5 to #7 at the hyper-edge model's edge
-    # rows
+    # and CLI calls, replay_launches in a replayed step of the dispatch
+    # phase (from the profiler); edge_rows: #5 to #7 at the hyper-edge
+    # model's edge rows
     edge_rows = var_stats["hyper_edge"]["edge_rows"]
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": f"cgat_tpu_torch/csrc/{SOURCES[r['name']]}.cu",
@@ -1555,6 +1946,7 @@ def main() -> int:
                 "train_launches": train_launches[r["name"]],
                 "cli_launches": cli_launches[r["name"]],
                 "variants_launches": var_launches[r["name"]],
+                "replay_launches": disp_stats["replay_launches"][r["name"]],
                 "max_abs_err": r["max_abs_err"], "tolerance": KERNEL_TOL,
                 "rel_norm_err": r["rel_norm_err"], "norm_tolerance": NORM_TOL,
                 "checks": r["checks"],

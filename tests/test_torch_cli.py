@@ -273,7 +273,6 @@ def test_cli_flags_equal_cgat_tpu(argv):
 @pytest.mark.parametrize("argv,slice_", [
     (["--devices", "2"], "slice 4"), (["--gpus", "4"], "slice 4"),
     (["--edge-shards", "2"], "slice 4"), (["--streaming"], "slice 5"),
-    (["--steps-per-dispatch", "2"], "slice 3b"),
     (["--profile-epoch", "0"], "slice 9"),
 ])
 def test_flags_not_ported_raise(argv, slice_, tmp_path):
@@ -339,6 +338,7 @@ class CGAtNet(_Base):
     (["--no-update-edges"], "update_edges", False),
     (["--update_edges"], "update_edges", False),
     (["--remat"], "remat", True),
+    (["--steps-per-dispatch", "2"], "steps_per_dispatch", 2),
 ])
 def test_ported_flags_reach_the_config_and_train(argv, field, value,
                                                  prepared, tmp_path,

@@ -645,3 +645,117 @@ def test_hyper_edge_train_step_launch_counts(dev):
     card.apply_update()
     torch.testing.assert_close(loss.detach().cpu(), want, rtol=5e-2,
                                atol=5e-2)
+
+
+def _dispatch_pair(dev, tkw, mkw):
+    """An eager and a graph trainer (``steps_per_dispatch`` 2 unless
+    ``tkw`` says otherwise) of the bf16 2-layer model from one state, and
+    the groups of batches both take."""
+    graphs = random_graphs(3, 60, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    cfg = TrainerConfig(batch_size=6, node_bucket=16, max_nbr=16,
+                        moment_dtype="bfloat16",
+                        **{"steps_per_dispatch": 2, **tkw})
+    mcfg = CGATConfig(**SMALL, compute_dtype="bfloat16", **mkw)
+    pair = [Trainer(cfg, mcfg, graphs, device=dev) for _ in range(2)]
+    sd = init_state_dict(pair[0].init_state(), seed=0)
+    for t in pair:
+        t.init_state(sd)
+    loader = pair[1].grouped_loader(pair[1].train_graphs)
+    groups = []
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        groups += list(loader)
+    return pair, groups
+
+
+def _eager_step(t, batch):
+    """One eager step on the card: the work a graph of the step captures."""
+    loss, metrics = t.forward_loss(batch)
+    t.backward(loss)
+    t.apply_update()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@pytest.mark.parametrize("tkw,mkw", [
+    ({}, {}), ({}, {"remat": True}), ({}, {"hyper_remat": True}),
+    ({"optim": "LAMB", "acc_batches": 2}, {}),
+    ({"optim": "SGD", "acc_batches": 3}, {}),
+    ({"steps_per_dispatch": 1}, {})])
+def test_graph_steps_match_eager_steps(dev, tkw, mkw):
+    """Two epochs of groups of batches, taken one step by one step
+    eagerly and one group by one group through ``train_group`` (every
+    ``train_step`` on the card: each shape's and optimizer phase's first
+    step eager, the rest replays of its CUDA graph), the learning rate
+    changed half way: the same losses and parameters, bit for bit, under
+    remat's checkpoints, MultiSteps' phases and K = 1 too."""
+    (eager, graph), groups = _dispatch_pair(dev, tkw, mkw)
+    got, want = [], []
+    for j, group in enumerate(groups):
+        if j == len(groups) // 2:
+            eager.opt.lr = graph.opt.lr = 1e-3
+        gdev = group.to(dev)
+        k = group.target.shape[0]
+        want += [float(_eager_step(eager, gdev.map(lambda t: t[i]))["loss"])
+                 for i in range(k)]
+        got += [float(m["loss"]) for m in graph.train_group(group)]
+    assert graph.step == eager.step == len(got) == sum(
+        g.target.shape[0] for g in groups)
+    assert got == want
+    assert all(torch.equal(a, b) for a, b in zip(eager.model.parameters(),
+                                                 graph.model.parameters()))
+    assert len(graph.step_graphs.graphs) < graph.step
+
+
+def test_replayed_step_launches_every_kernel(dev):
+    """A replayed step calls no kernel wrapper, and its device events of
+    each wrapper's kernels (by name, from the profiler) are an eager
+    step's: 3/4/8 forward and 3/4/8/8/5 backward calls at 2 layers."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_names(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return Counter(e.name for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+
+    (eager, graph), groups = _dispatch_pair(dev, {}, {})
+    batch = groups[0].to(dev).map(lambda t: t[0])
+    graph.train_step(batch)
+    _eager_step(eager, batch)
+    before = _launches()
+    eager_names = device_names(lambda: _eager_step(eager, batch))
+    n = SMALL["n_graph"]
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        "segment_attention": n + 1, "mh_network": 2 * n,
+        "hyper_apply": 4 * n, "segment_attention_bwd": n + 1,
+        "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
+        "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1}
+    before = _launches()
+    replay_names = device_names(lambda: graph.train_step(batch))
+    assert _launches() == before
+    ours = ("segment_attention_", "gemm_kernel", "pass_a::", "pass_b::",
+            "reduce_parts", "fwd::kernel", "dhdx::", "dk::kernel",
+            "segment_sum_kernel")
+    mine = {k: v for k, v in eager_names.items() if any(s in k for s in ours)}
+    assert sum(mine.values()) >= 8 * n
+    assert {k: replay_names[k] for k in mine} == mine
+
+
+def test_a_dropped_trainer_frees_its_step_graphs(dev):
+    """The graphs of the step hold no reference to their trainer, so a
+    trainer that is dropped goes at once, with its graphs' memory (not at
+    the next cyclic garbage collection)."""
+    import weakref
+
+    (trainer, _), groups = _dispatch_pair(dev, {"steps_per_dispatch": 1}, {})
+    trainer.train_step(groups[0].map(lambda t: t[0]))
+    assert len(trainer.step_graphs.graphs) == 1
+    gone = weakref.ref(trainer)
+    del trainer
+    assert gone() is None
