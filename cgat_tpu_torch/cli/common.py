@@ -9,13 +9,16 @@ kept as deprecated aliases with their original (inverting) meaning. The
 flags, defaults and aliases are the JAX package's, so a command line means
 the same to both; ``--device`` (the CUDA card by default, ``cpu`` on
 request) is the port's own, its counterpart of choosing the JAX platform.
-Flags whose feature is not ported yet (``--devices`` above 1,
-``--edge-shards``, ``--streaming``, ``--profile-epoch``) raise ``NotImplementedError`` naming the slice that
-brings it, before any data is read.
+``--devices N`` is the number of ranks (one card each under NCCL; gloo
+processes with ``--device cpu``), 0 meaning every visible card, and
+``--edge-shards S`` must divide it. Flags whose feature is not ported yet
+(``--streaming``, ``--profile-epoch``) raise ``NotImplementedError`` naming
+the slice that brings it, before any data is read.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -169,7 +172,6 @@ def device_from_args(args) -> torch.device:
 
 # (flag, dest, the value the port runs, the slice that brings the rest)
 _NOT_PORTED = (
-    ("--edge-shards", "edge_shards", 1, "slice 4 (edge sharding)"),
     ("--streaming", "streaming", False, "slice 5 (streaming and prefetch)"),
     ("--profile-epoch", "profile_epoch", -1, "slice 9 (tracing)"),
 )
@@ -177,21 +179,29 @@ _NOT_PORTED = (
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature the port does
-    not have yet; resolve ``--devices 0`` (all available) to one card."""
+    not have yet; resolve ``--devices 0`` to every visible card (one with
+    ``--device cpu`` or without a card; the world's size inside a torchrun
+    world) and check that ``--edge-shards`` divides the devices."""
     for flag, dest, value, where in _NOT_PORTED:
         if hasattr(args, dest) and getattr(args, dest) != value:
             raise NotImplementedError(
                 f"{flag} ({dest}={getattr(args, dest)!r}) is not ported yet; "
                 f"it comes with {where}")
-    devices = getattr(args, "devices", 1)
-    if devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices} is not ported yet; it comes with slice 4 "
-            f"(data parallel)")
-    if devices == 0:
-        print("--devices 0 (all available) runs on one card until slice 4 "
-              "(data parallel)")
-        args.devices = 1
+    if not hasattr(args, "devices"):
+        return
+    if args.devices < 0:
+        raise ValueError(f"--devices must be at least 0, not {args.devices}")
+    if args.devices == 0:
+        if "WORLD_SIZE" in os.environ:
+            args.devices = int(os.environ["WORLD_SIZE"])
+        elif getattr(args, "device", "cuda") == "cuda":
+            args.devices = max(torch.cuda.device_count(), 1)
+        else:
+            args.devices = 1
+    shards = getattr(args, "edge_shards", 1)
+    if shards < 1 or args.devices % shards:
+        raise ValueError(f"--edge-shards {shards} does not divide "
+                         f"--devices {args.devices}")
 
 
 def configs_from_args(args) -> tuple[TrainerConfig, CGATConfig]:

@@ -6,16 +6,59 @@
 Fresh training, exact resume (``--ckp <run dir>``), and a full fine-tune
 from a checkpoint (``--pretrained-model <run dir>``). Runs on the CUDA card
 unless ``--device cpu``.
+
+``--devices N`` (N > 1; 0 is every visible card) trains on N ranks with
+``--edge-shards S`` edge shards a replica: this command builds the CUDA
+kernels, then starts N rank processes on this host (NCCL, one card each;
+gloo with ``--device cpu``), each running this command as one rank. Inside
+a world that torchrun started (``RANK`` and ``WORLD_SIZE`` set, on one
+host or many) it is one rank itself:
+
+    torchrun --nproc-per-node 8 -m cgat_tpu_torch.cli.train --devices 8 ...
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+
+import torch
 
 from .common import (add_device_arg, add_model_args, add_trainer_args,
                      configs_from_args, device_from_args)
 
 
+def _in_world() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _rank(rank: int, n: int, port: int, argv: list[str]) -> None:
+    """One rank of a world started by :func:`launch`."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+    try:
+        main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def launch(n: int, argv: list[str], device: torch.device) -> None:
+    """Run this command as ``n`` ranks on this host (a free port for the
+    rendezvous), the CUDA kernels built first so that no two ranks run
+    nvcc; raises if a rank fails."""
+    from ..parallel.distributed import free_port
+    if device.type == "cuda":
+        from ..ops.kernels import build
+        build.build()
+    torch.multiprocessing.spawn(_rank, args=(n, free_port(), argv),
+                                nprocs=n, join=True)
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     p = argparse.ArgumentParser(description=__doc__)
     add_trainer_args(p)
     add_model_args(p)
@@ -23,6 +66,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     tcfg, mcfg = configs_from_args(args)
     device = device_from_args(args)
+    if tcfg.n_devices > 1 and not _in_world():
+        launch(tcfg.n_devices, argv, device)
+        return 0
 
     from ..training.trainer import Trainer, load_trainer, resume_trainer
     print(tcfg)
@@ -39,8 +85,10 @@ def main(argv=None):
         # exact resume: weights, optimizer moments, step, epoch and schedule
         # state restored (reference resume_from_checkpoint, train.py:64-76);
         # an explicit --moment-dtype must match the checkpoint's
-        overrides = ({} if args.moment_dtype == "auto"
-                     else {"moment_dtype": args.moment_dtype})
+        overrides = {"n_devices": tcfg.n_devices,
+                     "edge_shards": tcfg.edge_shards}
+        if args.moment_dtype != "auto":
+            overrides["moment_dtype"] = args.moment_dtype
         try:
             trainer, meta = resume_trainer(args.ckp, tag="last",
                                            device=device, **overrides)

@@ -14,8 +14,10 @@ Padding protocol: padded nodes and edges are a False suffix of their mask;
 padded edges point at node slot ``N - 1`` and padded nodes belong to graph
 slot ``C - 1``. Masks keep them out of every reduction.
 
-Only the single-shard collate is here; the edge-sharded (halo) layout is not
-ported yet.
+``collate(..., edge_shards=S)`` gives the edge-sharded layout, a
+:class:`HaloBatch`: per destination-node slice a local-src edge block and a
+halo-src edge block, the boundary exchange tables and per-shard CSR
+pointers (the JAX package's ``edge_shards`` collate, field for field).
 """
 from __future__ import annotations
 
@@ -84,9 +86,11 @@ class CrystalBatch:
         return self.edge_src.shape[0]
 
     def map(self, fn) -> "CrystalBatch":
-        """The batch of ``fn`` applied to every tensor."""
-        return CrystalBatch(**{f.name: fn(getattr(self, f.name))
-                               for f in dataclasses.fields(self)})
+        """The batch of ``fn`` applied to every tensor (a field that is
+        None stays None)."""
+        return type(self)(**{
+            f.name: None if getattr(self, f.name) is None
+            else fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
     def to(self, device) -> "CrystalBatch":
         """The same batch with every tensor on ``device``."""
@@ -96,8 +100,38 @@ class CrystalBatch:
         """Copy ``src``'s tensors, of the same shapes, into this batch's
         (in place, in stream order on a card)."""
         for f in dataclasses.fields(self):
-            getattr(self, f.name).copy_(getattr(src, f.name))
+            if getattr(self, f.name) is not None:
+                getattr(self, f.name).copy_(getattr(src, f.name))
         return self
+
+
+@dataclasses.dataclass
+class HaloBatch(CrystalBatch):
+    """An edge-sharded batch (``collate(..., edge_shards=S)``).
+
+    S = shards, n_loc = N / S nodes a shard, cap / cap_h local / halo edge
+    slots a shard, H halo slots a (owner, destination) pair, L = n_loc +
+    OFFN_MARGIN + 1. The primary edge arrays hold S LOCAL-src blocks of
+    ``cap`` slots (source and destination in shard s's node slice); the
+    ``halo_*`` arrays S HALO-src blocks of ``cap_h`` slots (destination in
+    the slice, source owned by another shard). Each block is dst-sorted
+    with False-suffix padding pointing at the slice's last node.
+    ``edge_src_perm``, ``edge_src_sorted``, ``edge_dst_offn`` and
+    ``edge_src_offn`` are per shard with block-local values (shard-major:
+    block s is rows [s*cap, (s+1)*cap) or [s*L, (s+1)*L)), and
+    ``node2graph_offn`` is None (the sharded pool completes its softmax
+    with collectives)."""
+    halo_src: torch.Tensor = None       # i32 (S*cap_h,) global source ids
+    halo_dst: torch.Tensor = None       # i32 (S*cap_h,) global dst ids
+    halo_shell: torch.Tensor = None     # i32 (S*cap_h,)
+    halo_mask: torch.Tensor = None      # bool (S*cap_h,)
+    # per halo edge, its source row in [local nodes | received halo rows]:
+    # n_loc + owner*H + its place in the owner's send list (padding: n_loc-1)
+    halo_src_ext: torch.Tensor = None   # i32 (S*cap_h,)
+    # owner-major send table: row s*S + d holds the local indices of the
+    # boundary nodes shard s sends to shard d (padded with n_loc - 1)
+    halo_send_idx: torch.Tensor = None  # i32 (S*S, H)
+    halo_dst_offn: torch.Tensor = None  # i32 (S*L,) over block-local dsts
 
 
 def _round_up(x: int, m: int) -> int:
@@ -123,6 +157,174 @@ def pad_to_bucket(n: int, multiple: int = 64) -> int:
     return max(multiple, _round_up(n, multiple))
 
 
+def edge_shard_counts(graphs: Sequence[CrystalGraph], num_node_slots: int,
+                      edge_shards: int) -> tuple[np.ndarray, np.ndarray]:
+    """(local, halo) real-edge counts per destination-node slice of a
+    prospective collate of ``graphs`` into ``num_node_slots`` slots (what a
+    group's shared edge capacities are picked from). Local: source and
+    destination in the same slice."""
+    n_loc = num_node_slots // edge_shards
+    loc = np.zeros((edge_shards,), np.int64)
+    hal = np.zeros((edge_shards,), np.int64)
+    base = 0
+    for g in graphs:
+        src = g.edge_src.astype(np.int64) + base
+        dst = g.edge_dst.astype(np.int64) + base
+        d = dst // n_loc
+        lm = (src // n_loc) == d
+        loc += np.bincount(d[lm], minlength=edge_shards)
+        hal += np.bincount(d[~lm], minlength=edge_shards)
+        base += g.n_atoms
+    return loc, hal
+
+
+def halo_pair_max(graphs: Sequence[CrystalGraph], num_node_slots: int,
+                  edge_shards: int) -> int:
+    """The largest count of distinct boundary nodes one shard needs from
+    another in a prospective collate of ``graphs`` (a group's shared halo
+    capacity is picked from it)."""
+    S = edge_shards
+    n_loc = num_node_slots // S
+    src_l, dst_l, base = [], [], 0
+    for g in graphs:
+        src_l.append(g.edge_src.astype(np.int64) + base)
+        dst_l.append(g.edge_dst.astype(np.int64) + base)
+        base += g.n_atoms
+    if not src_l:
+        return 0
+    src = np.concatenate(src_l)
+    dst = np.concatenate(dst_l)
+    dest_shard = dst // n_loc
+    owner = src // n_loc
+    worst = 0
+    for s in range(S):
+        m = dest_shard == s
+        for j in range(S):
+            if j != s:
+                worst = max(worst, len(np.unique(src[m & (owner == j)])))
+    return worst
+
+
+def _halo_layout(halo_src, halo_mask, n_loc, S, cap, halo_slots):
+    """The boundary exchange of an edge-sharded batch from its S halo
+    blocks' global source ids (``cap`` slots each): ``(halo_src_ext,
+    halo_send_idx, H)`` as :class:`HaloBatch` describes them."""
+    need = [[None] * S for _ in range(S)]
+    for s in range(S):
+        blk = slice(s * cap, (s + 1) * cap)
+        gsrc = halo_src[blk].astype(np.int64)
+        owner = gsrc // n_loc
+        msk = halo_mask[blk]
+        for j in range(S):
+            if j != s:
+                need[s][j] = np.unique(gsrc[msk & (owner == j)])
+    worst = max((len(need[s][j]) for s in range(S) for j in range(S)
+                 if j != s), default=0)
+    H = halo_slots if halo_slots is not None else max(8, _round_up(worst, 8))
+    if worst > H:
+        raise ValueError(f"halo overflow: {worst} boundary nodes > {H} slots")
+
+    src_ext = np.full((S * cap,), n_loc - 1, np.int32)
+    for s in range(S):
+        blk = slice(s * cap, (s + 1) * cap)
+        gsrc = halo_src[blk].astype(np.int64)
+        owner = gsrc // n_loc
+        msk = halo_mask[blk]
+        ext = np.full((cap,), n_loc - 1, np.int64)
+        for j in range(S):
+            if j == s:
+                continue
+            m = msk & (owner == j)
+            if m.any():
+                ext[m] = n_loc + j * H + np.searchsorted(need[s][j], gsrc[m])
+        src_ext[blk] = ext
+
+    halo_send = np.full((S * S, H), n_loc - 1, np.int32)
+    for d in range(S):
+        for j in range(S):
+            if j != d:
+                ids = need[d][j]
+                halo_send[j * S + d, :len(ids)] = ids - j * n_loc
+    return src_ext, halo_send, H
+
+
+def _sharded_edges(src, dst, shell, N, S, max_nbr, cap, cap_h, halo_slots):
+    """The edge fields of an S-shard collate from the dst-sorted real edges
+    (see :class:`HaloBatch`): each shard's edges split stably into a local
+    and a halo block (a selection of a sorted array stays sorted)."""
+    n_loc = N // S
+    e = len(src)
+    bounds = np.searchsorted(dst, np.arange(1, S + 1) * n_loc, side="left")
+    starts = np.concatenate([[0], bounds[:-1]])
+    owner = src // n_loc
+    parts = [owner[starts[s]:bounds[s]] == s for s in range(S)]
+    loc_counts = np.array([int(lm.sum()) for lm in parts], np.int64)
+    hal_counts = np.array([len(lm) - int(lm.sum()) for lm in parts],
+                          np.int64)
+    if cap is None:
+        # a whole number of max_nbr rows a shard keeps the capacities a
+        # small set of shapes across batches
+        cap = int(pad_to_bucket(max(int(loc_counts.max()), 1) if e else 1,
+                                8 * max_nbr))
+    if cap_h is None:
+        cap_h = int(pad_to_bucket(max(int(hal_counts.max()), 1), 16))
+    if (loc_counts > cap).any():
+        raise ValueError(f"edge shard overflow: {loc_counts.tolist()} > "
+                         f"{cap} slots")
+    if (hal_counts > cap_h).any():
+        raise ValueError(f"halo edge overflow: {hal_counts.tolist()} > "
+                         f"{cap_h} slots")
+    out = {}
+    for prefix, width, local in (("edge", cap, True), ("halo", cap_h, False)):
+        a_src = np.empty((S * width,), np.int32)
+        a_dst = np.empty((S * width,), np.int32)
+        a_shell = np.zeros((S * width,), np.int32)
+        a_mask = np.zeros((S * width,), bool)
+        for s in range(S):
+            last = (s + 1) * n_loc - 1      # padding target inside slice s
+            sl = slice(starts[s], bounds[s])
+            m = parts[s] if local else ~parts[s]
+            c0, c = s * width, int(m.sum())
+            a_src[c0:c0 + width] = last
+            a_dst[c0:c0 + width] = last
+            a_src[c0:c0 + c] = src[sl][m]
+            a_dst[c0:c0 + c] = dst[sl][m]
+            a_shell[c0:c0 + c] = shell[sl][m]
+            a_mask[c0:c0 + c] = True
+        out.update({f"{prefix}_src": a_src, f"{prefix}_dst": a_dst,
+                    f"{prefix}_shell": a_shell, f"{prefix}_mask": a_mask})
+    out["halo_src_ext"], out["halo_send_idx"], _ = _halo_layout(
+        out["halo_src"], out["halo_mask"], n_loc, S, cap_h, halo_slots)
+    # per shard: the stable argsort of the local block's sources, the
+    # sorted sources and the CSR pointers of its destinations, sources and
+    # halo destinations, all over block-local ids
+    L = n_loc + OFFN_MARGIN + 1
+    perm = np.empty((S * cap,), np.int32)
+    src_sorted = np.empty((S * cap,), np.int32)
+    dst_offn = np.empty((S * L,), np.int32)
+    src_offn = np.empty((S * L,), np.int32)
+    halo_offn = np.empty((S * L,), np.int32)
+    for s in range(S):
+        blk = slice(s * cap, (s + 1) * cap)
+        row = slice(s * L, (s + 1) * L)
+        perm[blk] = np.argsort(out["edge_src"][blk], kind="stable")
+        dst_offn[row] = host_offsets(
+            out["edge_dst"][blk].astype(np.int64) - s * n_loc,
+            n_loc + OFFN_MARGIN)
+        ss = (out["edge_src"][blk][perm[blk]].astype(np.int64)
+              - s * n_loc).astype(np.int32)
+        src_sorted[blk] = ss
+        src_offn[row] = host_offsets(ss, n_loc + OFFN_MARGIN)
+        hblk = slice(s * cap_h, (s + 1) * cap_h)
+        halo_offn[row] = host_offsets(
+            out["halo_dst"][hblk].astype(np.int64) - s * n_loc,
+            n_loc + OFFN_MARGIN)
+    out.update(edge_src_perm=perm, edge_src_sorted=src_sorted,
+               edge_dst_offn=dst_offn, edge_src_offn=src_offn,
+               halo_dst_offn=halo_offn)
+    return out
+
+
 def collate(graphs: Sequence[CrystalGraph],
             *,
             num_graphs: int | None = None,
@@ -132,19 +334,31 @@ def collate(graphs: Sequence[CrystalGraph],
             node_bucket: int = 64,
             orig_fea: int | None = None,
             num_edge_slots: int | None = None,
-            max_degree: int | None = None) -> CrystalBatch:
+            max_degree: int | None = None,
+            edge_shards: int = 1,
+            edge_slots_per_shard: int | None = None,
+            halo_edge_slots: int | None = None,
+            halo_slots: int | None = None) -> CrystalBatch:
     """Build a static-shape :class:`CrystalBatch` (CPU tensors) from host
     graphs: index offsetting as the reference collate does, then a stable
-    sort of the edges by destination and False-suffix padding."""
+    sort of the edges by destination and False-suffix padding.
+
+    ``edge_shards`` S > 1 gives a :class:`HaloBatch` instead: N a multiple
+    of S, and per node slice a local block of ``edge_slots_per_shard`` and
+    a halo block of ``halo_edge_slots`` edge slots with ``halo_slots``
+    boundary rows a shard pair (each picked from the batch when None)."""
     C = num_graphs if num_graphs is not None else len(graphs)
     if len(graphs) > C:
         raise ValueError(f"{len(graphs)} graphs > {C} graph slots")
     n_real_nodes = sum(g.n_atoms for g in graphs)
     n_real_edges = sum(len(g.edge_src) for g in graphs)
     N = num_node_slots if num_node_slots is not None else pad_to_bucket(
-        n_real_nodes, node_bucket)
+        n_real_nodes, node_bucket * edge_shards)
     if n_real_nodes > N:
         raise ValueError(f"{n_real_nodes} atoms > {N} node slots")
+    if N % edge_shards:
+        raise ValueError(f"{N} node slots do not split into {edge_shards} "
+                         f"edge shards")
     # edge slots: explicit count > N * max_degree > tight per-batch bucket,
     # never above N * max_nbr
     if num_edge_slots is not None:
@@ -198,6 +412,19 @@ def collate(graphs: Sequence[CrystalGraph],
     else:
         src = dst = shell = np.zeros((0,), np.int64)
 
+    t = torch.from_numpy
+    common = dict(nodes=t(nodes), node_mask=t(node_mask),
+                  node2graph=t(node2graph), comp_fea=t(comp_fea),
+                  comp_weight=t(comp_weight), comp_mask=t(comp_mask),
+                  target=t(target), graph_mask=t(graph_mask))
+    if edge_shards > 1:
+        fields = _sharded_edges(src, dst, shell, N, edge_shards, max_nbr,
+                                edge_slots_per_shard, halo_edge_slots,
+                                halo_slots)
+        return HaloBatch(**common, node2graph_offn=None,
+                         **{k: t(np.ascontiguousarray(v))
+                            for k, v in fields.items()})
+
     e = len(src)
     edge_src = np.full((E,), N - 1, np.int32)
     edge_dst = np.full((E,), N - 1, np.int32)
@@ -210,20 +437,12 @@ def collate(graphs: Sequence[CrystalGraph],
 
     src_perm = np.argsort(edge_src, kind="stable").astype(np.int32)
     src_sorted = edge_src[src_perm]
-    t = torch.from_numpy
     return CrystalBatch(
-        nodes=t(nodes),
-        node_mask=t(node_mask),
-        node2graph=t(node2graph),
+        **common,
         edge_src=t(edge_src),
         edge_dst=t(edge_dst),
         edge_shell=t(edge_shell),
         edge_mask=t(edge_mask),
-        comp_fea=t(comp_fea),
-        comp_weight=t(comp_weight),
-        comp_mask=t(comp_mask),
-        target=t(target),
-        graph_mask=t(graph_mask),
         edge_src_perm=t(src_perm),
         edge_dst_offn=t(host_offsets(edge_dst, N + OFFN_MARGIN)),
         edge_src_offn=t(host_offsets(src_sorted, N + OFFN_MARGIN)),

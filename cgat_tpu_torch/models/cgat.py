@@ -27,8 +27,24 @@ The variants of the JAX package's ``CGATConfig`` are here too:
 (a node-only stack), ``dropout`` (training only, with masks drawn from
 ``(seed, step, site)``, see :func:`dropout`), ``remat`` and ``hyper_remat``
 (``torch.utils.checkpoint`` over each message-passing layer or each
-``HyperLinear``) and ``split_projection``. Not ported yet: the
-edge-sharded (halo) layout.
+``HyperLinear``) and ``split_projection``.
+
+The edge-sharded (halo) layout (a :class:`HaloBatch`) runs in one of two
+ways. With ``edge_group`` (an edge axis of the mesh, one rank a shard) the
+batch is this rank's part: its node slice, its local-src edge block (ids
+inside the slice, so its gathers and per-edge networks need nothing from
+the other ranks) and its halo-src block, whose sources index ``[local
+nodes | received rows]``. Before each layer the boundary rows go to the
+ranks that need them in one ``all_to_all``; each node layer aggregates
+both blocks with the union softmax of the pair path (the segment-attention
+kernels twice, forward and backward); the third gather plan, of the halo
+block's destinations, takes the segment-sum kernel as its backward; the
+crystal pool completes its per-crystal softmax with an all-gathered max
+and a summed numerator and denominator. Without a group the whole sharded
+layout runs in one process with the identity exchange (the JAX package's
+single-device view, an oracle): its blocks interleave their padding, which
+the kernels do not take, so that mode runs on the CPU only and raises on
+a card.
 """
 from __future__ import annotations
 
@@ -39,10 +55,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..data.batching import CrystalBatch
-from ..ops.attention import edge_softmax_aggregate
+from ..data.batching import CrystalBatch, HaloBatch
+from ..ops.attention import (edge_softmax_aggregate,
+                             edge_softmax_aggregate_pair)
 from ..ops.gather import GatherPlan, gather_rows
-from ..ops.segment import segment_softmax, segment_sum
+from ..ops.segment import (NEG_BIG, SOFTMAX_EPS, segment_max,
+                           segment_softmax, segment_softmax_pair,
+                           segment_sum)
+from ..parallel.collectives import all_gather, all_reduce, all_to_all
 from .blocks import (MultiHeadNetwork, ResidualNetwork, SimpleNetwork,
                      TorchLinear)
 from .hyper import HNet, HNet0, HyperLinear
@@ -91,16 +111,18 @@ class CGATConfig:
                 else self.elem_fea_len * self.msg_heads)
 
 
-def _seed(seed: int, step: int, site: int) -> int:
-    """A generator seed for one dropout site of one training step."""
-    state = np.random.SeedSequence([seed, step, site]).generate_state(2)
+def _seed(*key: int) -> int:
+    """A generator seed for one dropout site of one training step: ``key``
+    is (seed, step, site), or (seed, step, dp_index, edge_index, site) on a
+    rank of a parallel world."""
+    state = np.random.SeedSequence(list(key)).generate_state(2)
     return int(state[0]) << 31 | int(state[1]) >> 1
 
 
-def dropout(x, rate: float, key: tuple[int, int, int]):
+def dropout(x, rate: float, key: tuple[int, ...]):
     """``flax.linen.Dropout``: keep each entry with probability 1 - rate
     and scale the kept ones by 1 / (1 - rate). The mask comes from a
-    generator on ``x``'s device seeded from ``key`` = (seed, step, site),
+    generator on ``x``'s device seeded from ``key`` (see :func:`_seed`),
     so a resumed run and a recomputed layer (``remat``) draw the same
     masks; they are not the JAX package's masks."""
     if rate >= 1.0:
@@ -108,6 +130,28 @@ def dropout(x, rate: float, key: tuple[int, int, int]):
     gen = torch.Generator(device=x.device).manual_seed(_seed(*key))
     keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _gather(table, idx, plan):
+    """``table[idx]``, through :func:`gather_rows` (the segment-sum kernel
+    as its backward) when there is a ``plan``."""
+    return table[idx.long()] if plan is None else gather_rows(table, idx,
+                                                               plan)
+
+
+@dataclasses.dataclass(frozen=True)
+class Halo:
+    """The halo block of one node layer in halo mode: its source ids into
+    ``table`` ([local nodes | received rows]), its destination ids, edge
+    features and mask, its destinations' CSR pointers (None: computed
+    where needed) and their gather ``plan`` (None: plain indexing)."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    attr: torch.Tensor
+    mask: torch.Tensor
+    table: torch.Tensor
+    offn: torch.Tensor | None
+    plan: GatherPlan | None
 
 
 def _hnet_args(c):
@@ -143,11 +187,18 @@ class GATConvNodes(nn.Module):
         self.Pooling_NN = hnet(*_hnet_args(out_channels))
 
     def forward(self, x, edge_src, edge_dst, edge_attr, x_0, edge_mask,
-                dst_offn, plans, dropout_key=None):
+                dst_offn, plans, dropout_key=None, halo: Halo | None = None):
         """``plans``: the :class:`GatherPlan` of ``edge_dst`` and of
         ``edge_src``, which route the gathers' backward through the
-        segment-sum kernel. ``dropout_key``: (seed, step, site) when
-        dropout is active (training with ``dropout > 0``), else None."""
+        segment-sum kernel (None in the one-process halo mode: plain
+        indexing). ``dropout_key``: (seed, step, ..., site) when dropout
+        is active (training with ``dropout > 0``), else None. ``halo``:
+        the halo block, whose edges the softmax normalises over with the
+        primary (local) block's."""
+        if halo is not None:
+            return self._forward_halo(x, edge_src, edge_dst, edge_attr, x_0,
+                                      edge_mask, dst_offn, plans,
+                                      dropout_key, halo)
         n = x.shape[0]
         drop = dropout_key is not None
         if self.split_projection:
@@ -158,9 +209,7 @@ class GATConvNodes(nn.Module):
             m_cat = torch.cat([gather_rows(x, edge_dst, plans[0]),
                                edge_attr,
                                gather_rows(x, edge_src, plans[1])], dim=-1)
-            if (not drop and self.vector_attention
-                    and self.MH_A.flat_supported()
-                    and self.MH_M.flat_supported()):
+            if self._flat(drop):
                 # flat path: (E, H*F) head-major tensors straight from the
                 # MH kernel into the segment-attention kernel, no 3-D
                 # relayout
@@ -185,6 +234,52 @@ class GATConvNodes(nn.Module):
             aggr = edge_softmax_aggregate(alpha, m, edge_dst, n,
                                           edge_mask=edge_mask, offn=dst_offn)
         return self._update(x, x_0, aggr.mean(dim=1))    # CGAT.py:329
+
+    def _flat(self, drop: bool) -> bool:
+        return (not drop and self.vector_attention
+                and self.MH_A.flat_supported()
+                and self.MH_M.flat_supported())
+
+    def _forward_halo(self, x, edge_src, edge_dst, edge_attr, x_0,
+                      edge_mask, dst_offn, plans, dropout_key, h: Halo):
+        """The layer over a local and a halo block (the JAX package's halo
+        branch): both blocks' messages, the union softmax over them, the
+        head mean and the hypernetwork update; ``split_projection`` does
+        not apply here, as there."""
+        n = x.shape[0]
+        drop = dropout_key is not None
+        m_cat = torch.cat([_gather(x, edge_dst, plans and plans[0]),
+                           edge_attr,
+                           _gather(x, edge_src, plans and plans[1])], dim=-1)
+        m_cat_h = torch.cat([_gather(x, h.dst, h.plan), h.attr,
+                             h.table[h.src.long()]], dim=-1)
+        if self._flat(drop):
+            # the MH kernel on both blocks, (E, H*F) into the pair path
+            aggr = edge_softmax_aggregate_pair(
+                self.MH_A(m_cat, flat=True), self.MH_M(m_cat, flat=True),
+                edge_dst, edge_mask, self.MH_A(m_cat_h, flat=True),
+                self.MH_M(m_cat_h, flat=True), h.dst, h.mask, n,
+                offn_l=dst_offn, offn_h=h.offn)
+            aggr = aggr.view(n, self.heads, self.out_channels)
+            return self._update(x, x_0,
+                                aggr.float().mean(dim=1).to(aggr.dtype))
+        alpha, m = self.MH_A(m_cat), self.MH_M(m_cat)
+        alpha_h, m_h = self.MH_A(m_cat_h), self.MH_M(m_cat_h)
+        if drop:
+            w, w_h = segment_softmax_pair(alpha, edge_dst, edge_mask,
+                                          alpha_h, h.dst, h.mask, n)
+            w = dropout(w, self.dropout, dropout_key)
+            w_h = dropout(w_h, self.dropout, (*dropout_key, 1))
+            zero = torch.zeros((), dtype=m.dtype, device=m.device)
+            aggr = (segment_sum(torch.where(edge_mask[:, None, None], w * m,
+                                            zero), edge_dst, n)
+                    + segment_sum(torch.where(h.mask[:, None, None],
+                                              w_h * m_h, zero), h.dst, n))
+        else:
+            aggr = edge_softmax_aggregate_pair(
+                alpha, m, edge_dst, edge_mask, alpha_h, m_h, h.dst, h.mask,
+                n, offn_l=dst_offn, offn_h=h.offn)
+        return self._update(x, x_0, aggr.mean(dim=1))
 
     def _update(self, x, x_0, aggr):
         if self.first:
@@ -229,15 +324,19 @@ class GATConvEdges(nn.Module):
             self.Pooling_NN = hnet(*_hnet_args(out_channels))
 
     def forward(self, edge_attr, x, edge_src, edge_dst, edge_attr_0, plans,
-                dropout_key=None):
+                dropout_key=None, src_table=None):
         """The update of ``edge_attr`` (only it is read under
         ``no_hyper``) from the node features ``x``, the edge ids, the first
         layer's edge features and the gather ``plans`` of (``edge_dst``,
-        ``edge_src``)."""
+        ``edge_src``) (None, or a None plan: plain indexing). The sources
+        index ``src_table`` instead of ``x`` when it is given (a halo
+        block's [local nodes | received rows])."""
         if self.no_hyper:
             return self.Pooling_NN(edge_attr)
-        m_cat = torch.cat([gather_rows(x, edge_src, plans[1]), edge_attr,
-                           gather_rows(x, edge_dst, plans[0])], dim=-1)
+        src_rows = (_gather(x, edge_src, plans and plans[1])
+                    if src_table is None else src_table[edge_src.long()])
+        m_cat = torch.cat([src_rows, edge_attr,
+                           _gather(x, edge_dst, plans and plans[0])], dim=-1)
         alpha = torch.exp(self.MH_A(m_cat))
         alpha = alpha / alpha.sum(dim=1, keepdim=True)      # across heads
         if dropout_key is not None:
@@ -276,13 +375,86 @@ class MHAttention(nn.Module):
             in_channels, heads)
 
     def forward(self, fea, cry_fea, node2graph, node_mask, num_graphs,
-                offn, plan):
+                offn, plan, edge_group=None):
+        """``edge_group``: the edge axis the atoms are cut over. Each rank
+        then pools its own atoms and completes every crystal's softmax
+        with (C, H, F) collectives: the max all-gathered, the numerator and
+        denominator summed (as the JAX package does under ``axis_name``,
+        in plain ops, with gradients through all three)."""
         m = self.MH_M(fea)
-        alpha = self.MH_A(torch.cat([fea, gather_rows(cry_fea, node2graph,
-                                                      plan)], dim=-1))
-        agg = edge_softmax_aggregate(alpha, m, node2graph, num_graphs,
-                                     edge_mask=node_mask, offn=offn)
+        alpha = self.MH_A(torch.cat([fea, _gather(cry_fea, node2graph,
+                                                  plan)], dim=-1))
+        if edge_group is None:
+            agg = edge_softmax_aggregate(alpha, m, node2graph, num_graphs,
+                                         edge_mask=node_mask, offn=offn)
+            return agg.reshape(-1, self.heads * self.out_channels)
+        m = m.expand(m.shape[0], self.heads, self.out_channels)
+        keep = node_mask[:, None, None]
+        masked = torch.where(keep, alpha, torch.full_like(alpha, NEG_BIG))
+        gmax = all_gather(segment_max(masked, node2graph, num_graphs),
+                          edge_group.group).amax(dim=0)
+        ids = node2graph.long()
+        ex = torch.where(keep, torch.exp(alpha - gmax[ids]),
+                         torch.zeros_like(alpha))
+        num, den = all_reduce(
+            torch.stack(torch.broadcast_tensors(
+                segment_sum(ex * m, node2graph, num_graphs),
+                segment_sum(ex, node2graph, num_graphs))),
+            edge_group.group)
+        agg = num / (den + SOFTMAX_EPS)
         return agg.reshape(-1, self.heads * self.out_channels)
+
+
+class _Layout:
+    """The index arrays, gather plans and CSR pointers one forward uses,
+    for the batch's layout: single-shard (the collate's plans), a rank's
+    part of an edge-sharded batch (ids made local to its node slice, the
+    third plan of the halo block's destinations, the boundary exchange),
+    or a whole edge-sharded batch in one process (global ids, plain
+    gathers, the identity exchange; CPU only)."""
+
+    def __init__(self, batch: CrystalBatch, edge_group):
+        self.halo = isinstance(batch, HaloBatch)
+        if edge_group is not None and not self.halo:
+            raise ValueError("an edge group needs an edge-sharded batch "
+                             "(collate with edge_shards > 1)")
+        if not self.halo:
+            self.src, self.dst = batch.edge_src, batch.edge_dst
+            self.offn = batch.edge_dst_offn
+            self.plans = (GatherPlan(batch.edge_dst, None, batch.edge_dst_offn),
+                          GatherPlan(batch.edge_src_sorted,
+                                     batch.edge_src_perm, batch.edge_src_offn))
+            return
+        if edge_group is None:
+            if batch.nodes.is_cuda:
+                raise ValueError(
+                    "a whole edge-sharded batch in one process runs on the "
+                    "CPU only (its blocks interleave their padding, which "
+                    "the kernels do not take); on a card run one rank a "
+                    "shard with an edge group")
+            self.src, self.dst = batch.edge_src, batch.edge_dst
+            self.src_h, self.dst_h = batch.halo_src, batch.halo_dst
+            self.offn = self.offn_h = self.plans = self.plan_h = None
+            self.exchange = lambda x: x
+            return
+        offset = edge_group.index * batch.nodes.shape[0]
+        self.src = batch.edge_src - offset
+        self.dst = batch.edge_dst - offset
+        self.dst_h = batch.halo_dst - offset
+        self.src_h = batch.halo_src_ext
+        self.offn, self.offn_h = batch.edge_dst_offn, batch.halo_dst_offn
+        self.plans = (GatherPlan(self.dst, None, batch.edge_dst_offn),
+                      GatherPlan(batch.edge_src_sorted, batch.edge_src_perm,
+                                 batch.edge_src_offn))
+        self.plan_h = GatherPlan(self.dst_h, None, batch.halo_dst_offn)
+        send = batch.halo_send_idx
+
+        def exchange(x):
+            """[x | the boundary rows the other shards send this one]."""
+            recv = all_to_all(x[send.long()], edge_group.group)
+            return torch.cat([x, recv.reshape(-1, x.shape[-1])])
+
+        self.exchange = exchange
 
 
 class CGAtNet(nn.Module):
@@ -330,12 +502,16 @@ class CGAtNet(nn.Module):
         return self
 
     def embed(self, batch: CrystalBatch, *,
-              dropout_key: tuple[int, int] | None = None) -> torch.Tensor:
+              dropout_key: tuple[int, ...] | None = None,
+              edge_group=None) -> torch.Tensor:
         """Graph embeddings (C, embedding_dim): everything before the head.
         ``dropout_key``: the (seed, step) of the training step, which
-        dropout (training mode with ``dropout > 0``) draws its masks from;
-        such a forward without one raises, as a flax ``Dropout`` without
-        its rng does."""
+        dropout (training mode with ``dropout > 0``) draws its masks from
+        ((seed, step, dp_index, edge_index) on a rank); such a forward
+        without one raises, as a flax ``Dropout`` without its rng does.
+        ``edge_group``: the mesh's edge :class:`~..parallel.mesh.Axis` when
+        ``batch`` is this rank's part of an edge-sharded batch (see the
+        module's docstring)."""
         cfg = self.config
         drop = self.training and cfg.dropout > 0.0
         if drop and dropout_key is None:
@@ -343,13 +519,13 @@ class CGAtNet(nn.Module):
                 f"dropout {cfg.dropout} in training mode needs a "
                 f"dropout_key (seed, step); call .eval() for inference")
         dt = cfg.dtype
-        # one gather plan per index array, shared by all layers
-        plans = (GatherPlan(batch.edge_dst, None, batch.edge_dst_offn),
-                 GatherPlan(batch.edge_src_sorted, batch.edge_src_perm,
-                            batch.edge_src_offn))
+        lay = _Layout(batch, edge_group)
         edge_attr = self.nbr_embedding(batch.edge_shell).to(dt)
         elem_fea = self.embedding(batch.nodes)
         elem_fea_0, edge_attr_0 = elem_fea, edge_attr
+        if lay.halo:
+            edge_attr_h = self.nbr_embedding(batch.halo_shell).to(dt)
+            edge_attr_h_0 = edge_attr_h
         # rematerialise each message-passing module in the backward
         # (nn.remat over GATConvNodes and GATConvEdges in the JAX package)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -359,10 +535,15 @@ class CGAtNet(nn.Module):
         last = len(self.graphs) - 1
         for i, layer in enumerate(self.graphs):
             key = (*dropout_key, 2 * i) if drop else None
+            halo = None
+            if lay.halo:
+                table = lay.exchange(elem_fea)
+                halo = Halo(lay.src_h, lay.dst_h, edge_attr_h,
+                            batch.halo_mask, table, lay.offn_h, lay.plan_h)
             node_update = run(
-                layer.Node, elem_fea, batch.edge_src, batch.edge_dst,
-                edge_attr, elem_fea_0, batch.edge_mask,
-                dst_offn=batch.edge_dst_offn, plans=plans, dropout_key=key)
+                layer.Node, elem_fea, lay.src, lay.dst, edge_attr,
+                elem_fea_0, batch.edge_mask, dst_offn=lay.offn,
+                plans=lay.plans, dropout_key=key, halo=halo)
             # nothing reads the last layer's edge update: the live
             # (no_hyper=False) one is skipped, its parameters kept for
             # checkpoint parity (no gradient, as in the JAX package, whose
@@ -370,15 +551,22 @@ class CGAtNet(nn.Module):
             if layer.Edge is not None and (cfg.no_hyper or i < last):
                 key = (*dropout_key, 2 * i + 1) if drop else None
                 edge_attr = edge_attr + run(
-                    layer.Edge, edge_attr, elem_fea, batch.edge_src,
-                    batch.edge_dst, edge_attr_0, plans, dropout_key=key)
+                    layer.Edge, edge_attr, elem_fea, lay.src, lay.dst,
+                    edge_attr_0, lay.plans, dropout_key=key)
+                if lay.halo:
+                    edge_attr_h = edge_attr_h + run(
+                        layer.Edge, edge_attr_h, elem_fea, lay.src_h,
+                        lay.dst_h, edge_attr_h_0, (lay.plan_h, None),
+                        dropout_key=key and (*key, 1), src_table=table)
             elem_fea = elem_fea + node_update
         crys_fea = self.roost(batch.comp_weight, batch.comp_fea.to(dt),
                               batch.comp_mask)
         crys_fea = self.cry_pool(
             elem_fea, crys_fea, batch.node2graph, batch.node_mask,
             batch.num_graphs, offn=batch.node2graph_offn,
-            plan=GatherPlan(batch.node2graph, None, batch.node2graph_offn))
+            plan=(None if batch.node2graph_offn is None else
+                  GatherPlan(batch.node2graph, None, batch.node2graph_offn)),
+            edge_group=edge_group)
         if cfg.mean_pooling:
             crys_fea = crys_fea.view(-1, cfg.msg_heads,
                                      cfg.elem_fea_len).mean(dim=1)
@@ -390,10 +578,12 @@ class CGAtNet(nn.Module):
 
     def forward(self, batch: CrystalBatch, *, last_layer=True,
                 return_graph_embedding=False,
-                dropout_key: tuple[int, int] | None = None):
+                dropout_key: tuple[int, ...] | None = None,
+                edge_group=None):
         """The output (C, 2) as f32, or the graph embeddings;
-        ``dropout_key`` as in :meth:`embed`."""
-        crys_fea = self.embed(batch, dropout_key=dropout_key)
+        ``dropout_key`` and ``edge_group`` as in :meth:`embed`."""
+        crys_fea = self.embed(batch, dropout_key=dropout_key,
+                              edge_group=edge_group)
         if return_graph_embedding:
             return crys_fea
         return self.head(crys_fea, last_layer=last_layer)

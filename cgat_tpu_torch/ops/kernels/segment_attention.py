@@ -16,6 +16,16 @@ and its backward, per real edge ``e -> n`` with ``q = g / (den + 1e-16)``::
 returns. The kernels are in ``cgat_tpu_torch/csrc/segment_attention.cu``.
 CPU tensors go through the plain versions; CUDA tensors launch the kernels
 or raise.
+
+The pair path (:class:`SegmentAttentionPair`, the JAX package's
+``_pair_fwd_impl`` / ``_pair_vjp_bwd``) is the same softmax over the union
+of an edge-sharded batch's local and halo blocks with no kernel of its own:
+the forward kernel on each block, an f32 flash merge of their (out, max,
+den), and the backward kernel on each block against the merged node
+arrays (exact: the backward holds for whatever shift the denominator
+used). Either block may skip destinations; both kernels read each node's
+rows through its own pointers or id, so a node without rows in a block
+gets nothing from it.
 """
 from __future__ import annotations
 
@@ -24,7 +34,8 @@ import functools
 
 import torch
 
-from ..segment import NEG_BIG, SOFTMAX_EPS, segment_max, segment_sum
+from ..segment import (NEG_BIG, SOFTMAX_EPS, segment_max,
+                       segment_softmax_pair, segment_sum)
 from . import build
 
 _P = ctypes.c_void_p
@@ -206,3 +217,74 @@ class SegmentAttention(torch.autograd.Function):
         dalpha, dm = segment_attention_bwd(alpha, m, ids, n_real,
                                            g.contiguous(), out, mx, den)
         return dalpha, dm, None, None, None, None
+
+
+def segment_attention_pair_plain(alpha_l, m_l, ids_l, mask_l, alpha_h, m_h,
+                                 ids_h, mask_h, num_nodes):
+    """The pair op's function in plain torch ops: the union softmax of the
+    local block ``*_l`` and the halo block ``*_h`` (rows with a False mask
+    count in neither) weighting their messages, summed per destination;
+    f32 arithmetic, output in the input dtype, differentiable by autograd.
+    Masks may interleave padding (a whole sharded layout in one process)."""
+    w_l, w_h = segment_softmax_pair(alpha_l.float(), ids_l, mask_l,
+                                    alpha_h.float(), ids_h, mask_h, num_nodes)
+    zero = torch.zeros((), device=alpha_l.device)
+    out = (segment_sum(torch.where(mask_l[:, None], w_l * m_l.float(), zero),
+                       ids_l, num_nodes)
+           + segment_sum(torch.where(mask_h[:, None], w_h * m_h.float(),
+                                     zero), ids_h, num_nodes))
+    return out.to(alpha_l.dtype)
+
+
+def merge_pair(out_l, max_l, den_l, out_h, max_h, den_h):
+    """The flash merge of two blocks' forward results into the union's
+    ``(out, max, den)``, in f32: both numerators ``out (den + EPS)``
+    rescaled to the common shift ``max(max_l, max_h)``."""
+    out_l, out_h = out_l.float(), out_h.float()
+    gmax = torch.maximum(max_l, max_h)
+    s_l = torch.exp(max_l - gmax)
+    s_h = torch.exp(max_h - gmax)
+    den = den_l * s_l + den_h * s_h
+    num = (out_l * (den_l + SOFTMAX_EPS) * s_l
+           + out_h * (den_h + SOFTMAX_EPS) * s_h)
+    return num / (den + SOFTMAX_EPS), gmax, den
+
+
+class SegmentAttentionPair(torch.autograd.Function):
+    """The union softmax-aggregate of a local and a halo edge block, each
+    dst-sorted with a False-suffix padding: :func:`segment_attention` on
+    each block, :func:`merge_pair`, and :func:`segment_attention_bwd` on
+    each block against the merged arrays. ``fwd_launches`` and
+    ``bwd_launches`` count the kernel launches made on this path (two a
+    call each), a part of the wrappers' own counts."""
+    fwd_launches = 0
+    bwd_launches = 0
+
+    @staticmethod
+    def forward(ctx, alpha_l, m_l, ids_l, offn_l, n_l, alpha_h, m_h, ids_h,
+                offn_h, n_h, num_nodes):
+        out_l, max_l, den_l = segment_attention(alpha_l, m_l, offn_l, n_l,
+                                                num_nodes, return_stats=True)
+        out_h, max_h, den_h = segment_attention(alpha_h, m_h, offn_h, n_h,
+                                                num_nodes, return_stats=True)
+        if alpha_l.is_cuda:
+            SegmentAttentionPair.fwd_launches += 2
+        out, gmax, den = merge_pair(out_l, max_l, den_l, out_h, max_h, den_h)
+        out = out.to(alpha_l.dtype)
+        ctx.save_for_backward(alpha_l, m_l, ids_l, n_l, alpha_h, m_h, ids_h,
+                              n_h, out, gmax, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha_l, m_l, ids_l, n_l, alpha_h, m_h, ids_h, n_h, out, gmax, den = \
+            ctx.saved_tensors
+        g = g.contiguous()
+        da_l, dm_l = segment_attention_bwd(alpha_l, m_l, ids_l, n_l, g, out,
+                                           gmax, den)
+        da_h, dm_h = segment_attention_bwd(alpha_h, m_h, ids_h, n_h, g, out,
+                                           gmax, den)
+        if alpha_l.is_cuda:
+            SegmentAttentionPair.bwd_launches += 2
+        return (da_l, dm_l, None, None, None, da_h, dm_h, None, None, None,
+                None)

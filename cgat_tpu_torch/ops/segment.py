@@ -50,3 +50,27 @@ def segment_softmax(scores, segment_ids, num_segments, *, mask=None,
                              torch.zeros_like(unnorm))
     denom = segment_sum(unnorm, segment_ids, num_segments)
     return unnorm / (denom[ids] + eps)
+
+
+def segment_softmax_pair(scores_a, ids_a, mask_a, scores_b, ids_b, mask_b,
+                         num_segments, *, eps=SOFTMAX_EPS):
+    """Segment softmax over the union of two row blocks (an edge-sharded
+    batch's local and halo blocks): each segment normalises over its rows
+    in both. Returns each block's weights ``(w_a, w_b)``, equal (the
+    softmax is shift-invariant) to :func:`segment_softmax` of the
+    concatenated blocks. Masked rows get weight exactly 0."""
+    sa = torch.where(_expand(mask_a, scores_a), scores_a,
+                     torch.full_like(scores_a, NEG_BIG))
+    sb = torch.where(_expand(mask_b, scores_b), scores_b,
+                     torch.full_like(scores_b, NEG_BIG))
+    mx = torch.maximum(segment_max(sa, ids_a, num_segments),
+                       segment_max(sb, ids_b, num_segments))
+    # exponentiate the masked scores: masked rows sit at NEG_BIG, so no
+    # exponent overflows in the branch that is not taken
+    ea = torch.where(_expand(mask_a, sa), torch.exp(sa - mx[ids_a.long()]),
+                     torch.zeros_like(sa))
+    eb = torch.where(_expand(mask_b, sb), torch.exp(sb - mx[ids_b.long()]),
+                     torch.zeros_like(sb))
+    den = (segment_sum(ea, ids_a, num_segments)
+           + segment_sum(eb, ids_b, num_segments))
+    return (ea / (den[ids_a.long()] + eps), eb / (den[ids_b.long()] + eps))

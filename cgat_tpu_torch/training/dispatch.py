@@ -22,6 +22,13 @@ steps and enters the arithmetic lives on the device (the optimizers'
 count and learning rate, ``training/optim.py``); the host's bookkeeping
 (the step count, the mini-step) is advanced after each replay. A failed
 capture or replay raises: the card never falls back to eager steps.
+
+On a rank of a parallel world under NCCL the step's collectives (the
+metrics' sums, the flat gradients' reduction, and under edge sharding the
+boundary exchange and the pool's) are captured with it; the key's eager
+first step has initialised the communicators. Every rank of a group
+collates to the same shapes, so all ranks capture and replay the same keys
+in step. A gloo world is never captured (``Trainer.train_step``).
 """
 from __future__ import annotations
 
@@ -34,8 +41,10 @@ from ..data.batching import CrystalBatch
 
 
 def signature(batch: CrystalBatch) -> tuple:
-    """The shapes of every field of ``batch``."""
-    return tuple(tuple(getattr(batch, f.name).shape)
+    """The shapes of every field of ``batch`` (None for a field that is
+    None)."""
+    return tuple(None if getattr(batch, f.name) is None
+                 else tuple(getattr(batch, f.name).shape)
                  for f in dataclasses.fields(batch))
 
 

@@ -114,8 +114,18 @@ class FlatOptimizer(_Params):
         return self.inner.count
 
     @torch.no_grad()
+    def apply(self) -> None:
+        """The update for the parameters' ``.grad``; ``reduce`` sums the
+        flat gradients (one tensor a dtype, then the big ones) over the
+        ranks, not the per-parameter ones."""
+        self.update(self._grads())
+
+    @torch.no_grad()
     def update(self, grads) -> None:
-        self.inner.update(self.layout.flatten(grads))
+        flat = self.layout.flatten(grads)
+        if self.reduce is not None:
+            self.reduce(flat)
+        self.inner.update(flat)
 
     def _per_param(self) -> dict:
         """The inner optimizer's state lists as per-parameter views."""

@@ -66,8 +66,11 @@ def _dtype_name(dtype) -> str:
 
 class _Params:
     """A parameter list and its gradients: ``_grads`` gives a zero tensor,
-    made once and kept, for a parameter without a gradient."""
+    made once and kept, for a parameter without a gradient. ``reduce``,
+    when set (by the data-parallel step), sums the gradients over the
+    ranks in place before the update."""
     phase = 0       # the host state ``apply`` branches on: none
+    reduce = None
 
     def __init__(self, params):
         self.params = list(params)
@@ -91,7 +94,10 @@ class _Params:
     @torch.no_grad()
     def apply(self) -> None:
         """The update for the parameters' ``.grad``, on the device only."""
-        self.update(self._grads())
+        grads = self._grads()
+        if self.reduce is not None:
+            self.reduce(grads)
+        self.update(grads)
 
     def advance(self) -> None:
         """The host's bookkeeping after ``apply``: nothing here."""
@@ -330,7 +336,10 @@ class MultiSteps:
     mini-steps (a running mean) and handed to ``inner`` every k-th one; in
     between the parameters do not change. ``lr`` is the inner
     optimizer's. The mini-step is host state: ``apply`` branches on it and
-    divides by it, so a CUDA graph of the step holds for one ``phase``."""
+    divides by it, so a CUDA graph of the step holds for one ``phase``.
+    ``reduce`` as :class:`_Params`', applied to each mini-step's
+    gradients."""
+    reduce = None
 
     def __init__(self, inner: _Optimizer, k: int):
         self.inner = inner
@@ -360,7 +369,10 @@ class MultiSteps:
 
     @torch.no_grad()
     def apply(self) -> None:
-        delta = torch._foreach_sub(self.inner._grads(), self.acc)
+        grads = self.inner._grads()
+        if self.reduce is not None:
+            self.reduce(grads)
+        delta = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
         if self.mini_step == self.k - 1:

@@ -30,10 +30,22 @@ from host generators, which a replay would repeat), it is an eager step.
 (``train_group``); the trajectory is that of K single steps. Model
 dropout with K > 1 raises.
 
+``n_devices`` N > 1 or ``edge_shards`` S > 1, or a ``torch.distributed``
+world already joined, make the trainer one rank of a dp x edge mesh
+(``parallel/``): N ranks (0: the world's size), dp = N / S replicas, each
+cut into S edge shards. Every rank builds the same weights and the same
+shuffled order, collates its own replica (its edge shard of it) and takes
+the parallel step (``parallel.make_parallel_train_step``: the global
+masked-mean loss, its gradient summed over the world); under NCCL each
+step replays its CUDA graph with the collectives inside, under gloo
+(the CPU, or several ranks on one card) it is eager, since gloo's
+collectives cannot be captured. Validation and embeddings run across the
+mesh too. Rank 0 alone writes ``metrics.jsonl``, TensorBoard and the
+checkpoints; a resume loads the same checkpoint on every rank.
+
 Not ported yet, each named by the ``TrainerConfig`` field that asks for it
 (which raises ``NotImplementedError`` with the slice that brings it):
-streaming and prefetch, the parallel and edge-sharded trainers, and
-profiling.
+streaming and prefetch, and profiling.
 """
 from __future__ import annotations
 
@@ -48,13 +60,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batching import CrystalBatch
 from ..data.dataset import GraphLoader, load_dataset_dir, split_dataset
 from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.init import init_state_dict
-from ..parallel import ParallelLoader
+from ..parallel import (ParallelLoader, init_distributed, local_batch,
+                        local_dp_rows, make_mesh, make_parallel_embed_step,
+                        make_parallel_eval_step, make_parallel_train_step)
 from ..utils.profiling import ThroughputMeter
 from . import losses as L
 from . import schedules
@@ -120,7 +135,8 @@ class TrainerConfig:
     # the JAX package's flag; no effect here: make_optimizer flattens
     # wherever the update is elementwise
     flat_optimizer: bool = False
-    # parallelism
+    # parallelism: ranks of the world (0: all it has) and edge shards a
+    # replica
     n_devices: int = 1
     edge_shards: int = 1
 
@@ -129,8 +145,6 @@ class TrainerConfig:
 _NOT_PORTED = (
     ("streaming", False, "slice 5 (streaming and prefetch)"),
     ("profile_epoch", -1, "slice 9 (tracing)"),
-    ("n_devices", 1, "slice 4 (data parallel)"),
-    ("edge_shards", 1, "slice 4 (edge sharding)"),
 )
 
 
@@ -142,7 +156,9 @@ def _check_ported(cfg: TrainerConfig) -> None:
                 f"yet; it comes with {where}")
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"moment_dtype must be one of {list(_MOMENT_DTYPES)}")
-    for field in ("acc_batches", "steps_per_dispatch"):
+    if cfg.n_devices < 0:
+        raise ValueError(f"n_devices must be at least 0, not {cfg.n_devices}")
+    for field in ("acc_batches", "steps_per_dispatch", "edge_shards"):
         if getattr(cfg, field) < 1:
             raise ValueError(f"{field} must be at least 1, not "
                              f"{getattr(cfg, field)}")
@@ -255,11 +271,23 @@ def _inference(method):
     return wrapped
 
 
+def _world_size(cfg: TrainerConfig) -> int:
+    """The ranks ``cfg`` asks for: ``n_devices``, or with 0 the joined
+    world's (or the environment's) size."""
+    if cfg.n_devices:
+        return cfg.n_devices
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
 class Trainer:
     """End-to-end trainer on one device (the CUDA card unless ``device``
-    says otherwise; raises if there is none). Without ``graphs`` it loads
-    ``cfg.data_path``, unless ``mean`` and ``std`` are given (a model
-    rebuilt for inference only)."""
+    says otherwise; raises if there is none), or one rank of a parallel
+    world (see the module's docstring; ``device`` then names the kind,
+    and the rank's card is its ``LOCAL_RANK``). Without ``graphs`` it
+    loads ``cfg.data_path``, unless ``mean`` and ``std`` are given (a
+    model rebuilt for inference only)."""
 
     def __init__(self, cfg: TrainerConfig, model_cfg: CGATConfig,
                  graphs=None, *, mean: float | None = None,
@@ -274,6 +302,23 @@ class Trainer:
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
+        # the mesh when this trainer is one rank of a parallel world
+        self.mesh = None
+        n = _world_size(cfg)
+        if n > 1 or cfg.edge_shards > 1 or dist.is_initialized():
+            if n % cfg.edge_shards:
+                raise ValueError(f"edge_shards={cfg.edge_shards} does not "
+                                 f"divide the {n} ranks")
+            have = (dist.get_world_size() if dist.is_initialized()
+                    else int(os.environ.get("WORLD_SIZE", 1)))
+            if have != n:
+                raise ValueError(
+                    f"n_devices={cfg.n_devices} asks for {n} ranks; the "
+                    f"world has {have} (start the ranks with torchrun or "
+                    f"cli.train --devices {n})")
+            self.device = init_distributed(self.device)
+            self.mesh = make_mesh(n // cfg.edge_shards, cfg.edge_shards)
+            local_dp_rows(self.mesh)    # raises if an edge group straddles
         self.criterion = L.make_loss(cfg.loss, cfg.robust_loss)
         self.model: CGAtNet | None = None
         self.opt = None
@@ -334,9 +379,19 @@ class Trainer:
         self.opt = make_optimizer(self.cfg, params)
         self.step = 0
         self.step_graphs = None
+        self._parallel_step = None
+        if self.mesh is not None:
+            self._parallel_step = make_parallel_train_step(
+                self.model, self.opt, self.criterion, self.mean, self.std,
+                self.mesh, seed=self.cfg.seed)
         n_params = sum(p.numel() for p in model.parameters())
         print(f"this model has {n_params:d} parameters")
         return self.model
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or dist.get_rank() == 0
 
     def loader(self, graphs, *, shuffle: bool) -> GraphLoader:
         cfg = self.cfg
@@ -353,6 +408,29 @@ class Trainer:
                               shuffle=True, seed=cfg.seed, max_nbr=cfg.max_nbr,
                               node_bucket=cfg.node_bucket,
                               num_comp_slots=cfg.num_comp_slots)
+
+    def mesh_loader(self, graphs, *, shuffle: bool,
+                    drop_last: bool = True) -> ParallelLoader:
+        """A rank's loader: groups of one batch a replica, this rank's
+        replica collated (``process_index`` its dp index), in edge shards
+        when the mesh has them; :meth:`rank_batch` takes its part."""
+        cfg, mesh = self.cfg, self.mesh
+        return ParallelLoader(graphs, cfg.batch_size, mesh.dp.size,
+                              shuffle=shuffle, seed=cfg.seed,
+                              max_nbr=cfg.max_nbr,
+                              node_bucket=cfg.node_bucket,
+                              num_comp_slots=cfg.num_comp_slots,
+                              drop_last=drop_last,
+                              edge_shards=mesh.edge.size,
+                              process_index=mesh.dp.index,
+                              process_count=mesh.dp.size)
+
+    def rank_batch(self, group: CrystalBatch) -> CrystalBatch:
+        """This rank's batch of a :meth:`mesh_loader` group, on its
+        device."""
+        mesh = self.mesh
+        return local_batch(group, 0, mesh.edge.index,
+                           mesh.edge.size).to(self.device)
 
     # -------------------------------------------------------------- step
 
@@ -385,6 +463,8 @@ class Trainer:
     def _step_on_device(self, batch: CrystalBatch) -> dict:
         """A step's work on the device, host state untouched (what a CUDA
         graph of the step captures)."""
+        if self._parallel_step is not None:
+            return self._parallel_step(batch, self.step)
         loss, metrics = self.forward_loss(batch)
         self.backward(loss)
         self._update_on_device()
@@ -395,9 +475,13 @@ class Trainer:
         scalars (read them on the host only where needed). On a CUDA card
         without model dropout, a replay of the step's CUDA graph for the
         batch's shapes and the optimizer's phase (captured after the
-        first, eager, step of each); else an eager step."""
+        first, eager, step of each); else an eager step. On a rank of a
+        parallel world ``batch`` is the rank's own (:meth:`rank_batch`),
+        and the step is replayed under NCCL only: gloo's collectives
+        cannot be captured."""
         batch = batch.to(self.device)
-        if self.device.type == "cuda" and not self.model_cfg.dropout:
+        if self.device.type == "cuda" and not self.model_cfg.dropout \
+                and (self.mesh is None or self.mesh.backend == "nccl"):
             if self.step_graphs is None:
                 self.step_graphs = StepGraphs(self.device)
             return self.step_graphs.step(batch, self.opt.phase,
@@ -435,8 +519,9 @@ class Trainer:
         run_name = cfg.run_name or \
             f"f-{cfg.seed}_t-{time.strftime('%Y-%m-%d_%H-%M-%S')}"
         log_dir = os.path.join(cfg.ckpt_dir, "runs", run_name)
-        logger = MetricsLogger(log_dir, cfg.log_tensorboard)
-        ckpt = CheckpointManager(log_dir)
+        logger = MetricsLogger(log_dir, cfg.log_tensorboard) \
+            if self.is_main else None
+        ckpt = CheckpointManager(log_dir) if self.is_main else None
         if cfg.clr:
             sched = schedules.cyclical_lr(period=cfg.clr_period,
                                           cycle_mul=0.1, tune_mul=0.05)
@@ -449,9 +534,13 @@ class Trainer:
             self._plateau = plateau
             lr_of_epoch = lambda e, m: cfg.learning_rate * (
                 plateau.step(m) if m is not None else plateau.scale)
-        grouped = cfg.steps_per_dispatch > 1
-        loader = (self.grouped_loader(self.train_graphs) if grouped
-                  else self.loader(self.train_graphs, shuffle=True))
+        grouped = cfg.steps_per_dispatch > 1 and self.mesh is None
+        if self.mesh is not None:
+            loader = self.mesh_loader(self.train_graphs, shuffle=True)
+        elif grouped:
+            loader = self.grouped_loader(self.train_graphs)
+        else:
+            loader = self.loader(self.train_graphs, shuffle=True)
         history, val_mae, vals_since_last = [], last_val_mae, 0
         try:
             for epoch in range(start_epoch, epochs):
@@ -460,12 +549,15 @@ class Trainer:
                 meter = ThroughputMeter()
                 steps = []
                 for batch in loader:
-                    if grouped:
+                    if self.mesh is not None:
+                        steps.append(self.train_step(self.rank_batch(batch)))
+                    elif grouped:
                         steps += self.train_group(batch)
                     else:
                         steps.append(self.train_step(batch))
                     meter.update(**loader.last_counts,
-                                 steps=cfg.steps_per_dispatch)
+                                 steps=cfg.steps_per_dispatch
+                                 if grouped else 1)
                 if not steps:
                     raise RuntimeError("training split smaller than one "
                                        "batch")
@@ -480,42 +572,52 @@ class Trainer:
                 rec = {"epoch": epoch, "lr": self.opt.lr,
                        **{f"train_{k}": v for k, v in train_m.items()},
                        **rates}
-                logger.log(self.step, epoch=epoch,
-                           train_loss=train_m["loss"],
-                           train_mae=train_m["mae"],
-                           train_rmse=train_m["rmse"], **rates)
+                if logger is not None:
+                    logger.log(self.step, epoch=epoch,
+                               train_loss=train_m["loss"],
+                               train_mae=train_m["mae"],
+                               train_rmse=train_m["rmse"], **rates)
                 if (epoch + 1) % cfg.check_val_every_n_epoch == 0 \
                         and self.val_graphs:
                     val = self.evaluate_split(self.val_graphs)
                     val_mae = val["mae"]
                     rec.update({f"val_{k}": v for k, v in val.items()})
-                    logger.log(self.step, epoch=epoch, val_loss=val["loss"],
-                               val_mae=val["mae"], val_rmse=val["rmse"])
+                    if logger is not None:
+                        logger.log(self.step, epoch=epoch,
+                                   val_loss=val["loss"], val_mae=val["mae"],
+                                   val_rmse=val["rmse"])
                     # best on improvement; last beside it for resume,
                     # copied when the two coincide, else every
-                    # last_ckpt_every validations
+                    # last_ckpt_every validations (the validation is
+                    # global, so every rank takes the same branch)
                     if val_mae < best_val:
                         best_val = val_mae
-                        ckpt.save(self, epoch=epoch, val_mae=val_mae,
-                                  best_val=best_val)
-                        ckpt.clone("best", "last")
+                        if ckpt is not None:
+                            ckpt.save(self, epoch=epoch, val_mae=val_mae,
+                                      best_val=best_val)
+                            ckpt.clone("best", "last")
                         vals_since_last = 0
                     else:
                         vals_since_last += 1
                         if vals_since_last >= cfg.last_ckpt_every:
-                            ckpt.save(self, epoch=epoch, val_mae=val_mae,
-                                      tag="last", best_val=best_val)
+                            if ckpt is not None:
+                                ckpt.save(self, epoch=epoch,
+                                          val_mae=val_mae, tag="last",
+                                          best_val=best_val)
                             vals_since_last = 0
                 history.append(rec)
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         self.last_log_dir = log_dir
         return history
 
     @_inference
     def evaluate_split(self, graphs) -> dict:
         """Masked-exact metrics over every graph: tail batches are padded,
-        not dropped."""
+        not dropped. Across the mesh on a rank of a parallel world."""
+        if self.mesh is not None:
+            return self.evaluate_split_parallel(graphs)
         loader = self.loader(graphs, shuffle=False)
         loader.drop_last = False
         tot, n = None, 0.0
@@ -530,6 +632,24 @@ class Trainer:
             return {"loss": float("nan"), "mae": float("nan"),
                     "rmse": float("nan")}
         return {k: v / n for k, v in tot.items()}
+
+    @_inference
+    def evaluate_split_parallel(self, graphs) -> dict:
+        """:meth:`evaluate_split` across the mesh: every replica evaluates
+        its own batches (the tail group padded with fully masked ones) and
+        the sums are reduced over the world; the same on every rank."""
+        step = make_parallel_eval_step(self.model, self.criterion,
+                                       self.mean, self.std, self.mesh)
+        tot = None
+        for group in self.mesh_loader(graphs, shuffle=False,
+                                      drop_last=False):
+            m = step(self.rank_batch(group))
+            tot = m if tot is None else {k: tot[k] + m[k] for k in m}
+        if tot is None:
+            return {"loss": float("nan"), "mae": float("nan"),
+                    "rmse": float("nan")}
+        n = float(tot.pop("n"))
+        return {k: float(v) / n for k, v in tot.items()}
 
     @_inference
     def predict(self, graphs) -> np.ndarray:
@@ -547,7 +667,10 @@ class Trainer:
     @_inference
     def embeddings(self, graphs) -> np.ndarray:
         """Graph embeddings (n, embedding_dim) as f32, in dataset order
-        (calculate_embeddings.py flow)."""
+        (calculate_embeddings.py flow); across the mesh on a rank of a
+        parallel world."""
+        if self.mesh is not None:
+            return self.embeddings_parallel(graphs)
         loader = self.loader(graphs, shuffle=False)
         loader.drop_last = False
         out = []
@@ -555,6 +678,19 @@ class Trainer:
             batch = batch.to(self.device)
             e = self.model(batch, return_graph_embedding=True)
             out.append(e[batch.graph_mask].float().cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0,))
+
+    @_inference
+    def embeddings_parallel(self, graphs) -> np.ndarray:
+        """:meth:`embeddings` across the mesh: each replica embeds its own
+        batches and the results are gathered over the dp axis, in dataset
+        order, on every rank."""
+        step = make_parallel_embed_step(self.model, self.mesh)
+        out = []
+        for group in self.mesh_loader(graphs, shuffle=False,
+                                      drop_last=False):
+            for rows in step(self.rank_batch(group)).cpu().numpy():
+                out.append(rows[rows[:, -1] > 0, :-1])
         return np.concatenate(out) if out else np.zeros((0,))
 
 
@@ -644,13 +780,18 @@ def _config_from(cls, stored: dict):
 
 
 def load_trainer(run_dir: str, *, train: bool = False, graphs=None,
-                 tag: str = "best", device=None, **overrides):
+                 tag: str = "best", device=None, parallel: bool = False,
+                 **overrides):
     """Rebuild a Trainer, its model loaded from a checkpoint
     (LightningModel.load, lightning_module.py:413-424). ``train`` loads the
     checkpoint's dataset when no ``graphs`` are given; ``overrides``
     replace TrainerConfig fields. The stored normalisation always wins.
-    Returns ``(trainer, meta)``."""
+    Returns ``(trainer, meta)``. Unless ``parallel`` (a resume, which runs
+    on the ranks the config or ``overrides`` ask for), the trainer is one
+    device's whatever ranks the checkpoint's run had."""
     device = resolve_device(device)
+    if not parallel:
+        overrides = {"n_devices": 1, "edge_shards": 1, **overrides}
     state_dict, meta = CheckpointManager.load(run_dir, tag=tag,
                                               map_location=device)
     tcfg = _config_from(TrainerConfig,
@@ -676,6 +817,6 @@ def resume_trainer(run_dir: str, *, graphs=None, tag: str = "last",
     train.py:64-76)."""
     trainer, meta = load_trainer(run_dir, train=graphs is None,
                                  graphs=graphs, tag=tag, device=device,
-                                 **overrides)
+                                 parallel=True, **overrides)
     CheckpointManager.load_state(run_dir, trainer, tag=tag)
     return trainer, meta

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Eight phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Nine phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -14,7 +14,12 @@ failure exits non-zero:
    calls, a yardstick the port never calls); hyper_apply bit-identical in
    two launches, with its device time by launch, and timed beside addmm
    for P, bmm of P's weight part with x and the tail added (a yardstick of
-   several calls the port never calls);
+   several calls the port never calls); then the pair path of the
+   edge-sharded layer (#1 on the local and the halo block, the f32 merge,
+   #2 on each block against the merged arrays) at edge shard 0's shapes
+   of an edge = 2 collate of request 0, with layer 0's real MH outputs,
+   against the plain pair function and its autograd gradient,
+   bit-identical in two launches and timed beside its bound;
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
    answers 3 requests of 64 crystals through ``ServingModel.predict``; each
    forward must launch mh_network x10, segment_attention x6 and
@@ -84,10 +89,23 @@ failure exits non-zero:
    device events a step, the optimizers' host ms and
    ``multi_tensor_apply`` launches, capture seconds and peak memory; then
    ``cli.train --steps-per-dispatch 2 --smoke-test`` on phase 5's data;
-8. report the card, and the eight kernels as one JSON line (with their
+8. parallel: the data-parallel and edge-sharded trainer
+   (``TrainerConfig(n_devices, edge_shards)``) on phase 4's model, 64
+   crystals a replica: dp = 2 and edge = 2 as two gloo ranks sharing the
+   card (spawned processes; eager steps, gloo's collectives staged
+   through the host), 3 steps each against one process on the same
+   groups, each rank's launches a step exact (edge = 2: 20/10/20 and
+   20/10/20/20/15, the pair path 10 and 10) and the boundary exchange's
+   rows and bytes a layer; a one-rank NCCL world through the parallel
+   step, its steps after the first replayed with the collectives
+   captured, against the one-card trainer; dp = 2 over NCCL when there
+   are two cards, else a line saying it was skipped;
+9. report the card, and the eight kernels as one JSON line (with their
    launches in phases 5 and 6 as ``cli_launches`` and
-   ``variants_launches``, a replayed step's as ``replay_launches``, and
-   #5 to #7 at the edge rows as ``edge_rows``); the last line is
+   ``variants_launches``, a replayed step's as ``replay_launches``, a
+   rank's a step in phase 8 as ``parallel_launches``, the pair path's
+   as ``pair_launches`` with its phase-2 check as ``pair_path``, and #5
+   to #7 at the edge rows as ``edge_rows``); the last line is
    ``{"ok": true, "device": {...}}``.
 
 Each phase's start goes to stderr with the seconds since start, so a run
@@ -142,6 +160,8 @@ N_DISPATCH = 4                 # steps a dispatch in phase 7
 N_DISPATCH_CHECKED = 2         # groups held graph against eager
 N_DISPATCH_TIMED = 20          # resident steps timed on each path
 N_DISPATCH_LOOP = 6            # groups timed with their collate and copy
+N_PARALLEL_STEPS = 3           # steps of each world in phase 8
+N_PARALLEL_REPLAYS = 4         # replayed steps of the one-rank NCCL world
 # a substring of the name of the device kernel each wrapper launches (a
 # fixed number of times a call): phase 7 counts a replayed step's launches
 # by these names
@@ -924,6 +944,126 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
                                         ssk.segment_sum(*pool))))
     report(rows)
     return rows
+
+
+def edge_launches(n: int) -> dict[str, int]:
+    """Kernel launches a rank makes in one training step under edge = 2
+    with an ``n``-layer default model: a node layer runs the MH kernel on
+    its local and its halo block (4), the pair path (#1 twice), its
+    hypernetwork (4); the crystal pool completes its softmax across the
+    ranks in plain ops (no #1); the backward adds the halo block's
+    destination gather to the two node gathers (3 segment sums a layer)
+    and the pool's gather is plain."""
+    return {"mh_network": 4 * n, "segment_attention": 2 * n,
+            "hyper_apply": 4 * n, "mh_network_bwd": 4 * n,
+            "segment_attention_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
+            "hyper_apply_bwd_dk": 4 * n, "segment_sum": 3 * n}
+
+
+def pair_counts() -> tuple[int, int]:
+    from cgat_tpu_torch.ops.kernels.segment_attention import \
+        SegmentAttentionPair as P
+    return P.fwd_launches, P.bwd_launches
+
+
+def reset_pair_counts() -> None:
+    from cgat_tpu_torch.ops.kernels.segment_attention import \
+        SegmentAttentionPair as P
+    P.fwd_launches = P.bwd_launches = 0
+
+
+def check_pair_path(model, graphs) -> dict:
+    """Phase 2's pair-path row: #1 on each block, the f32 merge and #2 on
+    each block against the merged arrays (``SegmentAttentionPair``), held
+    against the plain pair function and its autograd gradient at edge
+    shard 0's shapes of an edge = 2 collate of ``graphs``, with layer 0's
+    MH kernels on the real local and halo edge features (the halo block's
+    sources from shard 1 as the exchange would deliver them); two
+    launches must give the same bits."""
+    from cgat_tpu_torch.data import collate
+    from cgat_tpu_torch.ops.attention import edge_softmax_aggregate_pair
+    from cgat_tpu_torch.ops.kernels.segment_attention import \
+        segment_attention_pair_plain
+    from cgat_tpu_torch.parallel import local_batch, stack_batches
+
+    S = 2
+    whole = collate(graphs, num_graphs=N_GRAPHS, num_comp_slots=8,
+                    max_nbr=24, orig_fea=200, edge_shards=S).to("cuda")
+    b = local_batch(stack_batches([whole]), 0, 0, S)
+    n_loc = b.nodes.shape[0]
+    node = model.graphs[0].Node
+    with torch.no_grad():
+        x_all = model.embedding(whole.nodes)
+        x = x_all[:n_loc]
+        send = whole.halo_send_idx.long()
+        # rows shard 1 sends shard 0 (row 1*S + 0 of the send table)
+        table = torch.cat([x, x[send[0]], x_all[n_loc:][send[S]]])
+        dst = b.edge_dst
+        dst_h = b.halo_dst
+        m_cat = torch.cat([x[dst.long()], model.nbr_embedding(b.edge_shell),
+                           x[b.edge_src.long()]], -1)
+        m_cat_h = torch.cat([x[dst_h.long()],
+                             model.nbr_embedding(b.halo_shell),
+                             table[b.halo_src_ext.long()]], -1)
+        leaves = [node.MH_A(m_cat, flat=True), node.MH_M(m_cat, flat=True),
+                  node.MH_A(m_cat_h, flat=True),
+                  node.MH_M(m_cat_h, flat=True)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(n_loc, leaves[0].shape[1], generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    args = (dst, b.edge_mask, dst_h, b.halo_mask)
+
+    def run(fn, grad=True):
+        xs = [t.detach().clone().requires_grad_(grad) for t in leaves]
+        kw = ({"offn_l": b.edge_dst_offn, "offn_h": b.halo_dst_offn}
+              if fn is edge_softmax_aggregate_pair else {})
+        out = fn(xs[0], xs[1], args[0], args[1], xs[2], xs[3], args[2],
+                 args[3], n_loc, **kw)
+        if not grad:
+            return [out]
+        return [out.detach()] + list(torch.autograd.grad(out, xs, g))
+
+    got = run(edge_softmax_aggregate_pair)
+    want = run(segment_attention_pair_plain)
+    names = ("out", "dalpha_l", "dm_l", "dalpha_h", "dm_h")
+    checks = [compare(f"pair path {n}", a, w)
+              for n, a, w in zip(names, got, want)]
+    deterministic("pair path", lambda: run(edge_softmax_aggregate_pair))
+    e_l, e_h = int(b.edge_mask.sum()), int(b.halo_mask.sum())
+    hf = leaves[0].shape[1]
+    # forward: both blocks' alpha and m read, out/max/den of both blocks
+    # written and read by the merge, out written; backward: the four
+    # gradients written, alpha, m read again, g, out, max, den read twice
+    fwd_bytes = 2.0 * 2 * (e_l + e_h) * hf + (2 + 8 + 8) * 2 * n_loc * hf \
+        + 2.0 * n_loc * hf
+    bwd_bytes = 2.0 * 4 * (e_l + e_h) * hf + 2 * (2 + 2 + 4 + 4) * n_loc * hf
+    fb, fby = bound(fwd_bytes, 6.0 * (e_l + e_h) * hf + 12.0 * n_loc * hf,
+                    F32_FLOPS)
+    bb, bby = bound(bwd_bytes, 5.0 * (e_l + e_h) * hf, F32_FLOPS)
+    row = {"shape": {"local_rows": int(leaves[0].shape[0]),
+                     "halo_rows": int(leaves[2].shape[0]),
+                     "real_local": e_l, "real_halo": e_h, "hf": hf,
+                     "nodes": n_loc},
+           **checks_row(checks), "tolerance": KERNEL_TOL,
+           "norm_tolerance": NORM_TOL, "deterministic": True,
+           "fwd_ms": time_ms(lambda: run(edge_softmax_aggregate_pair,
+                                         grad=False)),
+           "fwd_plain_ms": time_ms(lambda: run(segment_attention_pair_plain,
+                                               grad=False)),
+           "fwd_and_bwd_ms": time_ms(lambda: run(edge_softmax_aggregate_pair)),
+           "fwd_and_bwd_plain_ms": time_ms(
+               lambda: run(segment_attention_pair_plain)),
+           "fwd_bound_ms": fb, "fwd_bound_by": fby,
+           "bwd_bound_ms": bb, "bwd_bound_by": bby}
+    print(f"[kernels] pair path (#1 x2, f32 merge, #2 x2) at shard 0 of "
+          f"edge = 2: {row['shape']}; max_abs_err {row['max_abs_err']:.3e}, "
+          f"norm-wise {row['rel_norm_err']:.3e} (tol {KERNEL_TOL} x "
+          f"max|plain|, {NORM_TOL}); forward {row['fwd_ms']:.4f} ms (plain "
+          f"{row['fwd_plain_ms']:.4f}, bound {fb:.4f} {fby}), forward and "
+          f"backward {row['fwd_and_bwd_ms']:.4f} ms (plain "
+          f"{row['fwd_and_bwd_plain_ms']:.4f}, backward bound {bb:.4f} "
+          f"{bby}); two launches bit-identical")
+    return row
 
 
 def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
@@ -1836,6 +1976,297 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     return stats, counts
 
 
+def parallel_graphs():
+    """Phase 8's traffic: phase 4's kind of crystals, 64 a replica batch,
+    enough for N_PARALLEL_STEPS groups of 2 replicas."""
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    return random_graphs(200, 2 * N_GRAPHS * N_PARALLEL_STEPS,
+                         n_atoms_range=(8, 16), max_nbr=24, full_degree=True)
+
+
+def _parallel_rank(rank: int, n: int, port: int, spec: dict) -> None:
+    """One rank of a phase-8 world (spawned): a ``Trainer`` with
+    ``n_devices`` n and ``edge_shards`` S takes N_PARALLEL_STEPS steps on
+    the rank's part of each group; its losses, step times and kernel
+    launches a step go to ``spec["out"]`` + rank."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+    from cgat_tpu_torch.models import CGATConfig
+    from cgat_tpu_torch.parallel import collectives, init_distributed
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+
+    init_distributed("cuda", backend=spec["backend"])
+    t = Trainer(TrainerConfig(n_devices=n, edge_shards=spec["edge_shards"],
+                              batch_size=N_GRAPHS, moment_dtype="bfloat16"),
+                CGATConfig(compute_dtype="bfloat16"), mean=spec["mean"],
+                std=spec["std"], device="cuda")
+    t.init_state(torch.load(spec["state_dict"]))
+    rec = {"losses": [], "step_ms": [], "launches": [], "pair": [],
+           "backend": t.mesh.backend, "device": str(t.device)}
+    for i, group in enumerate(t.mesh_loader(parallel_graphs(),
+                                            shuffle=False)):
+        if i == N_PARALLEL_STEPS:
+            break
+        batch = t.rank_batch(group)
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_pair_counts()
+        before = dict(collectives.calls)
+        t0 = time.perf_counter()
+        m = t.train_step(batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collectives"] = {k: v - before[k]
+                              for k, v in collectives.calls.items()}
+        rec["launches"].append(launch_counts())
+        rec["pair"].append(pair_counts())
+        rec["losses"].append(float(m["loss"]))
+    rec["replayed"] = t.step_graphs is not None
+    torch.save(rec, f"{spec['out']}{rank}")
+    dist.destroy_process_group()
+
+
+def one_process_losses(cfg, state_dict, mean, std, dp: int, shards: int
+                       ) -> list[float]:
+    """The losses of one process on the card taking the steps a dp x
+    ``shards`` world takes: each step's loss the global masked mean over
+    the group's dp replica batches (collated whole, not edge-sharded),
+    its gradient, and AdamW (eager steps)."""
+    from cgat_tpu_torch.parallel import ParallelLoader
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+
+    t = Trainer(TrainerConfig(batch_size=N_GRAPHS, moment_dtype="bfloat16"),
+                cfg, mean=mean, std=std, device="cuda")
+    t.init_state(state_dict)
+    losses = []
+    for i, group in enumerate(ParallelLoader(parallel_graphs(), N_GRAPHS, dp,
+                                             max_nbr=24, num_comp_slots=12)):
+        if i == N_PARALLEL_STEPS:
+            break
+        group = group.to("cuda")
+        out = torch.stack([t.model(group.map(lambda x: x[d]))
+                           for d in range(dp)])
+        loss = t.criterion(out[..., 0], out[..., 1],
+                           (group.target - mean) / std, group.graph_mask)
+        t.backward(loss)
+        t.apply_update()
+        losses.append(loss.detach().item())
+    return losses
+
+
+def exchange_stats(shards: int = 2) -> dict:
+    """The boundary exchange of the first edge = 2 group: rows a rank sends
+    a layer (every slot of the all_to_all, the padded self slot included),
+    the real boundary rows among them, and their bytes in bf16 at 128
+    features; the backward sends as many rows back."""
+    from cgat_tpu_torch.data import collate
+    group = parallel_graphs()[:N_GRAPHS]
+    b = collate(group, num_graphs=N_GRAPHS, num_comp_slots=12, max_nbr=24,
+                orig_fea=200, edge_shards=shards)
+    H = b.halo_send_idx.shape[1]
+    cap_h = b.halo_mask.shape[0] // shards
+    real = [int(torch.unique(b.halo_src_ext[d * cap_h:(d + 1) * cap_h][
+        b.halo_mask[d * cap_h:(d + 1) * cap_h]]).numel())
+        for d in range(shards)]
+    return {"halo_slots": H, "rows_per_rank_layer": shards * H,
+            "bytes_per_rank_layer": shards * H * 128 * 2,
+            "real_rows_received_per_rank_layer": real,
+            "local_edge_slots_per_shard": b.edge_mask.shape[0] // shards,
+            "halo_edge_slots_per_shard": cap_h,
+            "real_halo_edges_per_shard": [
+                int(b.halo_mask[d * cap_h:(d + 1) * cap_h].sum())
+                for d in range(shards)]}
+
+
+def run_world(tmp, n: int, shards: int, backend: str, state_path: str,
+              mean: float, std: float) -> list[dict]:
+    """Start an ``n``-rank world of ``_parallel_rank`` on this host (the
+    kernels already built) and return each rank's record."""
+    from cgat_tpu_torch.parallel.distributed import free_port
+    out = os.path.join(tmp, f"world-{n}-{shards}-{backend}-rank")
+    spec = {"edge_shards": shards, "backend": backend, "mean": mean,
+            "std": std, "state_dict": state_path, "out": out}
+    torch.multiprocessing.spawn(_parallel_rank, args=(n, free_port(), spec),
+                                nprocs=n, join=True)
+    return [torch.load(f"{out}{r}") for r in range(n)]
+
+
+def rel_diff(got: list[float], want: list[float]) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
+    """Phase 8: the data-parallel and edge-sharded trainer at full width.
+    (b) dp = 2 and (c) edge = 2 as two gloo ranks sharing the card (eager
+    steps, gloo's collectives staged through the host) against one
+    process on the same groups, with each rank's kernel launches a step
+    exact and (c)'s pair-path launches and exchange sizes; (a) a one-rank
+    NCCL world through the parallel step, replayed with its collectives
+    in the graph, against the one-card trainer; (d) dp = 2 over NCCL on
+    two cards, replayed, or a line saying it was skipped."""
+    import torch.distributed as dist
+    from cgat_tpu_torch.data import collate
+    from cgat_tpu_torch.parallel import collectives, init_distributed
+    from cgat_tpu_torch.parallel.distributed import free_port
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+
+    graphs = parallel_graphs()
+    ys = np.asarray([g.target for g in graphs], np.float64)
+    mean, std = float(ys.mean()), float(ys.std(ddof=1))
+    state_path = os.path.join(tmp, "parallel_weights.pt")
+    torch.save(state_dict, state_path)
+    torch.cuda.empty_cache()
+    stats = {"card": card, "crystals_per_replica": N_GRAPHS,
+             "steps": N_PARALLEL_STEPS}
+    n_layers = cfg.n_graph
+    want_dp = {**PER_FORWARD, **PER_BACKWARD}
+    want_edge = edge_launches(n_layers)
+    launches = {}
+    for label, n, shards, want in (("dp2_gloo", 2, 1, want_dp),
+                                   ("edge2_gloo", 2, 2, want_edge)):
+        progress(f"phase 8: {label}")
+        t0 = time.perf_counter()
+        ranks = run_world(tmp, n, shards, "gloo", state_path, mean, std)
+        wall = time.perf_counter() - t0
+        ref = one_process_losses(cfg, state_dict, mean, std, n // shards,
+                                 shards)
+        for r, rec in enumerate(ranks):
+            if rec["backend"] != "gloo" or rec["replayed"]:
+                fail(f"{label} rank {r}: {rec['backend']}, replayed "
+                     f"{rec['replayed']}")
+            if rec["losses"] != ranks[0]["losses"]:
+                fail(f"{label}: ranks disagree on the losses")
+            for i, got in enumerate(rec["launches"]):
+                if got != want:
+                    fail(f"{label} rank {r} step {i}: launches {got} != "
+                         f"{want}")
+            want_pair = (2 * n_layers, 2 * n_layers) if shards > 1 else (0, 0)
+            if any(tuple(p) != want_pair for p in rec["pair"]):
+                fail(f"{label} rank {r}: pair-path launches {rec['pair']} "
+                     f"!= {want_pair} a step")
+        diff = rel_diff(ranks[0]["losses"], ref)
+        if not diff <= MODEL_RTOL:
+            fail(f"{label}: losses {ranks[0]['losses']} vs one process "
+                 f"{ref} (largest relative difference {diff:.3e})")
+        stats[label] = {"losses": ranks[0]["losses"], "one_process": ref,
+                        "max_rel_diff": diff,
+                        "step_ms": [rec["step_ms"] for rec in ranks],
+                        "world_s": wall, "devices": [rec["device"]
+                                                     for rec in ranks],
+                        "collectives_per_step": ranks[0]["collectives"],
+                        "launches_per_rank_step": want}
+        launches[label] = want
+        print(f"[parallel] {label}: losses {ranks[0]['losses']} vs one "
+              f"process {ref}: largest relative difference {diff:.3e} (tol "
+              f"{MODEL_RTOL}); step ms by rank "
+              f"{[[round(x, 2) for x in rec['step_ms']] for rec in ranks]}"
+              f" (eager, gloo staged through the host); launches a rank "
+              f"and step {want}; world {wall:.1f} s")
+    stats["edge2_gloo"]["pair_launches_per_rank_step"] = {
+        "segment_attention": 2 * n_layers,
+        "segment_attention_bwd": 2 * n_layers}
+    stats["exchange"] = exchange_stats()
+    print(f"[parallel] edge2 exchange: {stats['exchange']}")
+
+    # (a) a world of one rank under NCCL against the one-card trainer, on
+    # same-shape batches, so that the steps after the first replay
+    progress("phase 8: one-rank NCCL world")
+    n_slots = 1024
+    batches = [collate(graphs[i * N_GRAPHS:(i + 1) * N_GRAPHS],
+                       num_graphs=N_GRAPHS, num_node_slots=n_slots,
+                       num_edge_slots=n_slots * 24, num_comp_slots=12,
+                       max_nbr=24, orig_fea=200)
+               for i in range(2)]
+    order = [batches[i % 2] for i in range(N_PARALLEL_REPLAYS + 1)]
+    tcfg = TrainerConfig(batch_size=N_GRAPHS, moment_dtype="bfloat16")
+
+    def run(trainer):
+        losses, ms = [], []
+        for b in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(b)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    one = Trainer(tcfg, cfg, mean=mean, std=std, device="cuda")
+    one.init_state(state_dict)
+    one_losses, one_ms = run(one)
+    del one
+    torch.cuda.empty_cache()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    init_distributed("cuda")
+    try:
+        rank = Trainer(TrainerConfig(n_devices=1, batch_size=N_GRAPHS,
+                                     moment_dtype="bfloat16"),
+                       cfg, mean=mean, std=std, device="cuda")
+        rank.init_state(state_dict)
+        if rank.mesh is None or rank.mesh.backend != "nccl":
+            fail("the one-rank world is not an NCCL mesh")
+        before = dict(collectives.calls)
+        rank_losses, rank_ms = run(rank)
+        issued = {k: v - before[k] for k, v in collectives.calls.items()}
+        keys = len(rank.step_graphs.graphs)
+        # the host issues a step's collectives in its eager first step and
+        # in its capture, never in a replay
+        if issued["all_reduce"] == 0 or issued["all_reduce"] % (2 * keys):
+            fail(f"the one-rank NCCL world issued {issued} collectives in "
+                 f"{len(order)} steps of {keys} graph keys")
+        b = order[-1].to("cuda")
+        per_name = device_ms(lambda: rank.train_step(b), 2)
+        nccl = {k[:60]: v for k, v in per_name.items()
+                if "nccl" in k.lower()}
+        del rank
+    finally:
+        dist.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+    diff = rel_diff(rank_losses, one_losses)
+    if not diff <= MODEL_RTOL:
+        fail(f"one-rank NCCL losses {rank_losses} vs one card "
+             f"{one_losses} (largest relative difference {diff:.3e})")
+    replayed = len(order) - keys
+    stats["nccl_one_rank"] = {
+        "losses": rank_losses, "one_card": one_losses, "max_rel_diff": diff,
+        "graph_keys": keys, "replayed_steps": replayed,
+        "collectives_issued": issued,
+        "replayed_step_ms": rank_ms[keys:], "one_card_step_ms": one_ms[keys:],
+        "replayed_step_ms_median": float(np.median(rank_ms[keys:])),
+        "one_card_step_ms_median": float(np.median(one_ms[keys:])),
+        "nccl_device_events": nccl}
+    print(f"[parallel] one-rank NCCL world: {replayed} of {len(order)} steps "
+          f"replayed ({keys} keys), losses {rank_losses} vs one card "
+          f"{one_losses}: largest relative difference {diff:.3e}; replayed "
+          f"step median {stats['nccl_one_rank']['replayed_step_ms_median']:.2f}"
+          f" ms vs one card {stats['nccl_one_rank']['one_card_step_ms_median']:.2f}"
+          f" ms; collectives issued from the host {issued} (each key's "
+          f"eager step and capture, none in a replay); NCCL device events "
+          f"in a replay: {nccl or 'none (a one-rank in-place all-reduce '
+                                  'launches nothing)'}")
+
+    if torch.cuda.device_count() >= 2:
+        progress("phase 8: dp2 over NCCL")
+        ranks = run_world(tmp, 2, 1, "nccl", state_path, mean, std)
+        ref = one_process_losses(cfg, state_dict, mean, std, 2, 1)
+        diff = rel_diff(ranks[0]["losses"], ref)
+        if not diff <= MODEL_RTOL or not all(r["replayed"] for r in ranks):
+            fail(f"dp2 over NCCL: losses {ranks[0]['losses']} vs {ref}")
+        stats["dp2_nccl"] = {"losses": ranks[0]["losses"], "one_process": ref,
+                             "max_rel_diff": diff,
+                             "step_ms": [r["step_ms"] for r in ranks]}
+        print(f"[parallel] dp2 over NCCL: {stats['dp2_nccl']}")
+    else:
+        stats["dp2_nccl"] = "skipped: one card"
+        print("[parallel] (d) dp = 2 over NCCL on two cards: skipped, "
+              f"{torch.cuda.device_count()} card")
+    return stats, launches
+
+
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
     """The card's forward vs the port's own bf16 forward on the CPU (plain
     versions), same weights, same batch."""
@@ -1903,6 +2334,7 @@ def main() -> int:
                      num_edge_slots=n0 * 24, num_comp_slots=8, max_nbr=24,
                      orig_fea=200).to(device)
     rows = check_kernels(model, batch0)
+    pair_row = check_pair_path(model, requests[0])
     progress("phase 3: serve")
     launches, stats = serve(model, requests)
     stats["breakdown"] = breakdown(model, requests[1], rows)
@@ -1919,7 +2351,9 @@ def main() -> int:
         var_stats, var_launches = variants(tmp, cfg, state_dict, cli_stats)
         progress("phase 7: dispatch")
         disp_stats, _ = dispatch(tmp, cfg, state_dict, cli_stats, card)
-    progress("phase 8: report")
+        progress("phase 8: parallel")
+        par_stats, par_launches = parallel(tmp, cfg, state_dict, card)
+    progress("phase 9: report")
 
     print(card_line())
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
@@ -1930,6 +2364,7 @@ def main() -> int:
     print(json.dumps({"cli": cli_stats}))
     print(json.dumps({"variants": var_stats}))
     print(json.dumps({"dispatch": disp_stats}))
+    print(json.dumps({"parallel": par_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
@@ -1947,6 +2382,13 @@ def main() -> int:
                 "cli_launches": cli_launches[r["name"]],
                 "variants_launches": var_launches[r["name"]],
                 "replay_launches": disp_stats["replay_launches"][r["name"]],
+                "parallel_launches": {k: v[r["name"]]
+                                      for k, v in par_launches.items()},
+                **({"pair_launches": par_stats["edge2_gloo"][
+                    "pair_launches_per_rank_step"][r["name"]],
+                    "pair_path": pair_row}
+                   if r["name"] in ("segment_attention",
+                                    "segment_attention_bwd") else {}),
                 "max_abs_err": r["max_abs_err"], "tolerance": KERNEL_TOL,
                 "rel_norm_err": r["rel_norm_err"], "norm_tolerance": NORM_TOL,
                 "checks": r["checks"],

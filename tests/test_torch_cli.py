@@ -271,9 +271,7 @@ def test_cli_flags_equal_cgat_tpu(argv):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["--devices", "2"], "slice 4"), (["--gpus", "4"], "slice 4"),
-    (["--edge-shards", "2"], "slice 4"), (["--streaming"], "slice 5"),
-    (["--profile-epoch", "0"], "slice 9"),
+    (["--streaming"], "slice 5"), (["--profile-epoch", "0"], "slice 9"),
 ])
 def test_flags_not_ported_raise(argv, slice_, tmp_path):
     """Before any data is read: the data path does not exist."""
@@ -286,7 +284,9 @@ def test_devices_zero_is_one_card_and_cuda_needs_a_card(prepared, capsys):
     _, p = _parsers()
     args = p.parse_args(["--devices", "0"])
     tcfg, _ = common.configs_from_args(args)
-    assert tcfg.n_devices == 1 and "one card" in capsys.readouterr().out
+    # every visible card: one on a one-card machine, and one without a
+    # card (where --device cuda then raises)
+    assert tcfg.n_devices == max(torch.cuda.device_count(), 1)
     if not torch.cuda.is_available():
         for main, argv in ((cli_train.main, ["--data-path", str(prepared)]),
                            (cli_evaluate.main, ["run"]),

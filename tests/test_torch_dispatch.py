@@ -245,12 +245,18 @@ def test_parallel_loader_equals_cgat_tpu(drop_last):
 
 
 def test_grouping_across_shards_or_processes_raises():
+    """Edge shards and process slicing group (slice 4); replicas that do
+    not split over the processes raise."""
     graphs = random_graphs(0, 12, **GRAPHS)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ParallelLoader(graphs, 4, 2, edge_shards=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        collate_group([graphs[:4], graphs[4:8]], batch_size=4, max_nbr=6,
-                      node_bucket=8, num_comp_slots=8, process_count=2)
+    group = next(iter(ParallelLoader(graphs, 4, 2, edge_shards=2, max_nbr=6,
+                                     node_bucket=8)))
+    assert group.halo_send_idx.shape[:2] == (2, 4)
+    with pytest.raises(ValueError, match="not divisible"):
+        ParallelLoader(graphs, 4, 3, process_count=2)
+    with pytest.raises(ValueError, match="do not split"):
+        collate_group([graphs[:4], graphs[4:8], graphs[8:]], batch_size=4,
+                      max_nbr=6, node_bucket=8, num_comp_slots=8,
+                      process_count=2)
 
 
 def _pair(tkw=None, mkw=None):

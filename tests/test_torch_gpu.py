@@ -759,3 +759,125 @@ def test_a_dropped_trainer_frees_its_step_graphs(dev):
     gone = weakref.ref(trainer)
     del trainer
     assert gone() is None
+
+
+def _pair_blocks(rng, hf, dtype, dev, n=400):
+    """A local and a halo block over ``n`` nodes, each dst-sorted with a
+    padded suffix, each skipping destinations the other has (and some
+    nodes in neither)."""
+    blocks = []
+    for nodes, rows, real in ((rng.choice(n, 300, replace=False), 4000,
+                               3500),
+                              (rng.choice(n, 90, replace=False), 640, 500)):
+        dst = np.sort(rng.choice(nodes, real)).astype(np.int32)
+        dst = np.concatenate([dst, np.full(rows - real, n - 1, np.int32)])
+        blocks += [torch.tensor(rng.standard_normal((rows, hf)) * 3,
+                                dtype=dtype, device=dev),
+                   torch.tensor(rng.standard_normal((rows, hf)),
+                                dtype=dtype, device=dev),
+                   torch.from_numpy(dst).to(dev),
+                   torch.from_numpy(np.arange(rows) < real).to(dev)]
+    return blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pair_path_kernels_match_plain(dev, dtype):
+    """The pair path (#1 on each block, the f32 merge, #2 on each block
+    against the merged arrays) against the plain pair function and its
+    autograd gradient, on dst-sparse blocks; two launches the same bits."""
+    from cgat_tpu_torch.ops.attention import edge_softmax_aggregate_pair
+    from cgat_tpu_torch.ops.kernels.segment_attention import (
+        SegmentAttentionPair, segment_attention_pair_plain)
+    n = 400
+    blocks = _pair_blocks(np.random.default_rng(3), 640, dtype, dev, n)
+    g = torch.randn(n, 640, device=dev).to(dtype)
+    leaves = [blocks[i] for i in (0, 1, 4, 5)]
+
+    def run(fn):
+        xs = [x.detach().clone().requires_grad_() for x in leaves]
+        out = fn(xs[0], xs[1], blocks[2], blocks[3], xs[2], xs[3],
+                 blocks[6], blocks[7], n)
+        return [out.detach()] + list(torch.autograd.grad(out, xs, g))
+
+    before = (SegmentAttentionPair.fwd_launches,
+              SegmentAttentionPair.bwd_launches, _launches())
+    got = run(edge_softmax_aggregate_pair)
+    assert (SegmentAttentionPair.fwd_launches,
+            SegmentAttentionPair.bwd_launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    after = _launches()
+    assert after["segment_attention"] == before[2]["segment_attention"] + 2
+    assert after["segment_attention_bwd"] == \
+        before[2]["segment_attention_bwd"] + 2
+    want = run(segment_attention_pair_plain)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            scale = float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) \
+                <= 2e-2 * scale
+    again = run(edge_softmax_aggregate_pair)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_two_rank_nccl_matches_one_rank(dev, tmp_path):
+    """dp = 2 over NCCL, one card a rank, each step a replay: the loss and
+    the parameters after one AdamW step against one process on the
+    concatenated group (the CPU's f32 oracle)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from cgat_tpu_torch.data.synthetic import random_graphs as graphs_of
+    from cgat_tpu_torch.models import CGATConfig as Config
+    from cgat_tpu_torch.parallel import ParallelLoader
+    from cgat_tpu_torch.training import losses, make_optimizer
+    from cgat_tpu_torch.training.optim import project_params
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from _torch_parallel_worker import GRAPHS, MEAN, STD, TINY
+    cfg = Config(**TINY)
+    state = init_state_dict(CGAtNet(cfg), seed=0)
+    torch.save(state, tmp_path / "w.pt")
+    spec = {"n_devices": 2, "edge_shards": 1, "device": "cuda",
+            "state_dict": str(tmp_path / "w.pt"), "graphs": 16,
+            "out": str(tmp_path / "out.pt")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "_torch_parallel_worker.py"),
+         "step", str(tmp_path / "spec.json")],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    for p in procs:
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, out[-4000:]
+    got = torch.load(tmp_path / "out.pt")
+    model = CGAtNet(cfg)
+    model.load_state_dict(state)
+    group = next(iter(ParallelLoader(graphs_of(0, 16, **GRAPHS), 4, 2,
+                                     max_nbr=4, node_bucket=8,
+                                     num_comp_slots=8)))
+    out = torch.stack([model(group.map(lambda t: t[d])) for d in range(2)])
+    loss = losses.make_loss("L1", False)(out[..., 0], out[..., 1],
+                                         (group.target - MEAN) / STD,
+                                         group.graph_mask)
+    loss.backward()
+    opt = make_optimizer(TrainerConfig(optim="AdamW", learning_rate=1e-3),
+                         list(model.parameters()))
+    opt.apply()
+    project_params(model)
+    np.testing.assert_allclose(got["loss"], loss.item(), rtol=1e-4)
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
+                                   rtol=1e-2, atol=1e-3, err_msg=k)

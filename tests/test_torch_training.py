@@ -440,8 +440,7 @@ def test_bf16_train_step_runs_every_plain_backward(monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     graphs = random_graphs(0, 12, **GRAPHS)
-    for field, value in (("streaming", True), ("n_devices", 2),
-                         ("edge_shards", 2), ("profile_epoch", 0)):
+    for field, value in (("streaming", True), ("profile_epoch", 0)):
         with pytest.raises(NotImplementedError, match=field):
             Trainer(TrainerConfig(**{field: value}), CGATConfig(**TINY),
                     graphs, device="cpu")
