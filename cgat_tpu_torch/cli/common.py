@@ -11,9 +11,11 @@ the same to both; ``--device`` (the CUDA card by default, ``cpu`` on
 request) is the port's own, its counterpart of choosing the JAX platform.
 ``--devices N`` is the number of ranks (one card each under NCCL; gloo
 processes with ``--device cpu``), 0 meaning every visible card, and
-``--edge-shards S`` must divide it. Flags whose feature is not ported yet
-(``--streaming``, ``--profile-epoch``) raise ``NotImplementedError`` naming
-the slice that brings it, before any data is read.
+``--edge-shards S`` must divide it. ``--streaming`` trains from the shards
+under ``--data-path`` (out of core; ``--val-path`` required). A flag whose
+feature is not ported yet (``--profile-epoch``) raises
+``NotImplementedError`` naming the slice that brings it, before any data
+is read.
 """
 from __future__ import annotations
 
@@ -172,7 +174,6 @@ def device_from_args(args) -> torch.device:
 
 # (flag, dest, the value the port runs, the slice that brings the rest)
 _NOT_PORTED = (
-    ("--streaming", "streaming", False, "slice 5 (streaming and prefetch)"),
     ("--profile-epoch", "profile_epoch", -1, "slice 9 (tracing)"),
 )
 

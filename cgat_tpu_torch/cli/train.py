@@ -5,7 +5,9 @@
 
 Fresh training, exact resume (``--ckp <run dir>``), and a full fine-tune
 from a checkpoint (``--pretrained-model <run dir>``). Runs on the CUDA card
-unless ``--device cpu``.
+unless ``--device cpu``. ``--streaming --val-path <dir>`` trains out of
+core from the ``*.pickle.gz`` shards under ``--data-path``, one shard in
+host memory at a time.
 
 ``--devices N`` (N > 1; 0 is every visible card) trains on N ranks with
 ``--edge-shards S`` edge shards a replica: this command builds the CUDA

@@ -1,8 +1,11 @@
-"""JAX parameter tree -> the port's (reference-layout) ``state_dict``.
+"""JAX parameter tree <-> the port's (reference-layout) ``state_dict``.
 
-The port's own copy of the numpy-only mapping in
+``state_dict_from_jax`` is the port's own copy of the numpy-only mapping in
 ``cgat_tpu/tools/import_torch.py`` (``export_state_dict``); the port imports
-nothing of the JAX package. Layout transforms:
+nothing of the JAX package. ``flat_from_state_dict`` is its inverse: the
+flat ``a/b/c`` arrays of a serving artifact's ``params.npz`` (the keys
+``_flatten_params`` gives in ``cgat_tpu/serving/artifact.py``). Layout
+transforms:
 
 * flax kernels are ``(in, out)``; ``nn.Linear.weight`` is ``(out, in)``;
 * MultiHeadNetwork kernels ``(H, out, in)`` become the grouped Conv1d
@@ -33,6 +36,14 @@ def _unflatten(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = arr
     return tree
+
+
+def _children(keys, prefix: str) -> list[int]:
+    """The integer indices ``k`` of the ``{prefix}.{k}...`` keys, sorted."""
+    n = len(prefix) + 1
+    return sorted({int(k[n:].split(".", 1)[0]) for k in keys
+                   if k.startswith(prefix + ".")
+                   and k[n:].split(".", 1)[0].isdigit()})
 
 
 def _np(w) -> np.ndarray:
@@ -134,3 +145,91 @@ def state_dict_from_jax(params: dict, cfg) -> dict:
         else:                                             # fc_{k}
             linear(out_nn[key], f"output_nn.fcs.{key[3:]}")
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def flat_from_state_dict(state_dict: dict) -> dict[str, np.ndarray]:
+    """The JAX package's flat parameter arrays (``{"graph_0_Node/MH_A/
+    fc_in_kernel": ...}``, float32) of a port ``state_dict``: the inverse
+    of :func:`state_dict_from_jax` for every model it maps (``no_hyper``
+    either way, ``update_edges=False``, ``split_projection``), every
+    transpose and head split undone."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy()
+          for k, v in state_dict.items()}
+    keys = list(sd)
+    flat: dict[str, np.ndarray] = {}
+
+    def put(key: str, arr):
+        flat[key] = np.ascontiguousarray(arr, dtype=np.float32)
+
+    def mh(ref: str, ours: str):
+        hidden = sd[f"{ref}.fc_out.weight"].shape[1]
+        heads = sd[f"{ref}.fc_in.weight"].shape[0] // hidden
+        for conv in ("fc_in", "fc_out"):
+            w = sd[f"{ref}.{conv}.weight"][:, :, 0]       # (H*out, in)
+            put(f"{ours}/{conv}_kernel", w.reshape(heads, -1, w.shape[1]))
+            put(f"{ours}/{conv}_bias",
+                sd[f"{ref}.{conv}.bias"].reshape(heads, -1))
+
+    def linear(ref: str, ours: str):
+        put(f"{ours}/kernel", sd[f"{ref}.weight"].T)
+        if f"{ref}.bias" in sd:
+            put(f"{ours}/bias", sd[f"{ref}.bias"])
+
+    def simple(ref: str, ours: str):
+        for k in _children(keys, f"{ref}.fcs"):
+            linear(f"{ref}.fcs.{k}", f"{ours}/fc_{k}")
+        linear(f"{ref}.fc_out", f"{ours}/fc_out")
+
+    def fc_block(ref: str, ours: str):
+        ks = _children(keys, f"{ref}.net")
+        for k in ks[:-1]:
+            put(f"{ours}/fc_{k}_kernel", sd[f"{ref}.net.{k}.net.0.weight"].T)
+            put(f"{ours}/fc_{k}_bias", sd[f"{ref}.net.{k}.net.0.bias"])
+        put(f"{ours}/fc_last_kernel", sd[f"{ref}.net.{ks[-1]}.weight"].T)
+        put(f"{ours}/fc_last_bias", sd[f"{ref}.net.{ks[-1]}.bias"])
+
+    def pooling(ref: str, ours: str):
+        layers = _children(keys, f"{ref}.Hyper.layers")
+        if not layers:
+            simple(ref, ours)
+            return
+        for j in layers[:-1]:
+            fc_block(f"{ref}.Hyper.layers.{j}.hyper_linear.hypo_params",
+                     f"{ours}/Hyper/layer_{j}/hypo_params")
+        fc_block(f"{ref}.Hyper.layers.{layers[-1]}.hypo_params",
+                 f"{ours}/Hyper/layer_last/hypo_params")
+        if f"{ref}.damping" in sd:
+            put(f"{ours}/damping", sd[f"{ref}.damping"])
+
+    def gat(ref: str, ours: str):
+        mh(f"{ref}.MH_A", f"{ours}/MH_A")
+        mh(f"{ref}.MH_M", f"{ours}/MH_M")
+        if any(k.startswith(f"{ref}.Pooling_NN.") for k in keys):
+            pooling(f"{ref}.Pooling_NN", f"{ours}/Pooling_NN")
+
+    linear("embedding", "embedding")
+    put("nbr_embedding/embedding", sd["nbr_embedding.weight"])
+    for i in _children(keys, "graphs"):
+        for kind in ("Node", "Edge"):
+            if f"graphs.{i}.{kind}.MH_A.fc_in.weight" in sd:
+                gat(f"graphs.{i}.{kind}", f"graph_{i}_{kind}")
+    linear("roost.embedding", "roost/embedding")
+    for i in _children(keys, "roost.graphs"):
+        pool = f"roost.graphs.{i}.pooling.0"
+        simple(f"{pool}.gate_nn", f"roost/graph_{i}/head0_gate_nn")
+        simple(f"{pool}.message_nn", f"roost/graph_{i}/head0_message_nn")
+        put(f"roost/graph_{i}/head0_pow", sd[f"{pool}.pow"])
+    simple("roost.cry_pool.0.gate_nn", "roost/cry_pool0_gate_nn")
+    put("roost/cry_pool0_pow", sd["roost.cry_pool.0.pow"])
+    gat("cry_pool", "cry_pool")
+    for k in _children(keys, "output_nn.fcs"):
+        linear(f"output_nn.fcs.{k}", f"output_nn/fc_{k}")
+    for k in _children(keys, "output_nn.res_fcs"):
+        linear(f"output_nn.res_fcs.{k}", f"output_nn/res_fc_{k}")
+    for k in _children(keys, "output_nn.rezeros"):
+        put(f"output_nn/rezero_{k}/alpha", sd[f"output_nn.rezeros.{k}.alpha"])
+    linear("output_nn.fc_out", "output_nn/fc_out")
+    if len(flat) != len(sd):
+        raise ValueError(f"{len(sd) - len(flat)} state_dict entries have no "
+                         f"place in the JAX parameter tree")
+    return flat

@@ -17,9 +17,10 @@ package's ``psum`` of ``value_and_grad``, and equal to one process on the
 concatenated batch. Not DDP's mean of per-rank means, which differs
 whenever ranks hold different numbers of real crystals.
 
-``collate_group`` and ``ParallelLoader`` group D consecutive minibatches,
-padded to group-wide shapes that every rank computes alike; a rank
-collates only its own replicas (``process_index`` of ``process_count``).
+``collate_group``, ``ParallelLoader`` and ``StreamingParallelLoader`` (the
+same over a shard stream) group D consecutive minibatches, padded to
+group-wide shapes that every rank computes alike; a rank collates only
+its own replicas (``process_index`` of ``process_count``).
 The K-step dispatch of one process (``steps_per_dispatch``) uses them with
 one replica a step.
 """
@@ -146,13 +147,58 @@ class ParallelLoader:
 
 
 class StreamingParallelLoader:
-    """The grouped loader over an out-of-core shard stream: not ported
-    yet."""
+    """The grouped loader over an out-of-core shard stream
+    (``data.streaming.StreamingGraphLoader``: one shard in host memory, the
+    next parsed on a thread, the same order in a resumed run): D
+    consecutive minibatches of the stream become one stacked group with
+    group-wide shapes (:func:`collate_group`).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StreamingParallelLoader is not ported yet; it comes with slice "
-            "5 (streaming and prefetch)")
+    Every process streams every shard in the same order, so the group's
+    shapes agree, and collates only its own ``D / process_count`` replica
+    rows; the stream itself must not be process-sliced. The tail partial
+    group is dropped (training loaders drop the last batch)."""
+
+    def __init__(self, stream, n_replicas: int, *, edge_shards: int = 1,
+                 process_index: int = 0, process_count: int = 1):
+        if n_replicas % process_count:
+            raise ValueError(f"n_replicas={n_replicas} not divisible by "
+                             f"process_count={process_count}")
+        self.stream = stream
+        self.n_replicas = n_replicas
+        self.edge_shards = edge_shards
+        self.process_index = process_index
+        self.process_count = process_count
+
+    def __len__(self):
+        return len(self.stream) // self.n_replicas
+
+    def set_epoch(self, epoch: int) -> None:
+        self.stream.set_epoch(epoch)
+
+    def __iter__(self):
+        st = self.stream
+        bs = st.batch_size
+        D = self.n_replicas
+        carry, group = [], []
+        for graphs in st._shards():
+            carry.extend(graphs)
+            while len(carry) >= bs:
+                group.append(carry[:bs])
+                carry = carry[bs:]
+                if len(group) == D:
+                    self.last_counts = {
+                        "edges": sum(len(x.edge_src)
+                                     for c in group for x in c),
+                        "graphs": sum(len(c) for c in group)}
+                    yield collate_group(
+                        group, batch_size=bs, max_nbr=st.max_nbr,
+                        node_bucket=st.node_bucket,
+                        num_comp_slots=st.num_comp_slots,
+                        max_degree=st.max_degree,
+                        edge_shards=self.edge_shards,
+                        process_index=self.process_index,
+                        process_count=self.process_count)
+                    group = []
 
 
 def _cell_sums(out, batch, mean, std, criterion):

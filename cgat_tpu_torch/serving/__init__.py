@@ -1,3 +1,3 @@
-from .artifact import ServingModel, load_artifact
+from .artifact import ServingModel, export_artifact, load_artifact
 
-__all__ = ["ServingModel", "load_artifact"]
+__all__ = ["ServingModel", "export_artifact", "load_artifact"]

@@ -1,29 +1,56 @@
-"""Serve a prediction artifact with the port.
+"""Export a trained run as a prediction artifact, and serve one, with the
+port.
 
-Counterpart of ``load_artifact`` / ``ServingModel`` in
-``cgat_tpu/serving/artifact.py``. It reads the ``manifest.json`` and
-``params.npz`` that ``cgat_tpu.serving.export_artifact`` writes (the JAX
-``fn_*.bin`` modules are ignored), rebuilds ``CGAtNet`` from the manifest's
-model config, and predicts bucketed, batched and denormalised, on the card
-unless the caller asks for the CPU.
+Counterpart of ``cgat_tpu/serving/artifact.py``. ``export_artifact`` turns
+a port run directory (``checkpoints/{tag}.pt`` and ``{tag}.json``) into the
+artifact layout that ``cgat_tpu.serving.export_artifact`` writes:
+``params.npz`` (the f32 master weights as the JAX package's flat
+``a/b/c`` arrays) and a ``manifest.json`` of format 2 with the
+normalisation, the model and collate config, the signature table and the
+source run. It lowers no StableHLO module: every signature's ``files`` is
+empty and ``platforms`` names where the port serves (``cuda``, ``cpu``),
+so ``cgat_tpu.serving.load_artifact`` refuses such an artifact with its
+own "artifact was lowered for ..." error. ``load_artifact`` reads both
+kinds (the JAX ``fn_*.bin`` modules are ignored), rebuilds ``CGAtNet``
+from the manifest's model config, and predicts bucketed, batched and
+denormalised, on the card unless the caller asks for the CPU.
+
+On the card each signature's forward (embed and head, returning the
+prediction, ``log_std`` and the graph embedding) is a CUDA graph, the
+counterpart of the JAX package's pre-lowered executable a signature: the
+first request of a signature runs eagerly (the warm-up, whose result is
+kept), then the forward is captured once into static input buffers;
+every later request of that signature copies its collated batch into the
+buffers and replays the graph, so no Python model graph runs on the hot
+path. Graphs are keyed on every field's shape of the
+collated batch and share one memory pool a ``ServingModel``, released
+when the model is dropped. A failed capture or replay raises: the card
+never falls back to eager serving. On the CPU serving is eager.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import time
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from ..data.batching import collate
+from ..data.batching import CrystalBatch, collate
 from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
-from ..models.convert import state_dict_from_jax
+from ..models.convert import flat_from_state_dict, state_dict_from_jax
+from ..training.dispatch import signature
 
 _MANIFEST = "manifest.json"
 _PARAMS = "params.npz"
 _FORMAT = 2        # the manifest layout cgat_tpu's export_artifact writes
+PLATFORMS = ("cuda", "cpu")     # where the port serves an artifact
+# the JAX package's default when a trainer config leaves the composition
+# slots to the data (the CLIs' --num-comp-slots default)
+_DEFAULT_COMP_SLOTS = 12
 
 
 def config_from_manifest(manifest: dict) -> CGATConfig:
@@ -37,12 +64,127 @@ def config_from_manifest(manifest: dict) -> CGATConfig:
     return CGATConfig(**{k: v for k, v in d.items() if k in fields})
 
 
+def _sig_key(num_graphs: int, num_node_slots: int) -> str:
+    return f"c{num_graphs}_n{num_node_slots}"
+
+
+def export_artifact(run_dir: str, out_dir: str, *, tag: str = "best",
+                    batch_size: int | None = None,
+                    node_buckets: Sequence[int] | None = None,
+                    platforms: Sequence[str] = PLATFORMS) -> dict:
+    """Export a port run directory into a serving artifact; returns the
+    manifest. ``node_buckets``: the signatures' node-slot counts, each with
+    ``E = N * max_nbr`` edge slots (the featuriser gives every atom
+    ``max_nbr`` neighbours); {1, 2, 4} x the trainer's node bucket by
+    default. ``platforms`` is recorded; one the port cannot serve on
+    raises."""
+    from ..training.trainer import CheckpointManager, TrainerConfig, \
+        _config_from
+
+    bad = [p for p in platforms if p not in PLATFORMS]
+    if bad:
+        raise ValueError(
+            f"the port serves on {', '.join(PLATFORMS)}, not on "
+            f"{', '.join(bad)}; export an artifact for {', '.join(bad)} with "
+            f"python -m cgat_tpu.cli.export")
+    state_dict, meta = CheckpointManager.load(run_dir, tag=tag,
+                                              map_location="cpu")
+    tcfg = _config_from(TrainerConfig, meta["trainer_config"])
+    mcfg = _config_from(CGATConfig, meta["model_config"])
+    C = int(batch_size or tcfg.batch_size)
+    if node_buckets is None:
+        node_buckets = (tcfg.node_bucket, 2 * tcfg.node_bucket,
+                        4 * tcfg.node_bucket)
+    R = int(tcfg.num_comp_slots or _DEFAULT_COMP_SLOTS)
+    max_nbr = int(tcfg.max_nbr)
+    sigs = [{"key": _sig_key(C, n), "num_graphs": C, "num_node_slots": n,
+             "num_edge_slots": n * max_nbr, "num_comp_slots": R,
+             "files": {}}
+            for n in sorted({int(n) for n in node_buckets})]
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez_compressed(os.path.join(out_dir, _PARAMS),
+                        **flat_from_state_dict(state_dict))
+    manifest = {
+        "format": _FORMAT,
+        "mean": float(meta["mean"]), "std": float(meta["std"]),
+        "model_config": dataclasses.asdict(mcfg),
+        "collate": {"max_nbr": max_nbr, "num_comp_slots": R,
+                    "orig_fea": int(mcfg.orig_elem_fea_len),
+                    "node_bucket": tcfg.node_bucket,
+                    "fea_path": tcfg.fea_path, "target": tcfg.target},
+        "platforms": list(platforms),
+        "signatures": sigs,
+        "source_run": os.path.abspath(run_dir),
+        "checkpoint_tag": tag,
+        "checkpoint_epoch": meta.get("epoch"),
+        "val_mae": meta.get("val_mae"),
+    }
+    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=2)
+    return manifest
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    static: CrystalBatch      # inputs, copied in before each replay
+    outputs: tuple            # prediction, log_std, embedding
+
+
+class ServingGraphs:
+    """The CUDA graphs of a forward on ``device``, one per batch shape
+    signature, in one memory pool; ``capture_s`` holds each key's capture
+    seconds. Like ``training.dispatch.StepGraphs`` it keeps no reference
+    to the model, whose forward comes with each call. It makes no stream
+    of its own: an inference forward needs no side stream for its
+    warm-up, and a new stream would keep its cuBLAS workspace after the
+    model is dropped."""
+
+    def __init__(self, device):
+        self.device = device
+        self.graphs: dict[tuple, _Graph] = {}
+        self.capture_s: dict[tuple, float] = {}
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def run(self, batch: CrystalBatch, forward) -> tuple:
+        """``forward`` on ``batch`` (host tensors): a replay of its
+        signature's graph, or for a new signature the eager warm-up and
+        then the capture. The outputs are the graph's own buffers, valid
+        until the next replay of that signature."""
+        key = signature(batch)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._first(key, batch, forward)
+        g.static.copy_(batch)
+        g.graph.replay()
+        return g.outputs
+
+    def _first(self, key, batch: CrystalBatch, forward) -> tuple:
+        static = batch.to(self.device)
+        outputs = forward(static)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                captured = forward(static)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the serving forward as a CUDA graph failed (batch "
+                f"shapes {key[:2]}); the card does not fall back to eager "
+                f"serving") from e
+        self.capture_s[key] = time.perf_counter() - t0
+        self.graphs[key] = _Graph(graph, static, captured)
+        return outputs
+
+
 class ServingModel:
     """A model ready to serve: bucketed, batched, denormalised prediction.
 
     ``manifest`` carries ``mean``/``std``, the ``collate`` settings and the
     ``signatures`` table (static batch shapes); ``model`` is a ``CGAtNet``
-    already on its device and in its compute dtype.
+    already on its device and in its compute dtype. On a card each
+    signature's forward is a replayed CUDA graph (``graphs``); on the CPU
+    it is eager (``graphs`` is None).
     """
 
     def __init__(self, manifest: dict, model: CGAtNet):
@@ -53,6 +195,8 @@ class ServingModel:
                                  key=lambda s: s["num_node_slots"])
         self.mean = float(manifest["mean"])
         self.std = float(manifest["std"])
+        self.graphs = (ServingGraphs(self.device)
+                       if self.device.type == "cuda" else None)
 
     def _pick(self, n_atoms: int) -> dict:
         for sig in self.signatures:
@@ -61,6 +205,18 @@ class ServingModel:
         raise ValueError(
             f"batch needs {n_atoms} node slots but the artifact's largest "
             f"signature has {self.signatures[-1]['num_node_slots']}")
+
+    def forward(self, batch: CrystalBatch) -> tuple:
+        """One batch on the device: the denormalised prediction, ``log_std``
+        and the f32 graph embedding of every graph slot."""
+        emb = self.model.embed(batch)
+        out = self.model.head(emb)
+        return out[:, 0] * self.std + self.mean, out[:, 1], emb.float()
+
+    def _run(self, batch: CrystalBatch) -> tuple:
+        if self.graphs is None:
+            return self.forward(batch.to(self.device))
+        return self.graphs.run(batch, self.forward)
 
     @torch.inference_mode()
     def predict(self, graphs, *, return_embeddings: bool = False):
@@ -79,15 +235,13 @@ class ServingModel:
                             num_edge_slots=sig["num_edge_slots"],
                             num_comp_slots=sig["num_comp_slots"],
                             max_nbr=col["max_nbr"],
-                            orig_fea=col["orig_fea"]).to(self.device)
-            # one forward gives both the head output and the embedding
-            emb = self.model.embed(batch)
-            out = self.model.head(emb)
+                            orig_fea=col["orig_fea"])
+            pred, log_std, emb = self._run(batch)
             n = len(chunk)            # real graphs fill the leading slots
-            preds.append((out[:n, 0] * self.std + self.mean).cpu().numpy())
-            log_stds.append(out[:n, 1].cpu().numpy())
+            preds.append(pred[:n].cpu().numpy())
+            log_stds.append(log_std[:n].cpu().numpy())
             if return_embeddings:
-                embs.append(emb[:n].float().cpu().numpy())
+                embs.append(emb[:n].cpu().numpy())
         cat = (lambda xs: np.concatenate(xs) if xs
                else np.zeros((0,), np.float32))
         if return_embeddings:
@@ -96,8 +250,9 @@ class ServingModel:
 
 
 def load_artifact(artifact_dir: str, device=None) -> ServingModel:
-    """Load an artifact directory onto ``device`` (the CUDA card when None;
-    raises if there is none)."""
+    """Load an artifact directory (written by this module's or
+    cgat_tpu's ``export_artifact``) onto ``device`` (the CUDA card when
+    None; raises if there is none)."""
     device = resolve_device(device)
     with open(os.path.join(artifact_dir, _MANIFEST)) as f:
         manifest = json.load(f)

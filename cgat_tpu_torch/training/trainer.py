@@ -43,9 +43,19 @@ collectives cannot be captured. Validation and embeddings run across the
 mesh too. Rank 0 alone writes ``metrics.jsonl``, TensorBoard and the
 checkpoints; a resume loads the same checkpoint on every rank.
 
-Not ported yet, each named by the ``TrainerConfig`` field that asks for it
+``streaming`` trains out of core from the ``*.pickle.gz`` shards under
+``data_path`` (``data/streaming.py``, one shard in host memory): the
+normalisation and the static-shape bounds come from one cached scan of
+the shards, ``val_path`` is required and the validation and test sets
+are loaded in memory; the plain, grouped and mesh loaders each have their
+streaming variant, in the same order after a resume. Every loader of
+``fit``, ``evaluate_split``, ``predict`` and ``embeddings`` is wrapped in
+``data.prefetch.PrefetchLoader``, which collates the next batches on a
+host thread while the card works.
+
+Not ported yet, named by the ``TrainerConfig`` field that asks for it
 (which raises ``NotImplementedError`` with the slice that brings it):
-streaming and prefetch, and profiling.
+profiling.
 """
 from __future__ import annotations
 
@@ -64,11 +74,14 @@ import torch.distributed as dist
 
 from ..data.batching import CrystalBatch
 from ..data.dataset import GraphLoader, load_dataset_dir, split_dataset
+from ..data.prefetch import PrefetchLoader
+from ..data.streaming import StreamingGraphLoader, scan_shard_metadata
 from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.init import init_state_dict
-from ..parallel import (ParallelLoader, init_distributed, local_batch,
-                        local_dp_rows, make_mesh, make_parallel_embed_step,
+from ..parallel import (ParallelLoader, StreamingParallelLoader,
+                        init_distributed, local_batch, local_dp_rows,
+                        make_mesh, make_parallel_embed_step,
                         make_parallel_eval_step, make_parallel_train_step)
 from ..utils.profiling import ThroughputMeter
 from . import losses as L
@@ -143,7 +156,6 @@ class TrainerConfig:
 
 # (field, the value the port runs, the slice of the port that brings the rest)
 _NOT_PORTED = (
-    ("streaming", False, "slice 5 (streaming and prefetch)"),
     ("profile_epoch", -1, "slice 9 (tracing)"),
 )
 
@@ -287,7 +299,8 @@ class Trainer:
     world (see the module's docstring; ``device`` then names the kind,
     and the rank's card is its ``LOCAL_RANK``). Without ``graphs`` it
     loads ``cfg.data_path``, unless ``mean`` and ``std`` are given (a
-    model rebuilt for inference only)."""
+    model rebuilt for inference only); under ``cfg.streaming`` it scans
+    the shards there instead and ignores ``graphs``."""
 
     def __init__(self, cfg: TrainerConfig, model_cfg: CGATConfig,
                  graphs=None, *, mean: float | None = None,
@@ -327,7 +340,10 @@ class Trainer:
         # first training step on the card
         self.step_graphs: StepGraphs | None = None
         self._plateau = None
-        if graphs is not None:
+        self._stream_meta = None
+        if cfg.streaming:
+            self._setup_streaming()
+        elif graphs is not None:
             self._setup_data(graphs)
         elif mean is not None:
             self.mean, self.std = float(mean), float(std)
@@ -357,6 +373,33 @@ class Trainer:
         self.mean = float(ys.mean())
         self.std = float(ys.std(ddof=1)) if len(ys) > 1 else 1.0
         print(f"mean: {self.mean} std: {self.std}")
+
+    def _setup_streaming(self):
+        """Out of core: one cached scan of the training shards gives the
+        normalisation and the static-shape bounds; the shards stay on
+        disk, the validation and test sets load in memory from their own
+        paths, and the composition slots are pinned dataset-wide."""
+        cfg = self.cfg
+        if cfg.val_path is None:
+            raise ValueError("streaming=True requires --val-path (the "
+                             "training shards are never all in memory, so "
+                             "index-based splits cannot apply)")
+        self._stream_meta = scan_shard_metadata(
+            cfg.data_path, target=cfg.target, fea_path=cfg.fea_path,
+            max_nbr=cfg.max_nbr)
+        self.mean = self._stream_meta["mean"]
+        self.std = self._stream_meta["std"]
+        print(f"mean: {self.mean} std: {self.std} "
+              f"({self._stream_meta['n_graphs']} streamed graphs)")
+        self.train_graphs = []
+        self.val_graphs = _load(cfg, cfg.val_path)
+        self.test_graphs = _load(cfg, cfg.test_path) if cfg.test_path else []
+        if cfg.num_comp_slots is None:
+            self.cfg = dataclasses.replace(cfg, num_comp_slots=max(
+                self._stream_meta["num_comp_slots"],
+                max((g.comp_fea.shape[0]
+                     for g in self.val_graphs + self.test_graphs),
+                    default=1)))
 
     # ------------------------------------------------------------- state
 
@@ -399,6 +442,38 @@ class Trainer:
                            seed=cfg.seed, max_nbr=cfg.max_nbr,
                            node_bucket=cfg.node_bucket,
                            num_comp_slots=cfg.num_comp_slots)
+
+    def _streaming_loader(self) -> StreamingGraphLoader:
+        """The shuffled stream of training batches over the shards."""
+        cfg = self.cfg
+        return StreamingGraphLoader(
+            cfg.data_path, cfg.batch_size, target=cfg.target,
+            fea_path=cfg.fea_path, shuffle=True, seed=cfg.seed,
+            max_nbr=cfg.max_nbr, node_bucket=cfg.node_bucket,
+            meta=self._stream_meta)
+
+    def train_loader(self):
+        """The training loader ``fit`` iterates (inside its prefetcher):
+        a rank's groups on a mesh, groups of ``steps_per_dispatch``
+        batches, or single batches; over the shards under
+        ``cfg.streaming``, where every rank streams every shard and
+        collates its own replica."""
+        cfg, mesh = self.cfg, self.mesh
+        if mesh is not None:
+            if cfg.streaming:
+                return StreamingParallelLoader(
+                    self._streaming_loader(), mesh.dp.size,
+                    edge_shards=mesh.edge.size, process_index=mesh.dp.index,
+                    process_count=mesh.dp.size)
+            return self.mesh_loader(self.train_graphs, shuffle=True)
+        if cfg.steps_per_dispatch > 1:
+            if cfg.streaming:
+                return StreamingParallelLoader(self._streaming_loader(),
+                                               cfg.steps_per_dispatch)
+            return self.grouped_loader(self.train_graphs)
+        if cfg.streaming:
+            return self._streaming_loader()
+        return self.loader(self.train_graphs, shuffle=True)
 
     def grouped_loader(self, graphs) -> ParallelLoader:
         """The shuffled training loader of groups of
@@ -535,12 +610,7 @@ class Trainer:
             lr_of_epoch = lambda e, m: cfg.learning_rate * (
                 plateau.step(m) if m is not None else plateau.scale)
         grouped = cfg.steps_per_dispatch > 1 and self.mesh is None
-        if self.mesh is not None:
-            loader = self.mesh_loader(self.train_graphs, shuffle=True)
-        elif grouped:
-            loader = self.grouped_loader(self.train_graphs)
-        else:
-            loader = self.loader(self.train_graphs, shuffle=True)
+        loader = PrefetchLoader(self.train_loader())
         history, val_mae, vals_since_last = [], last_val_mae, 0
         try:
             for epoch in range(start_epoch, epochs):
@@ -620,6 +690,7 @@ class Trainer:
             return self.evaluate_split_parallel(graphs)
         loader = self.loader(graphs, shuffle=False)
         loader.drop_last = False
+        loader = PrefetchLoader(loader)
         tot, n = None, 0.0
         for batch in loader:
             batch = batch.to(self.device)
@@ -657,6 +728,7 @@ class Trainer:
         padded, so every graph gets one."""
         loader = self.loader(graphs, shuffle=False)
         loader.drop_last = False
+        loader = PrefetchLoader(loader)
         preds = []
         for batch in loader:
             batch = batch.to(self.device)
@@ -673,6 +745,7 @@ class Trainer:
             return self.embeddings_parallel(graphs)
         loader = self.loader(graphs, shuffle=False)
         loader.drop_last = False
+        loader = PrefetchLoader(loader)
         out = []
         for batch in loader:
             batch = batch.to(self.device)
@@ -797,7 +870,7 @@ def load_trainer(run_dir: str, *, train: bool = False, graphs=None,
     tcfg = _config_from(TrainerConfig,
                         {**meta["trainer_config"], **overrides})
     mcfg = _config_from(CGATConfig, meta["model_config"])
-    if train and graphs is None:
+    if train and graphs is None and not tcfg.streaming:
         graphs = _load(tcfg, tcfg.data_path)
     trainer = Trainer(tcfg, mcfg, graphs, mean=meta["mean"], std=meta["std"],
                       device=device)
@@ -814,7 +887,8 @@ def resume_trainer(run_dir: str, *, graphs=None, tag: str = "last",
     ``trainer.fit(start_epoch=meta['epoch'] + 1, best_val=meta['best_val'],
     plateau_state=meta['plateau'], last_val_mae=meta['val_mae'])``, which
     reproduces the uninterrupted run (reference resume_from_checkpoint,
-    train.py:64-76)."""
+    train.py:64-76). A streaming run streams its shards again, in the
+    same order."""
     trainer, meta = load_trainer(run_dir, train=graphs is None,
                                  graphs=graphs, tag=tag, device=device,
                                  parallel=True, **overrides)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Nine phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Eleven phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -21,12 +21,17 @@ failure exits non-zero:
    against the plain pair function and its autograd gradient,
    bit-identical in two launches and timed beside its bound;
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
-   answers 3 requests of 64 crystals through ``ServingModel.predict``; each
-   forward must launch mh_network x10, segment_attention x6 and
-   hyper_apply x20 and no backward kernel, give finite outputs, and (first
-   request) agree with the port's own bf16 forward on the CPU; then one
-   request's time is broken down into collate, copy, forward and the card's
-   busy time;
+   answers 3 requests of 64 crystals through ``ServingModel.predict``,
+   each signature's forward a CUDA graph: a signature's first request (the
+   eager warm-up, then the capture) must call mh_network x10,
+   segment_attention x6 and hyper_apply x20 twice and no backward kernel,
+   a later one none; it is timed with its capture and peak memory. A
+   replayed request must give the eager warm-up's bits on the same batch
+   and launch 10/6/20 (the profiler's device events by kernel name); the
+   steady replayed requests are timed beside an eager ServingModel's on
+   the same requests. The forward agrees with the port's own bf16 forward
+   on the CPU; then one eager request's time is broken down into collate,
+   copy, forward and the card's busy time;
 4. train: ``cgat_tpu_torch.training.Trainer`` takes 3 checked and 10 timed
    AdamW steps of the same model (f32 master weights, bf16 compute, bf16
    first moment) on batches of 64 crystals. Each checked step must give a
@@ -87,7 +92,9 @@ failure exits non-zero:
    events by kernel name, from the profiler: a replay calls no wrapper);
    eager and replayed step times, the card's busy time, idle share and
    device events a step, the optimizers' host ms and
-   ``multi_tensor_apply`` launches, capture seconds and peak memory; then
+   ``multi_tensor_apply`` launches, capture seconds and peak memory; the
+   replayed step with its groups' collate and copy over one epoch of 7
+   groups, iterated inline and through ``PrefetchLoader`` in turns; then
    ``cli.train --steps-per-dispatch 2 --smoke-test`` on phase 5's data;
 8. parallel: the data-parallel and edge-sharded trainer
    (``TrainerConfig(n_devices, edge_shards)``) on phase 4's model, 64
@@ -100,12 +107,24 @@ failure exits non-zero:
    step, its steps after the first replayed with the collectives
    captured, against the one-card trainer; dp = 2 over NCCL when there
    are two cards, else a line saying it was skipped;
-9. report the card, and the eight kernels as one JSON line (with their
+9. export: ``cli.export`` on phase 5's run directory, ``load_artifact``
+   on the card, phase 3's requests served from it with exact launches (a
+   warm-up and a capture for each signature, replays after), the
+   predictions within phase 3's bf16 tolerance of that run's trainer's
+   own ``predict``;
+10. streaming: phase 5's crystals in 4 shards (its validation split
+   apart), ``cli.train --streaming --smoke-test`` with single steps and
+   with ``--steps-per-dispatch 2``: finite metrics, exact launches for
+   the stream's captured keys, fewer keys than steps, graphs/s beside
+   phase 5's in-memory epochs;
+11. report the card, and the eight kernels as one JSON line (with their
    launches in phases 5 and 6 as ``cli_launches`` and
    ``variants_launches``, a replayed step's as ``replay_launches``, a
    rank's a step in phase 8 as ``parallel_launches``, the pair path's
-   as ``pair_launches`` with its phase-2 check as ``pair_path``, and #5
-   to #7 at the edge rows as ``edge_rows``); the last line is
+   as ``pair_launches`` with its phase-2 check as ``pair_path``, #5
+   to #7 at the edge rows as ``edge_rows``, a replayed request's as
+   ``serve_replay_launches``, phase 9's as ``export_launches`` and phase
+   10's as ``streaming_launches``); the last line is
    ``{"ok": true, "device": {...}}``.
 
 Each phase's start goes to stderr with the seconds since start, so a run
@@ -117,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import faulthandler
+import gc
 import gzip
 import io
 import json
@@ -162,6 +182,7 @@ N_DISPATCH_TIMED = 20          # resident steps timed on each path
 N_DISPATCH_LOOP = 6            # groups timed with their collate and copy
 N_PARALLEL_STEPS = 3           # steps of each world in phase 8
 N_PARALLEL_REPLAYS = 4         # replayed steps of the one-rank NCCL world
+N_SHARDS = 4                   # shards phase 10 streams phase 5's crystals from
 # a substring of the name of the device kernel each wrapper launches (a
 # fixed number of times a call): phase 7 counts a replayed step's launches
 # by these names
@@ -588,50 +609,145 @@ def check_kernels(model, batch) -> list[dict]:
     return rows
 
 
-def serve(model, requests) -> tuple[dict, dict]:
-    """Phase 3: answer the requests through ServingModel.predict."""
+def serving_manifest(requests) -> dict:
+    """Phase 3's manifest: one signature of 64 crystals a multiple of 64
+    node slots up to the largest request, mean 0 and std 1."""
     from cgat_tpu_torch.data import pad_to_bucket
-    from cgat_tpu_torch.serving import ServingModel
 
     max_atoms = max(sum(g.n_atoms for g in r) for r in requests)
     sigs = [{"key": f"c{N_GRAPHS}_n{n}", "num_graphs": N_GRAPHS,
              "num_node_slots": n, "num_edge_slots": n * 24,
              "num_comp_slots": 8}
             for n in range(64, pad_to_bucket(max_atoms, 64) + 1, 64)]
-    manifest = {"mean": 0.0, "std": 1.0, "signatures": sigs,
-                "collate": {"max_nbr": 24, "orig_fea": 200}}
-    server = ServingModel(manifest, model)
-    want = {**dict.fromkeys(launch_counts(), 0), **PER_FORWARD}
+    return {"mean": 0.0, "std": 1.0, "signatures": sigs,
+            "collate": {"max_nbr": 24, "orig_fea": 200}}
+
+
+def settled_allocated() -> int:
+    """The card's allocated bytes once every dropped object is collected
+    and the cache emptied."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def forward_events_a_call(server, graphs) -> dict[str, float]:
+    """Device events a wrapper call of each forward kernel, from the
+    profiler over eager requests (``server.graphs`` None), whose wrapper
+    counts are exact."""
     reset_counts()
-    ms = []
+    prof = device_ms(lambda: server.predict(graphs), 3)
+    calls = {k: v / 3 for k, v in launch_counts().items() if v}
+    if calls != PER_FORWARD:
+        fail(f"eager requests launched {calls} a request, not {PER_FORWARD}")
+    if not prof:
+        fail("the profiler recorded no device events")
+    per_call = {k: v / calls[k] for k, v in kernel_events(prof).items()
+                if k in PER_FORWARD}
+    if any(v < 1 or v != round(v) for v in per_call.values()):
+        fail(f"device events a call {per_call} are not whole numbers")
+    return per_call
+
+
+def serve(model, requests, card: str) -> tuple[dict, dict]:
+    """Phase 3: answer the requests through ``ServingModel.predict`` on the
+    card, each signature's forward a replayed CUDA graph. A signature's
+    first request (eager warm-up, then the capture) must call each
+    wrapper twice a forward, a later one never; a replay must give the
+    warm-up's bits on the same batch and, by the profiler's device events
+    by kernel name, launch 10/6/20. Each signature's first request is
+    timed with its capture and peak memory; the steady replayed requests
+    beside an eager ServingModel's on the same requests."""
+    from cgat_tpu_torch.serving import ServingModel
+
+    manifest = serving_manifest(requests)
+    allocated = settled_allocated()
+    server = ServingModel(manifest, model)
+    zero = dict.fromkeys(launch_counts(), 0)
+    capture = {**zero, **{k: 2 * v for k, v in PER_FORWARD.items()}}
+    reset_counts()
+    ms, first = [], {}
     for i, graphs in enumerate(requests):
+        keys = len(server.graphs.graphs)
         before = launch_counts()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         pred, log_std = server.predict(graphs)
         ms.append((time.perf_counter() - t0) * 1e3)
         got = {k: v - before[k] for k, v in launch_counts().items()}
-        if got != want:
-            fail(f"request {i}: kernel launches {got} != {want}")
+        new = len(server.graphs.graphs) - keys
+        if new not in (0, 1) or got != (capture if new else zero):
+            fail(f"request {i}: kernel launches {got} with {new} new "
+                 f"graphs; a signature's first request calls each wrapper "
+                 f"twice a forward, a replay never")
         if pred.shape != (len(graphs),) or not (
                 np.isfinite(pred).all() and np.isfinite(log_std).all()):
             fail(f"request {i}: predictions not finite with shape "
                  f"({len(graphs)},)")
-        print(f"[serve] request {i}: {len(graphs)} crystals, "
-              f"{sum(g.n_atoms for g in graphs)} atoms, {ms[-1]:.2f} ms, "
-              f"launches {got}")
+        n_atoms = sum(g.n_atoms for g in graphs)
+        if new:
+            key = list(server.graphs.graphs)[-1]
+            first[str(key[0][0])] = {
+                "request_ms": ms[-1],
+                "capture_ms": server.graphs.capture_s[key] * 1e3,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"[serve] request {i}: {len(graphs)} crystals, {n_atoms} "
+              f"atoms, {ms[-1]:.2f} ms "
+              f"({'warm-up and capture' if new else 'replay'}), launches "
+              f"{got}")
+    for n, r in first.items():
+        print(f"[serve] signature of {n} node slots, first request: "
+              f"{r['request_ms']:.2f} ms (capture {r['capture_ms']:.2f} ms), "
+              f"peak device memory {r['peak_memory_gib']:.2f} GiB ({card})")
     launches = launch_counts()
-    timed = []
-    for _ in range(N_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        server.predict(requests[1])
-        timed.append((time.perf_counter() - t0) * 1e3)
-    stats = {"request_ms": ms, "steady_ms_median": float(np.median(timed)),
-             "steady_ms_min": float(np.min(timed))}
+
+    # a replay against the eager warm-up on the same batch
+    warm = server.predict(requests[0], return_embeddings=True)
+    again = server.predict(requests[0], return_embeddings=True)
+    if not all(np.array_equal(a, b) for a, b in zip(warm, again)):
+        fail("a replayed request differs from the eager warm-up's bits on "
+             "the same batch")
+    # the launches of one replay, from the profiler
+    eager = ServingModel(manifest, model)
+    eager.graphs = None                      # the same forward, eagerly
+    per_call = forward_events_a_call(eager, requests[1])
+    reset_counts()
+    prof = device_ms(lambda: server.predict(requests[1]), 3)
+    if any(launch_counts().values()):
+        fail(f"a replayed request called kernel wrappers: {launch_counts()}")
+    replayed = {k: v / per_call[k] for k, v in kernel_events(prof).items()
+                if k in PER_FORWARD}
+    if replayed != PER_FORWARD:
+        fail(f"a replayed request launched {replayed}, not {PER_FORWARD}")
+    busy = sum(v[0] for v in prof.values())
+    timed = {"replay": timed_ms(lambda: server.predict(requests[1]), N_TIMED),
+             "eager": timed_ms(lambda: eager.predict(requests[1]), N_TIMED)}
+    stats = {"request_ms": ms, "first_request": first,
+             "replay_bit_equal": True,
+             "replay_launches": {k: int(v) for k, v in replayed.items()},
+             "device_events_a_call": per_call,
+             "replay_device_busy_ms": busy,
+             "replay_device_events": sum(v[1] for v in prof.values())}
+    for name, t in timed.items():
+        stats[f"{name}_ms_median"] = float(np.median(t))
+        stats[f"{name}_ms_min"] = float(np.min(t))
+    # the names phase 3 kept before its requests replayed
+    stats["steady_ms_median"] = stats["replay_ms_median"]
+    stats["steady_ms_min"] = stats["replay_ms_min"]
+    del server, eager
+    stats["left_after_drop_bytes"] = settled_allocated() - allocated
+    print(f"[serve] a replayed request equals the eager warm-up bit for bit; "
+          f"it launches {stats['replay_launches']} (device events by kernel "
+          f"name, {per_call} a call), device busy {busy:.2f} ms in "
+          f"{stats['replay_device_events']:.0f} events; both servers "
+          f"dropped, {stats['left_after_drop_bytes']} bytes stay allocated")
     print(f"[serve] steady state over {N_TIMED} requests of {N_GRAPHS}: "
-          f"median {stats['steady_ms_median']:.2f} ms, min "
-          f"{stats['steady_ms_min']:.2f} ms")
+          f"replayed median {stats['replay_ms_median']:.2f} ms, min "
+          f"{stats['replay_ms_min']:.2f} ms; eager median "
+          f"{stats['eager_ms_median']:.2f} ms, min {stats['eager_ms_min']:.2f}"
+          f" ms ({card})")
     return launches, stats
 
 
@@ -1269,8 +1385,7 @@ def cli_graph_keys(argv: list[str], epochs) -> tuple[int, int]:
     with contextlib.redirect_stdout(io.StringIO()):
         probe = Trainer(tcfg, mcfg, device="cuda")
     k = tcfg.steps_per_dispatch
-    loader = (probe.grouped_loader(probe.train_graphs) if k > 1
-              else probe.loader(probe.train_graphs, shuffle=True))
+    loader = probe.train_loader()
     sigs, steps = set(), 0
     for e in epochs:
         loader.set_epoch(e)
@@ -1429,6 +1544,164 @@ def cli(tmp: str) -> tuple[dict, dict]:
           f"save {stats['checkpoint_save_ms']:.1f} ms, load into the trainer "
           f"{stats['checkpoint_load_ms']:.1f} ms (medians of 3); best and "
           f"last load")
+    return stats, total
+
+
+def export(tmp, requests, card: str) -> tuple[dict, dict]:
+    """Phase 9: ``cli.export`` on phase 5's run directory (its signatures
+    the node buckets of phase 3's requests), ``load_artifact`` on the card,
+    and phase 3's requests served from it: each signature's first request
+    the eager warm-up and the capture, the rest replays, with exact
+    launches; the predictions agree with that run's trainer's own
+    ``predict`` within the bf16 tolerance of phase 3's CPU check. Returns
+    the phase's numbers and the wrapper launches of the served requests."""
+    from cgat_tpu_torch.cli import export as cli_export
+    from cgat_tpu_torch.data import pad_to_bucket
+    from cgat_tpu_torch.serving import load_artifact
+    from cgat_tpu_torch.training import load_trainer
+
+    run = os.path.join(tmp, "logs", "runs", "cli")
+    out = os.path.join(tmp, "artifact")
+    buckets = sorted({pad_to_bucket(sum(g.n_atoms for g in r), 64)
+                      for r in requests})
+    zero = dict.fromkeys(launch_counts(), 0)
+    t0 = time.perf_counter()
+    _, text = cli_call("cli.export", cli_export.main,
+                       [run, out, "--node-buckets", *map(str, buckets)],
+                       zero, phase=9)
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    if [s["num_node_slots"] for s in manifest["signatures"]] != buckets or \
+            manifest["platforms"] != ["cuda", "cpu"]:
+        fail(f"cli.export wrote signatures {manifest['signatures']} and "
+             f"platforms {manifest['platforms']}")
+    progress("phase 9: load_artifact and serve")
+    reset_counts()
+    t0 = time.perf_counter()
+    server = load_artifact(out)
+    load_s = time.perf_counter() - t0
+    if server.device.type != "cuda" or server.graphs is None:
+        fail("load_artifact did not serve on the card")
+    ms, preds = [], []
+    for graphs in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds.append(server.predict(graphs)[0])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    want = {**zero, **{k: 2 * v * len(buckets) for k, v in PER_FORWARD.items()}}
+    if launches != want or len(server.graphs.graphs) != len(buckets):
+        fail(f"the artifact's requests launched {launches}, not {want} (a "
+             f"warm-up and a capture for each of {len(buckets)} signatures)")
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, meta = load_trainer(run, tag="best", device="cuda")
+    errs = []
+    for i, (graphs, got) in enumerate(zip(requests, preds)):
+        ref = trainer.predict(graphs)
+        scale = float(np.abs(ref).max())
+        errs.append(float(np.abs(got - ref).max()))
+        if got.shape != ref.shape or not np.isfinite(got).all() or \
+                not np.allclose(got, ref, rtol=MODEL_RTOL,
+                                atol=MODEL_RTOL * scale):
+            fail(f"request {i}: the artifact's predictions differ from the "
+                 f"trainer's by {errs[-1]:.3e} (max|pred| {scale:.3e})")
+    stats = {"export_s": export_s, "load_s": load_s, "request_ms": ms,
+             "signatures": buckets, "max_abs_diff_to_trainer": errs,
+             "checkpoint_epoch": meta["epoch"], "cli_line": text.strip()}
+    print(f"[export] {text.strip()} in {export_s:.2f} s; load_artifact on "
+          f"the card {load_s:.2f} s; requests {[round(m, 2) for m in ms]} ms "
+          f"(the first of each signature captures); launches {launches}; "
+          f"predictions within {max(errs):.3e} of the trainer's own "
+          f"predict (rtol {MODEL_RTOL}, atol {MODEL_RTOL} x max|pred|) "
+          f"({card})")
+    return stats, launches
+
+
+def subset_prepared(prepared: dict, idx) -> dict:
+    """The crystals ``idx`` of a prepared-dataset dict, in its layout."""
+    idx = np.asarray(idx)
+    return {"input": prepared["input"][:, idx],
+            "batch_ids": [prepared["batch_ids"][i] for i in idx],
+            "batch_comp": prepared["batch_comp"][idx],
+            "target": {k: np.asarray(v)[idx]
+                       for k, v in prepared["target"].items()},
+            "comps": prepared["comps"][idx]}
+
+
+def streaming(tmp, data, card: str) -> tuple[dict, dict]:
+    """Phase 10: out-of-core training through the CLI. Phase 5's prepared
+    crystals are split into N_SHARDS shards (its validation split apart,
+    as ``--val-path``); ``cli.train --streaming --smoke-test`` trains 2
+    epochs from them with single steps and with ``--steps-per-dispatch
+    2``: finite metrics, the wrapper launches its captures (one a batch
+    shape of the stream) and validation imply, fewer captures than steps,
+    and its graphs/s beside phase 5's in-memory epochs. Returns the
+    phase's numbers and the launches of both calls."""
+    from cgat_tpu_torch.cli import train as cli_train
+    from cgat_tpu_torch.data.dataset import split_dataset
+
+    with gzip.open(data["data_path"], "rb") as f:
+        prepared = pickle.load(f)
+    n = len(prepared["batch_ids"])
+    _, val, _ = split_dataset(n, seed=0)
+    rest = sorted(set(range(n)) - set(val))
+    shards, val_dir = os.path.join(tmp, "shards"), os.path.join(tmp, "val")
+    os.makedirs(shards)
+    os.makedirs(val_dir)
+    for j, part in enumerate(np.array_split(rest, N_SHARDS)):
+        with gzip.open(os.path.join(shards, f"shard_{j:03d}.pickle.gz"),
+                       "wb") as f:
+            pickle.dump(subset_prepared(prepared, part), f)
+    with gzip.open(os.path.join(val_dir, "val.pickle.gz"), "wb") as f:
+        pickle.dump(subset_prepared(prepared, sorted(val)), f)
+    zero = dict.fromkeys(launch_counts(), 0)
+    total = dict(zero)
+    evals = -(-len(val) // N_GRAPHS)
+    stats: dict = {"shards": N_SHARDS, "streamed": len(rest),
+                   "val": len(val)}
+    for k in (1, 2):
+        name = f"stream_k{k}"
+        argv = ["--streaming", "--data-path", shards, "--val-path", val_dir,
+                "--target", "e_above_hull", "--smoke-test", "--ckpt-dir",
+                os.path.join(tmp, "logs"), "--run-name", name]
+        if k > 1:
+            argv += ["--steps-per-dispatch", str(k)]
+        keys, steps = cli_graph_keys(argv, range(2))
+        want = {**zero, **{w: v * (2 * keys + evals)
+                           for w, v in PER_FORWARD.items()},
+                **{w: v * 2 * keys for w, v in PER_BACKWARD.items()}}
+        counts, _ = cli_call(f"cli.train --streaming --steps-per-dispatch {k}",
+                             cli_train.main, argv, want, phase=10)
+        for w, v in counts.items():
+            total[w] += v
+        recs = finite_metrics(os.path.join(tmp, "logs", "runs", name,
+                                           "metrics.jsonl"))
+        epochs = [r for r in recs if "train_loss" in r]
+        if [r["step"] for r in epochs] != [steps // 2, steps] or \
+                not any("val_mae" in r for r in recs):
+            fail(f"cli.train --streaming (K = {k}) logged steps "
+                 f"{[r['step'] for r in epochs]}, not {[steps // 2, steps]}, "
+                 f"or no validation")
+        if keys >= steps:
+            fail(f"cli.train --streaming (K = {k}) captured {keys} graphs in "
+                 f"{steps} steps")
+        stats[name] = {"steps": steps, "graph_keys": keys,
+                       "epochs": [{f: r[f] for f in (
+                           "epoch", "epoch_time", "graphs_per_sec",
+                           "train_loss")} for r in epochs],
+                       "val_mae": [r["val_mae"] for r in recs
+                                   if "val_mae" in r]}
+        for r in epochs:
+            print(f"[streaming] K = {k}, epoch {r['epoch']:.0f}: "
+                  f"{r['epoch_time'] * 1e3:.0f} ms wall, "
+                  f"{r['graphs_per_sec']:.1f} graphs/s, train loss "
+                  f"{r['train_loss']:.5f} ({keys} step graphs captured in "
+                  f"{steps} steps; in memory, phase 5: "
+                  f"{[round(e['graphs_per_sec'], 1) for e in data['epochs']]}"
+                  f" graphs/s) ({card})")
+    print(f"[streaming] {len(rest)} crystals in {N_SHARDS} shards, {len(val)} "
+          f"validated; launches {total}")
     return stats, total
 
 
@@ -1776,6 +2049,47 @@ def flat_against_plain(tcfg, eager, batch) -> dict:
     return res
 
 
+def prefetched_steps(trainer, card: str) -> dict:
+    """The replayed step with its groups' collate and copy, over one epoch
+    of N_DISPATCH_LOOP + 1 groups (``trainer.grouped_loader``), iterated
+    inline and through ``PrefetchLoader`` (which collates the next groups
+    on a host thread, into pageable memory, while the card works), in
+    turns (inline, prefetched, prefetched, inline): each group's ms a step
+    from the end of the one before, the first group of each run left out
+    (the prefetcher's start)."""
+    from cgat_tpu_torch.data.prefetch import PrefetchLoader
+    from cgat_tpu_torch.data.synthetic import random_graphs
+
+    graphs = random_graphs(300, N_GRAPHS * N_DISPATCH * (N_DISPATCH_LOOP + 1),
+                           n_atoms_range=(8, 16), max_nbr=24,
+                           full_degree=True)
+    loader = trainer.grouped_loader(graphs)
+    runs = {"inline": [], "prefetch": []}
+    for epoch, name in enumerate(("inline", "prefetch", "prefetch",
+                                  "inline")):
+        it = PrefetchLoader(loader) if name == "prefetch" else loader
+        it.set_epoch(epoch)
+        per_step = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for group in it:
+            trainer.train_group(group)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            per_step.append((t1 - t0) * 1e3 / N_DISPATCH)
+            t0 = t1
+        runs[name] += per_step[1:]
+    res = {f"{name}_ms_{stat}": float(fn(v)) for name, v in runs.items()
+           for stat, fn in (("median", np.median), ("min", np.min))}
+    res["groups"] = len(loader)
+    print(f"[dispatch] replayed step with its groups' collate and copy over "
+          f"{len(loader)} groups of {N_DISPATCH}: inline median "
+          f"{res['inline_ms_median']:.2f} ms (min {res['inline_ms_min']:.2f}),"
+          f" through the PrefetchLoader median {res['prefetch_ms_median']:.2f}"
+          f" ms (min {res['prefetch_ms_min']:.2f}); unpinned copies ({card})")
+    return res
+
+
 def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     """Phase 7: ``steps_per_dispatch`` as CUDA graphs of the training step
     at full width (phase 4's model, traffic and AdamW with a bf16 first
@@ -1807,6 +2121,7 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     from cgat_tpu_torch.data.synthetic import random_graphs
     from cgat_tpu_torch.training import Trainer, TrainerConfig
 
+    allocated = settled_allocated()
     torch.cuda.reset_peak_memory_stats()
     graphs = random_graphs(100, N_TRAIN_GRAPHS, n_atoms_range=(8, 16),
                            max_nbr=24, full_degree=True)
@@ -1926,6 +2241,7 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
             per_step.append((time.perf_counter() - t0) * 1e3 / N_DISPATCH)
         stats[name].update(loop_ms_median=float(np.median(per_step)),
                            loop_ms_min=float(np.min(per_step)))
+    stats["prefetch"] = prefetched_steps(graph, card)
     stats["capture_s"] = {str(k[0][0][0]): s for k, s in
                           graph.step_graphs.capture_s.items()}
     stats["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1942,8 +2258,11 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
             print(f"[dispatch]   {ms:8.4f} ms  {count:5.0f} x  {k}")
     print(f"[dispatch] capture s by node slots {stats['capture_s']}; peak "
           f"device memory {stats['peak_memory_gib']:.2f} GiB ({card})")
-    del eager, graph, gdev, batch
-    torch.cuda.empty_cache()
+    del eager, graph, tr, gdev, batch, got
+    stats["left_after_drop_bytes"] = settled_allocated() - allocated
+    print(f"[dispatch] both trainers dropped (the graph trainer's side "
+          f"stream with them): {stats['left_after_drop_bytes']} bytes stay "
+          f"allocated")
 
     # 5. the CLI with --steps-per-dispatch 2
     argv = ["--data-path", data["data_path"], "--target", "e_above_hull",
@@ -2336,10 +2655,12 @@ def main() -> int:
     rows = check_kernels(model, batch0)
     pair_row = check_pair_path(model, requests[0])
     progress("phase 3: serve")
-    launches, stats = serve(model, requests)
+    launches, stats = serve(model, requests, card)
     stats["breakdown"] = breakdown(model, requests[1], rows)
+    # each signature's first request: the eager warm-up and the capture
+    n_keys = len(stats["first_request"])
     for name, count in launches.items():
-        if count != PER_FORWARD.get(name, 0) * N_REQUESTS:
+        if count != PER_FORWARD.get(name, 0) * 2 * n_keys:
             fail(f"{name} launched {count} times on the serving path")
     check_against_cpu(model, cpu_model, requests[0], n0)
     progress("phase 4: train")
@@ -2353,7 +2674,11 @@ def main() -> int:
         disp_stats, _ = dispatch(tmp, cfg, state_dict, cli_stats, card)
         progress("phase 8: parallel")
         par_stats, par_launches = parallel(tmp, cfg, state_dict, card)
-    progress("phase 9: report")
+        progress("phase 9: export")
+        exp_stats, exp_launches = export(tmp, requests, card)
+        progress("phase 10: streaming")
+        stream_stats, stream_launches = streaming(tmp, cli_stats, card)
+    progress("phase 11: report")
 
     print(card_line())
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
@@ -2365,13 +2690,17 @@ def main() -> int:
     print(json.dumps({"variants": var_stats}))
     print(json.dumps({"dispatch": disp_stats}))
     print(json.dumps({"parallel": par_stats}))
+    print(json.dumps({"export": exp_stats}))
+    print(json.dumps({"streaming": stream_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
     # cli phase, variants_launches in the variants phase's checked steps
     # and CLI calls, replay_launches in a replayed step of the dispatch
     # phase (from the profiler); edge_rows: #5 to #7 at the hyper-edge
-    # model's edge rows
+    # model's edge rows; serve_replay_launches in a replayed request of
+    # phase 3 (from the profiler), export_launches in phase 9's served
+    # requests, streaming_launches in phase 10's two CLI calls
     edge_rows = var_stats["hyper_edge"]["edge_rows"]
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": f"cgat_tpu_torch/csrc/{SOURCES[r['name']]}.cu",
@@ -2382,6 +2711,10 @@ def main() -> int:
                 "cli_launches": cli_launches[r["name"]],
                 "variants_launches": var_launches[r["name"]],
                 "replay_launches": disp_stats["replay_launches"][r["name"]],
+                "serve_replay_launches": stats["replay_launches"].get(
+                    r["name"], 0),
+                "export_launches": exp_launches[r["name"]],
+                "streaming_launches": stream_launches[r["name"]],
                 "parallel_launches": {k: v[r["name"]]
                                       for k, v in par_launches.items()},
                 **({"pair_launches": par_stats["edge2_gloo"][

@@ -12,9 +12,11 @@ card a rank (NCCL); imports torch and the port, never JAX:
 ``spec["state_dict"]`` on the first group of ``spec["graphs"]`` random
 graphs; rank 0 saves the global loss, the gradient summed over the world
 and the parameters after the step to ``spec["out"]``. ``fit``: a
-``Trainer`` with ``n_devices`` ranks fits 2 epochs into ``spec["ckpt_dir"]``;
-every rank saves its metrics, the test split's parallel evaluation and
-embeddings, and rank 0 the final weights.
+``Trainer`` with ``n_devices`` ranks fits 2 epochs into ``spec["ckpt_dir"]``
+(over the shards of ``spec["stream"]``'s ``data_path`` when it is given,
+``streaming=True``, else on random graphs); every rank saves its
+metrics, the test split's parallel evaluation and embeddings, and rank 0
+the final weights.
 """
 import json
 import os
@@ -72,12 +74,18 @@ def fit(spec: dict) -> None:
     from cgat_tpu_torch.data.synthetic import random_graphs
     from cgat_tpu_torch.models import CGATConfig
     from cgat_tpu_torch.training import Trainer, TrainerConfig
+    stream = spec.get("stream")
     t = Trainer(TrainerConfig(n_devices=spec["n_devices"],
                               edge_shards=spec["edge_shards"], batch_size=4,
                               epochs=2, check_val_every_n_epoch=1, max_nbr=4,
                               node_bucket=8, num_comp_slots=8,
-                              ckpt_dir=spec["ckpt_dir"], run_name="r"),
-                CGATConfig(**TINY), random_graphs(0, 40, **GRAPHS),
+                              ckpt_dir=spec["ckpt_dir"], run_name="r",
+                              **(dict(stream, streaming=True,
+                                      target="e_above_hull")
+                                 if stream else {})),
+                CGATConfig(**{**TINY, "orig_elem_fea_len": 200}
+                           if stream else TINY),
+                None if stream else random_graphs(0, 40, **GRAPHS),
                 device="cpu")
     history = t.fit()
     rank = torch.distributed.get_rank()

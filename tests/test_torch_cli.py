@@ -270,12 +270,15 @@ def test_cli_flags_equal_cgat_tpu(argv):
     assert got == vars(jp.parse_args(argv))
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    (["--streaming"], "slice 5"), (["--profile-epoch", "0"], "slice 9"),
+@pytest.mark.parametrize("argv,error,match", [
+    (["--streaming"], ValueError, "streaming=True requires --val-path"),
+    (["--profile-epoch", "0"], NotImplementedError, "slice 9"),
 ])
-def test_flags_not_ported_raise(argv, slice_, tmp_path):
-    """Before any data is read: the data path does not exist."""
-    with pytest.raises(NotImplementedError, match=slice_):
+def test_flags_not_ported_raise(argv, error, match, tmp_path):
+    """Before any data is read (the data path does not exist): a flag not
+    ported yet raises naming its slice, and ``--streaming`` without
+    ``--val-path`` raises cgat_tpu's ``ValueError``."""
+    with pytest.raises(error, match=match):
         cli_train.main(["--data-path", str(tmp_path / "none"),
                         "--device", "cpu", *argv])
 

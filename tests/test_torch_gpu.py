@@ -881,3 +881,140 @@ def test_two_rank_nccl_matches_one_rank(dev, tmp_path):
     for k, v in model.state_dict().items():
         np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
                                    rtol=1e-2, atol=1e-3, err_msg=k)
+
+
+def _server(dev):
+    """A ServingModel of the bf16 2-layer model on the card with one
+    signature (64 node slots), and two requests of 6 crystals."""
+    from cgat_tpu_torch.serving import ServingModel
+
+    cfg = CGATConfig(**SMALL, compute_dtype="bfloat16")
+    model = CGAtNet(cfg)
+    model.load_state_dict(init_state_dict(model, seed=0), strict=True)
+    model = model.to_compute_dtype().to(dev)
+    sigs = [{"key": f"c6_n{n}", "num_graphs": 6, "num_node_slots": n,
+             "num_edge_slots": n * 16, "num_comp_slots": 8}
+            for n in (64,)]
+    manifest = {"mean": 0.5, "std": 2.0, "signatures": sigs,
+                "collate": {"max_nbr": 16, "orig_fea": 16}}
+    requests = [random_graphs(s, 6, n_atoms_range=(5, 9), max_nbr=16,
+                              orig_fea=16, full_degree=True)
+                for s in (10, 11)]
+    return ServingModel(manifest, model), model, requests
+
+
+def test_replayed_request_equals_the_eager_warm_up(dev):
+    """A signature's first request runs eagerly, then is captured (each
+    wrapper called twice a forward); a second request of the same batch
+    replays the graph (no wrapper called) and gives the warm-up's bits;
+    another batch of the signature replays and gives an eager forward's
+    bits, so the CSR pointers and every other field are copied in."""
+    server, model, (req, other) = _server(dev)
+    n = SMALL["n_graph"]
+    fwd = {"mh_network": 2 * n, "segment_attention": n + 1,
+           "hyper_apply": 4 * n}
+    before = _launches()
+    first = server.predict(req, return_embeddings=True)
+    assert {k: v - before[k] for k, v in _launches().items() if v != before[k]
+            } == {k: 2 * v for k, v in fwd.items()}
+    assert len(server.graphs.graphs) == 1
+    before = _launches()
+    again = server.predict(req, return_embeddings=True)
+    got = server.predict(other, return_embeddings=True)
+    assert _launches() == before and len(server.graphs.graphs) == 1
+    for a, b in zip(first, again):
+        assert np.array_equal(a, b)
+    from cgat_tpu_torch.serving import ServingModel
+    eager = ServingModel(server.manifest, model)
+    eager.graphs = None              # the same forward, eagerly
+    for a, b in zip(got, eager.predict(other, return_embeddings=True)):
+        assert np.array_equal(a, b)
+    assert all(np.isfinite(a).all() for a in got)
+
+
+def test_a_dropped_serving_model_releases_its_graph_pool(dev):
+    """The graphs hold no reference to their ServingModel: dropping it
+    frees its graphs, their static buffers and their pool at once (the
+    model it served stays). A first server is dropped before the memory
+    is read, so what the process sets up once for its first capture is
+    not counted."""
+    import gc
+    import weakref
+
+    from cgat_tpu_torch.serving import ServingModel
+
+    server, model, (req, _) = _server(dev)
+    server.predict(req)
+    server.predict(req)
+    manifest = server.manifest
+    del server
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    server = ServingModel(manifest, model)
+    server.predict(req)
+    server.predict(req)
+    assert len(server.graphs.graphs) == 1
+    assert torch.cuda.memory_allocated(dev) > allocated
+    gone = weakref.ref(server)
+    del server
+    assert gone() is None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated(dev) == allocated
+    assert torch.cuda.memory_reserved(dev) <= reserved
+    assert next(model.parameters()).is_cuda
+
+
+def test_streaming_train_step_replays(dev, tmp_path):
+    """A streaming trainer on the card (two shards from ``cli.prepare``):
+    each batch shape's first step runs eagerly and is captured (every
+    wrapper twice), every later step of a shape replays (no wrapper);
+    the stream pins the composition slots and the degree, so an epoch
+    captures fewer keys than it takes steps; the losses are finite."""
+    import gzip
+    import pickle
+
+    from cgat_tpu_torch.cli import prepare as cli_prepare
+    from cgat_tpu_torch.data.structures import random_structures
+
+    for name, seed, n in (("shards", 1, 40), ("shards", 2, 40),
+                          ("val", 3, 12)):
+        raw = f"raw{seed}.pickle.gz"
+        with gzip.open(tmp_path / raw, "wb") as f:
+            pickle.dump(random_structures(seed, n), f)
+        (tmp_path / name).mkdir(exist_ok=True)
+        assert cli_prepare.main(["--file", raw, "--source-dir",
+                                 str(tmp_path), "--target-dir",
+                                 str(tmp_path / name), "--target-file",
+                                 f"p{seed}.pickle.gz", "--max-nbr",
+                                 "16"]) == 0
+    cfg = TrainerConfig(data_path=str(tmp_path / "shards"),
+                        val_path=str(tmp_path / "val"), streaming=True,
+                        target="e_above_hull", batch_size=6, node_bucket=16,
+                        max_nbr=16, moment_dtype="bfloat16")
+    trainer = Trainer(cfg, CGATConfig(**dict(SMALL, orig_elem_fea_len=200),
+                                      compute_dtype="bfloat16"), device=dev)
+    trainer.init_state()
+    n = SMALL["n_graph"]
+    step = {"segment_attention": n + 1, "mh_network": 2 * n,
+            "hyper_apply": 4 * n, "segment_attention_bwd": n + 1,
+            "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
+            "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1}
+    loader = trainer.train_loader()
+    losses, replays = [], 0
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            keys = len(trainer.step_graphs.graphs) if trainer.step_graphs \
+                else 0
+            before = _launches()
+            losses.append(float(trainer.train_step(batch)["loss"]))
+            got = {k: v - before[k] for k, v in _launches().items()}
+            new = len(trainer.step_graphs.graphs) - keys
+            assert got == {k: 2 * new * v for k, v in step.items()}
+            replays += 1 - new
+    assert len(losses) == 2 * len(loader) and replays > len(losses) // 2
+    assert all(np.isfinite(losses))

@@ -1,8 +1,8 @@
 """The port's data-parallel and edge-sharded path (slice 4) against the JAX
 package: the edge-sharded collate field for field, the pair op and its
 gradient, the one-process halo-mode forward, gloo worlds of 2 and 4 ranks
-against one process and against cgat_tpu's mesh step, ``fit`` and
-``cli.train`` on ranks, and what raises.
+against one process and against cgat_tpu's mesh step, ``fit`` (in memory
+and streaming) and ``cli.train`` on ranks, and what raises.
 
 The worlds run as subprocesses (``tests/_torch_parallel_worker.py``, one a
 rank, gloo on the CPU, one torch thread each) on free ports, so test
@@ -473,6 +473,45 @@ def test_cli_train_on_two_gloo_ranks_with_two_edge_shards(tmp_path):
     assert sorted(set(epochs)) == [0, 1]
 
 
+@pytest.mark.parametrize("n,shards", [(2, 1), (2, 2)])
+def test_streaming_fit_on_two_ranks_matches_one_process(tmp_path, n, shards):
+    """``fit`` with ``streaming=True`` on two gloo ranks (dp = 2, or one
+    replica in two edge shards; every rank streams every shard and
+    collates its own part): the ranks agree, and the train losses and the
+    validation MAE equal one streaming process whose batches are the
+    replicas' together (batch 4 x dp), to 1e-4 relative."""
+    d = tmp_path
+    for name, seed, count in (("shards", 0, 20), ("shards", 1, 20),
+                              ("shards", 2, 20), ("val", 3, 8)):
+        with gzip.open(d / f"raw{seed}.pickle.gz", "wb") as f:
+            pickle.dump(random_structures(seed, count), f)
+        (d / name).mkdir(exist_ok=True)
+        assert cli_prepare.main([
+            "--file", f"raw{seed}.pickle.gz", "--source-dir", str(d),
+            "--target-dir", str(d / name), "--target-file",
+            f"p{seed}.pickle.gz", "--max-nbr", "4"]) == 0
+    stream = {"data_path": str(d / "shards"), "val_path": str(d / "val")}
+    ckpt = str(d / "world")
+    os.makedirs(ckpt)
+    _join(_start_world("fit", {"n_devices": n, "edge_shards": shards,
+                               "ckpt_dir": ckpt, "stream": stream}, n, ckpt))
+    r0, r1 = (np.load(os.path.join(ckpt, f"rank{r}.npz")) for r in (0, 1))
+    for k in ("val_mae", "train_loss"):
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    one = Trainer(TrainerConfig(batch_size=4 * n // shards, epochs=2,
+                                check_val_every_n_epoch=1, max_nbr=4,
+                                node_bucket=8, num_comp_slots=8,
+                                ckpt_dir=str(d / "one"), streaming=True,
+                                target="e_above_hull", **stream),
+                  CGATConfig(**{**TINY, "orig_elem_fea_len": 200}),
+                  device="cpu")
+    history = one.fit()
+    np.testing.assert_allclose(r0["train_loss"],
+                               [h["train_loss"] for h in history], rtol=1e-4)
+    np.testing.assert_allclose(r0["val_mae"], history[-1]["val_mae"],
+                               rtol=1e-4)
+
+
 # ------------------------------------------------------------ the raises
 
 def test_a_world_that_is_not_dp_times_edge_raises(tmp_path):
@@ -512,10 +551,12 @@ def test_an_edge_group_across_hosts_raises(monkeypatch):
 
 
 def test_streaming_under_dp_and_bad_shards_raise():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        StreamingParallelLoader(None, 2)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        Trainer(TrainerConfig(streaming=True, n_devices=2),
+    """Replicas that do not split over the processes, a streaming rank
+    without a validation path, and bad mesh shapes raise."""
+    with pytest.raises(ValueError, match="not divisible"):
+        StreamingParallelLoader(None, 3, process_count=2)
+    with pytest.raises(ValueError, match="streaming=True requires"):
+        Trainer(TrainerConfig(streaming=True, n_devices=1, edge_shards=1),
                 CGATConfig(**TINY), mean=0.0, std=1.0, device="cpu")
     with pytest.raises(ValueError, match="does not divide"):
         Trainer(TrainerConfig(n_devices=3, edge_shards=2),
