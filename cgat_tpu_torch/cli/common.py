@@ -163,6 +163,37 @@ def add_device_arg(p: argparse.ArgumentParser):
     return p
 
 
+def in_world() -> bool:
+    """Whether this process is a rank of a world torchrun (or
+    :func:`launch`) started."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _rank(rank: int, n: int, port: int, main, argv: list[str]) -> None:
+    """One rank of a world started by :func:`launch`."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+    try:
+        main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def launch(main, n: int, argv: list[str], device: torch.device) -> None:
+    """Run the command ``main(argv)`` as ``n`` ranks on this host (a free
+    port for the rendezvous), the CUDA kernels built first so that no two
+    ranks run nvcc; raises if a rank fails."""
+    from ..parallel.distributed import free_port
+    if device.type == "cuda":
+        from ..ops.kernels import build
+        build.build()
+    torch.multiprocessing.spawn(_rank, args=(n, free_port(), main, argv),
+                                nprocs=n, join=True)
+
+
 def device_from_args(args) -> torch.device:
     """``--device`` as a torch device; raises when the card is asked for
     and there is none, rather than dropping to the CPU."""

@@ -21,42 +21,10 @@ host or many) it is one rank itself:
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
-import torch
-
 from .common import (add_device_arg, add_model_args, add_trainer_args,
-                     configs_from_args, device_from_args)
-
-
-def _in_world() -> bool:
-    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
-
-
-def _rank(rank: int, n: int, port: int, argv: list[str]) -> None:
-    """One rank of a world started by :func:`launch`."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
-    import torch.distributed as dist
-    try:
-        main(argv)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def launch(n: int, argv: list[str], device: torch.device) -> None:
-    """Run this command as ``n`` ranks on this host (a free port for the
-    rendezvous), the CUDA kernels built first so that no two ranks run
-    nvcc; raises if a rank fails."""
-    from ..parallel.distributed import free_port
-    if device.type == "cuda":
-        from ..ops.kernels import build
-        build.build()
-    torch.multiprocessing.spawn(_rank, args=(n, free_port(), argv),
-                                nprocs=n, join=True)
+                     configs_from_args, device_from_args, in_world, launch)
 
 
 def main(argv=None):
@@ -68,8 +36,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     tcfg, mcfg = configs_from_args(args)
     device = device_from_args(args)
-    if tcfg.n_devices > 1 and not _in_world():
-        launch(tcfg.n_devices, argv, device)
+    if tcfg.n_devices > 1 and not in_world():
+        launch(main, tcfg.n_devices, argv, device)
         return 0
 
     from ..training.trainer import Trainer, load_trainer, resume_trainer

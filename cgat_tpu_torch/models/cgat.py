@@ -24,10 +24,10 @@ The variants of the JAX package's ``CGATConfig`` are here too:
 ``no_hyper=False`` (the live edge update: head-normalised attention over
 ``[x_src, e, x_dst]`` conditioning HNet0 / HNet on every edge row, so the
 ``hyper_apply`` kernels run on E rows as well as N), ``update_edges=False``
-(a node-only stack), ``dropout`` (training only, with masks drawn from
-``(seed, step, site)``, see :func:`dropout`), ``remat`` and ``hyper_remat``
-(``torch.utils.checkpoint`` over each message-passing layer or each
-``HyperLinear``) and ``split_projection``.
+(a node-only stack), ``dropout`` (training only, with masks drawn on the
+device from ``(seed, step, site)``, see :func:`dropout`), ``remat`` and
+``hyper_remat`` (``torch.utils.checkpoint`` over each message-passing
+layer or each ``HyperLinear``) and ``split_projection``.
 
 The edge-sharded (halo) layout (a :class:`HaloBatch`) runs in one of two
 ways. With ``edge_group`` (an edge axis of the mesh, one rank a shard) the
@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -59,6 +58,7 @@ from ..data.batching import CrystalBatch, HaloBatch
 from ..ops.attention import (edge_softmax_aggregate,
                              edge_softmax_aggregate_pair)
 from ..ops.gather import GatherPlan, gather_rows
+from ..ops.kernels.dropout import Dropout, site_key
 from ..ops.segment import (NEG_BIG, SOFTMAX_EPS, segment_max,
                            segment_softmax, segment_softmax_pair,
                            segment_sum)
@@ -111,25 +111,32 @@ class CGATConfig:
                 else self.elem_fea_len * self.msg_heads)
 
 
-def _seed(*key: int) -> int:
-    """A generator seed for one dropout site of one training step: ``key``
-    is (seed, step, site), or (seed, step, dp_index, edge_index, site) on a
-    rank of a parallel world."""
-    state = np.random.SeedSequence(list(key)).generate_state(2)
-    return int(state[0]) << 31 | int(state[1]) >> 1
+@dataclasses.dataclass(frozen=True)
+class DropoutKey:
+    """Where a training forward's dropout masks come from: the static
+    ``path`` (seed, or (seed, dp_index, edge_index) on a rank of a parallel
+    world) that each site extends with its own ids, and the step count
+    ``step``, a 0-dim int64 tensor on the model's device that the trainer
+    advances inside its step (so a CUDA graph of the step draws new masks
+    at each replay)."""
+    path: tuple[int, ...]
+    step: torch.Tensor
+
+    def site(self, *ids: int) -> "DropoutKey":
+        return DropoutKey((*self.path, *ids), self.step)
 
 
-def dropout(x, rate: float, key: tuple[int, ...]):
+def dropout(x, rate: float, key: DropoutKey):
     """``flax.linen.Dropout``: keep each entry with probability 1 - rate
-    and scale the kept ones by 1 / (1 - rate). The mask comes from a
-    generator on ``x``'s device seeded from ``key`` (see :func:`_seed`),
-    so a resumed run and a recomputed layer (``remat``) draw the same
-    masks; they are not the JAX package's masks."""
+    and scale the kept ones by 1 / (1 - rate) (as an f32 factor). The mask
+    is drawn on ``x``'s device by the dropout kernel
+    (``ops/kernels/dropout.py``: Philox keyed by the site's path, counted
+    by the element and the device step), so a resumed run and a recomputed
+    layer (``remat``) draw the same masks; they are not the JAX package's
+    masks."""
     if rate >= 1.0:
         return torch.zeros_like(x)
-    gen = torch.Generator(device=x.device).manual_seed(_seed(*key))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return Dropout.apply(x, rate, site_key(*key.path), key.step)
 
 
 def _gather(table, idx, plan):
@@ -166,7 +173,9 @@ class GATConvNodes(nn.Module):
     a segment softmax over each destination's in-edges weights the
     messages, heads are averaged, and a hypernetwork updates the node.
     Under training dropout the weights are dropped between the softmax and
-    the sum, which then run as plain torch ops, as in the JAX package."""
+    the sum, as in the JAX package, which then run as torch ops whose
+    reductions and gathers are the segment-sum kernel (the dropout kernel
+    between them)."""
 
     def __init__(self, in_channels, out_channels, nbr_channels, heads,
                  vector_attention, first, dropout=0.0,
@@ -191,10 +200,10 @@ class GATConvNodes(nn.Module):
         """``plans``: the :class:`GatherPlan` of ``edge_dst`` and of
         ``edge_src``, which route the gathers' backward through the
         segment-sum kernel (None in the one-process halo mode: plain
-        indexing). ``dropout_key``: (seed, step, ..., site) when dropout
-        is active (training with ``dropout > 0``), else None. ``halo``:
-        the halo block, whose edges the softmax normalises over with the
-        primary (local) block's."""
+        indexing). ``dropout_key``: this site's :class:`DropoutKey` when
+        dropout is active (training with ``dropout > 0``), else None.
+        ``halo``: the halo block, whose edges the softmax normalises over
+        with the primary (local) block's."""
         if halo is not None:
             return self._forward_halo(x, edge_src, edge_dst, edge_attr, x_0,
                                       edge_mask, dst_offn, plans,
@@ -224,12 +233,16 @@ class GATConvNodes(nn.Module):
             alpha = self.MH_A(m_cat)
             m = self.MH_M(m_cat)
         if drop:
-            w = segment_softmax(alpha, edge_dst, n, mask=edge_mask)
+            # the softmax's and the sum's reductions and gathers through
+            # the segment-sum kernel (the destination plan): deterministic,
+            # so a replayed dropout step gives an eager one's bits
+            w = segment_softmax(alpha, edge_dst, n, mask=edge_mask,
+                                plan=plans[0])
             w = dropout(w, self.dropout, dropout_key)
             weighted = torch.where(edge_mask[:, None, None], w * m,
                                    torch.zeros((), dtype=m.dtype,
                                                device=m.device))
-            aggr = segment_sum(weighted, edge_dst, n)
+            aggr = segment_sum(weighted, edge_dst, n, plans[0])
         else:
             aggr = edge_softmax_aggregate(alpha, m, edge_dst, n,
                                           edge_mask=edge_mask, offn=dst_offn)
@@ -269,7 +282,7 @@ class GATConvNodes(nn.Module):
             w, w_h = segment_softmax_pair(alpha, edge_dst, edge_mask,
                                           alpha_h, h.dst, h.mask, n)
             w = dropout(w, self.dropout, dropout_key)
-            w_h = dropout(w_h, self.dropout, (*dropout_key, 1))
+            w_h = dropout(w_h, self.dropout, dropout_key.site(1))
             zero = torch.zeros((), dtype=m.dtype, device=m.device)
             aggr = (segment_sum(torch.where(edge_mask[:, None, None], w * m,
                                             zero), edge_dst, n)
@@ -502,13 +515,14 @@ class CGAtNet(nn.Module):
         return self
 
     def embed(self, batch: CrystalBatch, *,
-              dropout_key: tuple[int, ...] | None = None,
+              dropout_key: DropoutKey | None = None,
               edge_group=None) -> torch.Tensor:
         """Graph embeddings (C, embedding_dim): everything before the head.
-        ``dropout_key``: the (seed, step) of the training step, which
+        ``dropout_key``: the training step's :class:`DropoutKey`, which
         dropout (training mode with ``dropout > 0``) draws its masks from
-        ((seed, step, dp_index, edge_index) on a rank); such a forward
-        without one raises, as a flax ``Dropout`` without its rng does.
+        (its path (seed,), or (seed, dp_index, edge_index) on a rank, each
+        site adding its own ids); such a forward without one raises, as a
+        flax ``Dropout`` without its rng does.
         ``edge_group``: the mesh's edge :class:`~..parallel.mesh.Axis` when
         ``batch`` is this rank's part of an edge-sharded batch (see the
         module's docstring)."""
@@ -517,7 +531,7 @@ class CGAtNet(nn.Module):
         if drop and dropout_key is None:
             raise ValueError(
                 f"dropout {cfg.dropout} in training mode needs a "
-                f"dropout_key (seed, step); call .eval() for inference")
+                f"dropout_key (a DropoutKey); call .eval() for inference")
         dt = cfg.dtype
         lay = _Layout(batch, edge_group)
         edge_attr = self.nbr_embedding(batch.edge_shell).to(dt)
@@ -534,7 +548,7 @@ class CGAtNet(nn.Module):
             (lambda f, *a, **k: f(*a, **k))
         last = len(self.graphs) - 1
         for i, layer in enumerate(self.graphs):
-            key = (*dropout_key, 2 * i) if drop else None
+            key = dropout_key.site(2 * i) if drop else None
             halo = None
             if lay.halo:
                 table = lay.exchange(elem_fea)
@@ -549,7 +563,7 @@ class CGAtNet(nn.Module):
             # checkpoint parity (no gradient, as in the JAX package, whose
             # XLA drops it); the default path's MLP still runs there
             if layer.Edge is not None and (cfg.no_hyper or i < last):
-                key = (*dropout_key, 2 * i + 1) if drop else None
+                key = dropout_key.site(2 * i + 1) if drop else None
                 edge_attr = edge_attr + run(
                     layer.Edge, edge_attr, elem_fea, lay.src, lay.dst,
                     edge_attr_0, lay.plans, dropout_key=key)
@@ -557,7 +571,7 @@ class CGAtNet(nn.Module):
                     edge_attr_h = edge_attr_h + run(
                         layer.Edge, edge_attr_h, elem_fea, lay.src_h,
                         lay.dst_h, edge_attr_h_0, (lay.plan_h, None),
-                        dropout_key=key and (*key, 1), src_table=table)
+                        dropout_key=key and key.site(1), src_table=table)
             elem_fea = elem_fea + node_update
         crys_fea = self.roost(batch.comp_weight, batch.comp_fea.to(dt),
                               batch.comp_mask)
@@ -578,7 +592,7 @@ class CGAtNet(nn.Module):
 
     def forward(self, batch: CrystalBatch, *, last_layer=True,
                 return_graph_embedding=False,
-                dropout_key: tuple[int, ...] | None = None,
+                dropout_key: DropoutKey | None = None,
                 edge_group=None):
         """The output (C, 2) as f32, or the graph embeddings;
         ``dropout_key`` and ``edge_group`` as in :meth:`embed`."""

@@ -2,14 +2,17 @@
 each module holding its kernels' wrappers, their launch counts, their plain
 PyTorch versions and the autograd Function that joins a forward kernel to
 its backward. Importing builds nothing."""
-from . import hyper_apply, mh_network, segment_attention, segment_sum
+from . import dropout, hyper_apply, mh_network, segment_attention, segment_sum
 
-# the launch wrappers, forwards first, each with its ``launches`` count
+# the launch wrappers, the TPU kernels' forwards first, then their
+# backwards, then the port's own dropout; each with its ``launches`` count
 KERNEL_WRAPPERS = (segment_attention.segment_attention,
                    mh_network.mh_network, hyper_apply.hyper_apply,
                    segment_attention.segment_attention_bwd,
                    mh_network.mh_network_bwd,
                    hyper_apply.hyper_apply_bwd_dhdx,
-                   hyper_apply.hyper_apply_bwd_dk, segment_sum.segment_sum)
+                   hyper_apply.hyper_apply_bwd_dk, segment_sum.segment_sum,
+                   dropout.dropout, dropout.dropout_bwd)
 
-__all__ = ["KERNEL_WRAPPERS", "hyper_apply", "mh_network", "segment_attention", "segment_sum"]
+__all__ = ["KERNEL_WRAPPERS", "dropout", "hyper_apply", "mh_network",
+           "segment_attention", "segment_sum"]

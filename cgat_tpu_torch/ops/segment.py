@@ -3,11 +3,17 @@
 Counterpart of ``cgat_tpu/ops/segment.py``. Segment ids are int tensors
 referring to a static number of segments; padding is a boolean mask whose
 masked rows contribute exactly zero to every reduction, including softmax
-denominators.
+denominators. Given the ids' ``GatherPlan`` (``ops/gather.py``), the sums
+and the gathers of :func:`segment_sum` and :func:`segment_softmax` run
+through the segment-sum kernel instead of ``index_add`` and indexing, so
+that they and their gradients are deterministic on the card (the same
+bits in an eager step and a replayed one).
 """
 from __future__ import annotations
 
 import torch
+
+from .gather import GatherPlan, gather_rows, segment_sum_rows
 
 # large-but-finite negative instead of -inf, so fully masked segments give 0
 # rather than NaN after the max subtraction
@@ -20,10 +26,25 @@ def _expand(mask, data):
     return mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
 
 
-def segment_sum(data, segment_ids, num_segments):
-    """Sum ``data`` rows into ``num_segments`` buckets."""
+def segment_sum(data, segment_ids, num_segments,
+                plan: GatherPlan | None = None):
+    """Sum ``data`` rows into ``num_segments`` buckets (through the
+    segment-sum kernel when the ids' ``plan`` is given)."""
+    if plan is not None:
+        out = segment_sum_rows(data.reshape(data.shape[0], -1), segment_ids,
+                               plan, num_segments)
+        return out.view((num_segments,) + tuple(data.shape[1:]))
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids.long(), data)
+
+
+def _take(table, segment_ids, plan: GatherPlan | None):
+    """``table[segment_ids]`` (through :func:`gather_rows` when the ids'
+    ``plan`` is given)."""
+    if plan is None:
+        return table[segment_ids.long()]
+    rows = gather_rows(table.reshape(table.shape[0], -1), segment_ids, plan)
+    return rows.view((segment_ids.shape[0],) + tuple(table.shape[1:]))
 
 
 def segment_max(data, segment_ids, num_segments):
@@ -35,21 +56,21 @@ def segment_max(data, segment_ids, num_segments):
 
 
 def segment_softmax(scores, segment_ids, num_segments, *, mask=None,
-                    eps=SOFTMAX_EPS):
+                    eps=SOFTMAX_EPS, plan: GatherPlan | None = None):
     """Numerically stable softmax over the rows of each segment, for every
     trailing position independently (torch_geometric.utils.softmax).
-    Masked rows get weight exactly 0."""
+    Masked rows get weight exactly 0. ``plan``: the ids' gather plan, for
+    the deterministic path."""
     if mask is not None:
         scores = torch.where(_expand(mask, scores), scores,
                              torch.full_like(scores, NEG_BIG))
     seg_max = segment_max(scores, segment_ids, num_segments)
-    ids = segment_ids.long()
-    unnorm = torch.exp(scores - seg_max[ids])
+    unnorm = torch.exp(scores - _take(seg_max, segment_ids, plan))
     if mask is not None:
         unnorm = torch.where(_expand(mask, unnorm), unnorm,
                              torch.zeros_like(unnorm))
-    denom = segment_sum(unnorm, segment_ids, num_segments)
-    return unnorm / (denom[ids] + eps)
+    denom = segment_sum(unnorm, segment_ids, num_segments, plan)
+    return unnorm / (_take(denom, segment_ids, plan) + eps)
 
 
 def segment_softmax_pair(scores_a, ids_a, mask_a, scores_b, ids_b, mask_b,

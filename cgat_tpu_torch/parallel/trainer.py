@@ -233,20 +233,23 @@ def _edge_axis(mesh: Mesh):
 def make_parallel_train_step(model, opt, criterion, mean, std, mesh: Mesh,
                              *, seed: int = 0):
     """Returns ``step(batch, step_count) -> metrics``: on this rank's
-    local batch the forward, the global loss, the backward, the gradients
+    local batch (``step_count`` the trainer's device step count) the
+    forward, the global loss, the backward, the gradients
     summed over the world (``opt.reduce``, which this sets: over the
     optimizer's flat gradient buffers where it has them), the optimizer's
     update on the device (``opt.apply``) and the damping projection. The
-    host's part (``opt.advance``) is the caller's. Dropout masks are drawn
-    from ``(seed, step_count, dp_index, edge_index)``."""
+    host's part (``opt.advance``) and advancing the count are the caller's.
+    Dropout masks are drawn from ``(seed, step_count, dp_index,
+    edge_index)``, so each rank's sites keep their place in the mesh."""
+    from ..models.cgat import DropoutKey           # (models imports parallel)
     from ..training.optim import project_params   # (training imports this)
     edge = _edge_axis(mesh)
     opt.reduce = lambda tensors: reduce_gradients(tensors, mesh.world)
 
     def step(batch, step_count):
         out = model(batch, edge_group=edge,
-                    dropout_key=(seed, step_count, mesh.dp.index,
-                                 mesh.edge.index))
+                    dropout_key=DropoutKey((seed, mesh.dp.index,
+                                            mesh.edge.index), step_count))
         loss, metrics = global_loss_and_metrics(out, batch, mean, std,
                                                 criterion, mesh)
         opt.zero_grad()

@@ -19,7 +19,8 @@ eager one. Before each replay the batch is copied into the graph's static
 input buffers; after it the metrics are cloned out of its static outputs,
 so successive steps' metrics do not share one buffer. What changes between
 steps and enters the arithmetic lives on the device (the optimizers'
-count and learning rate, ``training/optim.py``); the host's bookkeeping
+count and learning rate, ``training/optim.py``, and the trainer's step
+count, which dropout draws its masks from); the host's bookkeeping
 (the step count, the mini-step) is advanced after each replay. A failed
 capture or replay raises: the card never falls back to eager steps.
 

@@ -6,9 +6,10 @@ One step (``make_train_step`` there): the forward, the criterion on the
 normalised target, the backward, the optimizer (``make_optimizer``: SGD,
 Adam, AdamW or LAMB, only the output head's parameters under
 ``only_residual``, gradients averaged over ``acc_batches`` mini-steps),
-then the damping projection. Under model dropout the masks come from
-``(seed, step)`` with ``step`` the count of training steps, which the
-checkpoint keeps, so a resumed run draws the same masks. The
+then the damping projection. Under model dropout the masks are drawn on
+the device from ``(seed, step, site)``, ``step`` the count of training
+steps as a device int64 (``step_count``) that the step itself advances and
+the checkpoint keeps, so a resumed run draws the same masks. The
 learning rate is set per epoch from the cyclical or plateau schedule; the
 normalisation mean and std come from the training split (torch's unbiased
 std). Metrics: the loss on the normalised scale, MAE and RMSE of the
@@ -23,12 +24,14 @@ SGD, Adam and AdamW always run over the small parameters flattened
 effect. On the card every training step is a replay of a CUDA graph of
 the whole step, one per batch shape signature and optimizer phase
 (``training/dispatch.py``), the counterpart of the JAX package's jitted
-step; on the CPU, and on the card under model dropout (whose masks come
-from host generators, which a replay would repeat), it is an eager step.
+step, model dropout included (its masks come from the device step
+count, so each replay draws new ones); on the CPU it is an eager step.
 ``steps_per_dispatch`` K groups K batches padded to one shape
 (``parallel.ParallelLoader``) and runs them as K steps in one call
-(``train_group``); the trajectory is that of K single steps. Model
-dropout with K > 1 raises.
+(``train_group``); the trajectory is that of K single steps, and every
+step of a group advances the step count, as every step of the JAX
+package's ``make_multi_step`` advances ``state.step`` (the training
+loaders drop their partial tail, so no group holds an empty step).
 
 ``n_devices`` N > 1 or ``edge_shards`` S > 1, or a ``torch.distributed``
 world already joined, make the trainer one rank of a dp x edge mesh
@@ -77,7 +80,7 @@ from ..data.dataset import GraphLoader, load_dataset_dir, split_dataset
 from ..data.prefetch import PrefetchLoader
 from ..data.streaming import StreamingGraphLoader, scan_shard_metadata
 from ..device import resolve_device
-from ..models.cgat import CGATConfig, CGAtNet
+from ..models.cgat import CGATConfig, CGAtNet, DropoutKey
 from ..models.init import init_state_dict
 from ..parallel import (ParallelLoader, StreamingParallelLoader,
                         init_distributed, local_batch, local_dp_rows,
@@ -306,12 +309,6 @@ class Trainer:
                  graphs=None, *, mean: float | None = None,
                  std: float | None = None, device=None):
         _check_ported(cfg)
-        if cfg.steps_per_dispatch > 1 and model_cfg.dropout > 0:
-            raise NotImplementedError(
-                f"dropout {model_cfg.dropout} with steps_per_dispatch "
-                f"{cfg.steps_per_dispatch} is not ported yet: the masks come "
-                f"from host generators, which a replayed step would repeat; "
-                f"it comes with device-side dropout masks (ROADMAP queue 1)")
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
@@ -336,6 +333,9 @@ class Trainer:
         self.model: CGAtNet | None = None
         self.opt = None
         self.step = 0
+        # the step count on the device, which dropout's masks are drawn
+        # from (made with the model)
+        self.step_count: torch.Tensor | None = None
         # the CUDA graphs of the step (dispatch.StepGraphs), made at the
         # first training step on the card
         self.step_graphs: StepGraphs | None = None
@@ -421,6 +421,8 @@ class Trainer:
             params = [p for p in params if p.requires_grad]
         self.opt = make_optimizer(self.cfg, params)
         self.step = 0
+        self.step_count = torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
         self.step_graphs = None
         self._parallel_step = None
         if self.mesh is not None:
@@ -511,9 +513,10 @@ class Trainer:
 
     def forward_loss(self, batch: CrystalBatch):
         """The criterion and the metrics of one batch on the device. In
-        training mode, model dropout draws its masks from
-        ``(cfg.seed, step)``."""
-        out = self.model(batch, dropout_key=(self.cfg.seed, self.step))
+        training mode, model dropout draws its masks from ``cfg.seed`` and
+        the device step count."""
+        out = self.model(batch, dropout_key=DropoutKey((self.cfg.seed,),
+                                                       self.step_count))
         return _metrics(out[:, 0], out[:, 1], batch.target, batch.graph_mask,
                         self.mean, self.std, self.criterion)
 
@@ -524,6 +527,7 @@ class Trainer:
     def _update_on_device(self) -> None:
         self.opt.apply()
         project_params(self.model)
+        self.step_count.add_(1)
 
     def _advance(self) -> None:
         """The host's part of a step: the optimizer's bookkeeping and the
@@ -539,7 +543,9 @@ class Trainer:
         """A step's work on the device, host state untouched (what a CUDA
         graph of the step captures)."""
         if self._parallel_step is not None:
-            return self._parallel_step(batch, self.step)
+            metrics = self._parallel_step(batch, self.step_count)
+            self.step_count.add_(1)
+            return metrics
         loss, metrics = self.forward_loss(batch)
         self.backward(loss)
         self._update_on_device()
@@ -548,14 +554,14 @@ class Trainer:
     def train_step(self, batch: CrystalBatch) -> dict:
         """One optimisation step; returns the step's metrics as device
         scalars (read them on the host only where needed). On a CUDA card
-        without model dropout, a replay of the step's CUDA graph for the
-        batch's shapes and the optimizer's phase (captured after the
-        first, eager, step of each); else an eager step. On a rank of a
+        a replay of the step's CUDA graph for the batch's shapes and the
+        optimizer's phase (captured after the first, eager, step of each);
+        on the CPU an eager step. On a rank of a
         parallel world ``batch`` is the rank's own (:meth:`rank_batch`),
         and the step is replayed under NCCL only: gloo's collectives
         cannot be captured."""
         batch = batch.to(self.device)
-        if self.device.type == "cuda" and not self.model_cfg.dropout \
+        if self.device.type == "cuda" \
                 and (self.mesh is None or self.mesh.backend == "nccl"):
             if self.step_graphs is None:
                 self.step_graphs = StepGraphs(self.device)
@@ -839,6 +845,7 @@ class CheckpointManager:
         trainer.opt.load_state_dict(payload["optimizer"])
         trainer.model.load_state_dict(payload["model"], strict=True)
         trainer.step = int(payload["step"])
+        trainer.step_count.fill_(trainer.step)
 
 
 def _config_from(cls, stored: dict):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Eleven phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Twelve phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -19,7 +19,10 @@ failure exits non-zero:
    #2 on each block against the merged arrays) at edge shard 0's shapes
    of an edge = 2 collate of request 0, with layer 0's real MH outputs,
    against the plain pair function and its autograd gradient,
-   bit-identical in two launches and timed beside its bound;
+   bit-identical in two launches and timed beside its bound; and the
+   port's own dropout kernel (forward and backward entry) on a node
+   layer's bf16 dropout site of request 0's shape: its masks and outputs
+   equal the plain version's bit for bit, twice, timed beside its bound;
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
    answers 3 requests of 64 crystals through ``ServingModel.predict``,
    each signature's forward a CUDA graph: a signature's first request (the
@@ -80,8 +83,9 @@ failure exits non-zero:
    ``hyper_remat``, ``split_projection``, ``--optim SGD|Adam|LAMB``,
    ``--acc-batches 2``, ``--only-residual`` and a ``--version`` plug-in
    written to the temporary directory, each with a finite loss and its
-   own exact launches (``variant_launches``; dropout's steps are eager,
-   once each);
+   own exact launches (``variant_launches``; the dropout variant's steps
+   are captured and replayed like the others, the dropout kernel once a
+   node layer forward and once backward);
 7. dispatch: ``TrainerConfig(steps_per_dispatch=4)`` on phase 4's model
    and traffic, each step of a group a replay of a CUDA graph of the
    step: the replayed steps' losses equal eager steps' bit for bit on the
@@ -94,8 +98,11 @@ failure exits non-zero:
    device events a step, the optimizers' host ms and
    ``multi_tensor_apply`` launches, capture seconds and peak memory; the
    replayed step with its groups' collate and copy over one epoch of 7
-   groups, iterated inline and through ``PrefetchLoader`` in turns; then
-   ``cli.train --steps-per-dispatch 2 --smoke-test`` on phase 5's data;
+   groups, iterated inline and through ``PrefetchLoader`` in turns; K = 4
+   groups of a ``dropout=0.1`` model, replayed against eager dropout
+   steps bit for bit, with a replayed dropout step's launches (profiler)
+   and both paths' step times; then ``cli.train --steps-per-dispatch 2
+   --smoke-test`` on phase 5's data;
 8. parallel: the data-parallel and edge-sharded trainer
    (``TrainerConfig(n_devices, edge_shards)``) on phase 4's model, 64
    crystals a replica: dp = 2 and edge = 2 as two gloo ranks sharing the
@@ -117,15 +124,27 @@ failure exits non-zero:
    with ``--steps-per-dispatch 2``: finite metrics, exact launches for
    the stream's captured keys, fewer keys than steps, graphs/s beside
    phase 5's in-memory epochs;
-11. report the card, and the eight kernels as one JSON line (with their
+11. gp: the GP head on phase 4's frozen model over 2,048 crystals at the
+   reference GP's settings (500 inducing points, 512 crystals a step):
+   #1, #3 and #5 against their plain versions at a 512-crystal batch's
+   shapes; ``fit_gp_streaming`` for 2 epochs of 4 steps with exact
+   launches (each batch shape's eager first step and capture, replays
+   after); GP steps replayed against eager ones on the card bit for bit,
+   a replayed step's launches (10/6/20 forward, no backward kernel), step
+   ms, busy ms, idle share and peak memory; on 512 crystals, one batch an
+   epoch, the on-the-fly history against ``Trainer.embeddings`` +
+   ``fit_gp`` (rtol 1e-4, atol 1e-5); ``cli.train_gp`` on phase 5's run,
+   precomputed and ``--on-the-fly``, with exact launches;
+12. report the card, and the nine kernels as one JSON line (with their
    launches in phases 5 and 6 as ``cli_launches`` and
    ``variants_launches``, a replayed step's as ``replay_launches``, a
    rank's a step in phase 8 as ``parallel_launches``, the pair path's
    as ``pair_launches`` with its phase-2 check as ``pair_path``, #5
    to #7 at the edge rows as ``edge_rows``, a replayed request's as
-   ``serve_replay_launches``, phase 9's as ``export_launches`` and phase
-   10's as ``streaming_launches``); the last line is
-   ``{"ok": true, "device": {...}}``.
+   ``serve_replay_launches``, phase 9's as ``export_launches``, phase
+   10's as ``streaming_launches`` and phase 11's fit as ``gp_launches``;
+   the dropout row's launches are phase 6's dropout steps'); the last
+   line is ``{"ok": true, "device": {...}}``.
 
 Each phase's start goes to stderr with the seconds since start, so a run
 that is stopped shows how far it got; past ``WATCHDOG_S`` seconds the
@@ -183,6 +202,16 @@ N_DISPATCH_LOOP = 6            # groups timed with their collate and copy
 N_PARALLEL_STEPS = 3           # steps of each world in phase 8
 N_PARALLEL_REPLAYS = 4         # replayed steps of the one-rank NCCL world
 N_SHARDS = 4                   # shards phase 10 streams phase 5's crystals from
+DROPOUT = 0.1                  # the rate of the dropout steps (phases 2, 6, 7)
+N_GP_GRAPHS = 2048             # the GP phase's pool of crystals
+GP_BATCH = 512                 # crystals a GP step (cli.train_gp's default)
+GP_INDUCING = 500              # inducing points (cli.train_gp's default)
+GP_EPOCHS = 2                  # epochs of the on-the-fly fit: 4 steps each
+GP_CHECKED = 4                 # GP steps held replayed against eager
+GP_CHECK_POOL = 512            # the pool of the on-the-fly-vs-precomputed check
+GP_CHECK_EPOCHS = 5
+GP_CLI_EPOCHS = 10             # epochs of each cli.train_gp call
+GP_RTOL, GP_ATOL = 1e-4, 1e-5  # on-the-fly vs precomputed (tests/test_gp.py)
 # a substring of the name of the device kernel each wrapper launches (a
 # fixed number of times a call): phase 7 counts a replayed step's launches
 # by these names
@@ -193,7 +222,21 @@ REPLAY_KERNELS = {"segment_attention": "segment_attention_fwd",
                   "mh_network_bwd": "pass_a::kernel(",
                   "hyper_apply_bwd_dhdx": "dhdx::bwd_kernel(",
                   "hyper_apply_bwd_dk": "dk::kernel(",
-                  "segment_sum": "segment_sum_kernel"}
+                  "segment_sum": "segment_sum_kernel",
+                  "dropout": "dropout_fwd_kernel",
+                  "dropout_bwd": "dropout_bwd_kernel"}
+
+
+def dropout_backward(n: int) -> dict[str, int]:
+    """The backward kernels (and, under ``segment_sum``, every segment sum
+    of the step) of an ``n``-layer default model's training step under
+    dropout: no MH backward kernel (the einsum path), #2 for the pool
+    alone, the dropout kernel once a layer, and 6n + 1 segment sums (the
+    node gathers' 2n and the pool's one, the softmax's 2n sums forward and
+    its 2n gathers' backward)."""
+    return {"mh_network_bwd": 0, "segment_attention_bwd": 1,
+            "hyper_apply_bwd_dhdx": 4 * n, "hyper_apply_bwd_dk": 4 * n,
+            "segment_sum": 6 * n + 1, "dropout_bwd": n}
 
 
 def variant_launches(n: int):
@@ -215,12 +258,15 @@ def variant_launches(n: int):
                    "segment_sum": 4 * n - 1})
     table = (
         ("update_edges=False", {"update_edges": False}, {}, fwd, bwd),
-        # node layers leave the flat path: segment softmax, dropout and sum
-        # as torch ops, the MH nets on the einsum path; the crystal pool
-        # keeps the segment-attention kernel
-        ("dropout=0.1", {"dropout": 0.1}, {},
-         {**fwd, "mh_network": 0, "segment_attention": 1},
-         {**bwd, "mh_network_bwd": 0, "segment_attention_bwd": 1}),
+        # node layers leave the flat path: segment softmax and sum as torch
+        # ops around the dropout kernel (one a layer, forward and
+        # backward), the MH nets on the einsum path; the crystal pool keeps
+        # the segment-attention kernel. The softmax's denominator and the
+        # weighted sum are segment sums (2 a layer in the forward), its two
+        # gathers take segment sums as their backward (2 more a layer)
+        (f"dropout={DROPOUT}", {"dropout": DROPOUT}, {},
+         {**fwd, "mh_network": 0, "segment_attention": 1, "dropout": n},
+         dropout_backward(n)),
         # every node layer's forward runs again in the backward
         ("remat", {"remat": True}, {},
          {"mh_network": 4 * n, "segment_attention": 2 * n + 1,
@@ -268,12 +314,15 @@ REPLACES = {
     "hyper_apply_bwd_dhdx": "cgat_tpu/ops/pallas/hyper_apply.py:182",
     "hyper_apply_bwd_dk": "cgat_tpu/ops/pallas/hyper_apply.py:221",
     "segment_sum": "cgat_tpu/ops/pallas/segment_sum.py:38",
+    # no TPU kernel: cgat_tpu drops with flax's nn.Dropout (XLA's RNG)
+    "dropout": "none (cgat_tpu/models/cgat.py:253 nn.Dropout)",
 }
 SOURCES = {"segment_attention": "segment_attention", "mh_network": "mh_network",
            "hyper_apply": "hyper_apply",
            "segment_attention_bwd": "segment_attention",
            "mh_network_bwd": "mh_network", "hyper_apply_bwd_dhdx": "hyper_apply",
-           "hyper_apply_bwd_dk": "hyper_apply", "segment_sum": "segment_sum"}
+           "hyper_apply_bwd_dk": "hyper_apply", "segment_sum": "segment_sum",
+           "dropout": "dropout"}
 
 
 def fail(msg: str) -> None:
@@ -436,8 +485,8 @@ def report(rows: list[dict]) -> None:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms"
               + (f", index_add_ {r['library_ms']:.4f} ms (device "
-                 f"{fmt_ms(r['library_device_ms'])})" if "library_ms" in r
-                 else "")
+                 f"{fmt_ms(r['library_device_ms'])})"
+                 if r.get("library_ms") is not None else "")
               + (f", pool shape {r['pool_ms']:.4f} ms" if "pool_ms" in r
                  else "")
               + (", two launches bit-identical" if r.get("deterministic")
@@ -574,6 +623,10 @@ def check_kernels(model, batch) -> list[dict]:
                      "plain_ms": time_ms(
                          lambda: sk.segment_attention_plain(*seg_args)),
                      "bound_ms": b_ms, "bound_by": b_by,
+                     "deterministic": deterministic(
+                         "segment_attention",
+                         lambda: sk.segment_attention(*seg_args,
+                                                      return_stats=True)),
                      "pool_ms": time_ms(lambda: sk.segment_attention(
                          *pool_args))})
 
@@ -607,6 +660,55 @@ def check_kernels(model, batch) -> list[dict]:
                          lambda: hk.hyper_apply(*h_args), split=True)})
     report(rows)
     return rows
+
+
+def check_dropout(cfg, n_edges: int) -> dict:
+    """Phase 2's dropout row: both entry points (forward, backward) on a
+    bf16 (E, H, F) tensor at a node layer's dropout site (E the request's
+    edge slots) against the plain version: the same masks and outputs bit
+    for bit, the same bits twice, at a step past 2**32; timed beside the
+    bound on bytes (x read once, out written once) and the plain
+    version."""
+    from cgat_tpu_torch.ops.kernels import dropout as dk
+
+    shape = (n_edges, cfg.msg_heads, cfg.elem_fea_len)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ones = torch.ones_like(x)
+    step = torch.tensor(2 ** 32 + 12345, dtype=torch.int64, device="cuda")
+    key = dk.site_key(0, 0)
+    checks = []
+    with torch.inference_mode():
+        want_mask = dk.keep_mask(x.numel(), key, step,
+                                 dk.keep_threshold(DROPOUT)).view(shape)
+        for fn in (dk.dropout, dk.dropout_bwd):
+            got = fn(x, DROPOUT, key, step)
+            want = dk.dropout_plain(x, DROPOUT, key, step)
+            if not torch.equal(fn(ones, DROPOUT, key, step) != 0, want_mask):
+                fail(f"{fn.__name__}: its mask differs from the plain "
+                     f"version's")
+            if not torch.equal(got, want):
+                fail(f"{fn.__name__}: its output differs from the plain "
+                     f"version's")
+            deterministic(fn.__name__, lambda: (fn(x, DROPOUT, key, step),))
+            checks.append(compare(fn.__name__, got, want))
+        kept = float(want_mask.float().mean())
+        n = x.numel()
+        b_ms, b_by = bound(2.0 * 2 * n, float(n), F32_FLOPS)
+        row = {"name": "dropout", "shape": list(shape), **checks_row(checks),
+               "masks_equal": True, "deterministic": True,
+               "kept_share": kept,
+               "ms": time_ms(lambda: dk.dropout(x, DROPOUT, key, step)),
+               "device_ms": kernel_device_ms(
+                   lambda: dk.dropout(x, DROPOUT, key, step)),
+               "plain_ms": time_ms(
+                   lambda: dk.dropout_plain(x, DROPOUT, key, step), reps=3),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    report([row])
+    print(f"[kernels] dropout: masks and outputs equal the plain version's "
+          f"bit for bit (forward and backward), kept share {kept:.5f} at "
+          f"rate {DROPOUT}; Philox's integer work is not in the bound")
+    return row
 
 
 def serving_manifest(requests) -> dict:
@@ -1196,7 +1298,8 @@ def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
     trainer.init_state(state_dict)
     loader = trainer.loader(trainer.train_graphs, shuffle=True)
     batches = iter(loader)
-    want = {**PER_FORWARD, **PER_BACKWARD}
+    want = {**dict.fromkeys(launch_counts(), 0), **PER_FORWARD,
+            **PER_BACKWARD}
 
     def next_batch():
         nonlocal batches
@@ -1764,9 +1867,9 @@ def variant_steps(name, trainer, n_steps, want_fwd, want_bwd, seen=None
     """``n_steps`` training steps of ``trainer`` (``train_step``), each
     with a finite loss and its kernel launches (counts set to 0 just
     before the step, read just after) held to ``want_fwd`` and
-    ``want_bwd`` once for an eager step (dropout), twice for a step whose
-    key is new (its eager first step, then the capture) and never for a
-    replay. Returns the losses and the launches of all the steps."""
+    ``want_bwd`` twice for a step whose key is new (its eager first step,
+    then the capture) and never for a replay. Returns the losses and the
+    launches of all the steps."""
     loader = trainer.loader(trainer.train_graphs, shuffle=True)
     zero = dict.fromkeys(launch_counts(), 0)
     total = dict(zero)
@@ -1779,8 +1882,7 @@ def variant_steps(name, trainer, n_steps, want_fwd, want_bwd, seen=None
             loss = trainer.train_step(batch)["loss"]
             torch.cuda.synchronize()
             got = launch_counts()
-            times = (1 if trainer.step_graphs is None
-                     else 2 * (graph_keys(trainer) - keys))
+            times = 2 * (graph_keys(trainer) - keys)
             want = {**zero, **{k: v * times for k, v in
                                {**want_fwd, **want_bwd}.items()}}
             if got != want:
@@ -1978,6 +2080,24 @@ def kernel_events(per_name: dict) -> dict[str, float]:
             for w, pat in REPLAY_KERNELS.items()}
 
 
+def events_a_call(prof: dict, calls: dict) -> dict[str, float]:
+    """Device events a wrapper call of each kernel that ``calls`` (wrapper
+    calls a run of an eager path, exact) shows launched, from its
+    profile; each must be a whole number."""
+    events = kernel_events(prof)
+    per_call = {k: events[k] / c for k, c in calls.items() if c}
+    if any(v < 1 or v != round(v) for v in per_call.values()):
+        fail(f"device events a call {per_call} are not whole numbers")
+    return per_call
+
+
+def replayed_launches(prof: dict, per_call: dict) -> dict[str, float]:
+    """Wrapper calls a run of a replayed path stands for: each kernel's
+    device events over its events a call (a kernel not in ``per_call``
+    counts its events, which must then be 0)."""
+    return {k: v / per_call.get(k, 1) for k, v in kernel_events(prof).items()}
+
+
 def timed_ms(fn, n: int) -> list[float]:
     """Host-clock ms of ``n`` calls of ``fn``, each ended by a
     synchronise."""
@@ -2090,6 +2210,87 @@ def prefetched_steps(trainer, card: str) -> dict:
     return res
 
 
+def dropout_groups(tcfg, cfg, state_dict, graphs, want, per_call,
+                   plain_losses, card: str) -> dict:
+    """Phase 7's dropout groups: two ``dropout=DROPOUT`` trainers from one
+    state take the same K = 4 groups, one eagerly step by step and one
+    through ``train_group`` (replays after each shape's first step): the
+    losses must be the same bits and differ from the dropout-free
+    model's on the same groups; a replayed dropout step launches exactly
+    what an eager one calls (device events by kernel name: the dropout
+    kernel once a node layer forward and once backward); eager and
+    replayed step times, busy ms, idle share."""
+    from cgat_tpu_torch.training import Trainer
+
+    progress("phase 7: dropout groups")
+    n = cfg.n_graph
+    dcfg = dataclasses.replace(cfg, dropout=DROPOUT)
+    eager = Trainer(tcfg, dcfg, graphs, device="cuda")
+    eager.init_state(state_dict)
+    graph = Trainer(tcfg, dcfg, graphs, device="cuda")
+    graph.init_state(state_dict)
+    loader = graph.grouped_loader(graph.train_graphs)
+    got = {"eager": [], "graph": []}
+    for epoch in range(N_DISPATCH_CHECKED):
+        loader.set_epoch(epoch)
+        group = next(iter(loader))
+        gdev = group.to("cuda")
+        got["eager"] += [float(eager_step(eager, gdev.map(
+            lambda t, i=i: t[i]))["loss"]) for i in range(N_DISPATCH)]
+        got["graph"] += [float(m["loss"]) for m in graph.train_group(group)]
+    keys = graph_keys(graph)
+    if got["eager"] != got["graph"] or not all(map(math.isfinite,
+                                                   got["graph"])):
+        fail(f"replayed dropout steps' losses {got['graph']} differ from "
+             f"the eager dropout steps' {got['eager']}")
+    if keys >= len(got["graph"]):
+        fail(f"no dropout step replayed ({keys} keys captured)")
+    if got["graph"] == plain_losses:
+        fail("dropout changed no loss")
+    batch = gdev.map(lambda t: t[0])
+    d_want = {**want, "mh_network": 0, "segment_attention": 1,
+              "dropout": n, **dropout_backward(n)}
+    reset_counts()
+    eager_prof = device_ms(lambda: eager_step(eager, batch), 3)
+    calls = {k: v / 3 for k, v in launch_counts().items()}
+    if calls != d_want:
+        fail(f"eager dropout steps launched {calls} a step, not {d_want}")
+    d_per_call = {**per_call, **events_a_call(eager_prof, calls)}
+    reset_counts()
+    replay_prof = device_ms(lambda: graph.train_step(batch), 3)
+    if any(launch_counts().values()):
+        fail(f"a dropout replay called kernel wrappers: {launch_counts()}")
+    replayed = replayed_launches(replay_prof, d_per_call)
+    if replayed != d_want:
+        fail(f"a replayed dropout step launched {replayed}, not {d_want}")
+    res = {"losses": got["graph"], "graph_keys": keys,
+           "replay_launches": {k: int(v) for k, v in replayed.items()}}
+    for name, fn, prof in (
+            ("eager", lambda: eager_step(eager, batch), eager_prof),
+            ("graph", lambda: graph.train_step(batch), replay_prof)):
+        walls = timed_ms(fn, N_DISPATCH_TIMED)
+        busy = sum(v[0] for v in prof.values())
+        med = float(np.median(walls))
+        res[name] = {"step_ms_median": med,
+                     "step_ms_min": float(np.min(walls)),
+                     "device_busy_ms": busy,
+                     "device_idle_share": 1.0 - busy / med,
+                     "device_events": sum(v[1] for v in prof.values())}
+    print(f"[dispatch] dropout {DROPOUT}, {len(got['graph'])} steps in "
+          f"groups of {N_DISPATCH} ({keys} step graphs captured): replayed "
+          f"losses equal the eager dropout steps' bit for bit "
+          f"{[round(v, 5) for v in got['graph']]}; a replayed dropout step "
+          f"launches {res['replay_launches']}")
+    for name in ("eager", "graph"):
+        r = res[name]
+        print(f"[dispatch] dropout {name} step on a resident batch: median "
+              f"{r['step_ms_median']:.2f} ms, min {r['step_ms_min']:.2f} ms "
+              f"of {N_DISPATCH_TIMED}; device busy {r['device_busy_ms']:.2f} "
+              f"ms in {r['device_events']:.0f} device events, idle share "
+              f"{r['device_idle_share']:.3f} ({card})")
+    return res
+
+
 def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     """Phase 7: ``steps_per_dispatch`` as CUDA graphs of the training step
     at full width (phase 4's model, traffic and AdamW with a bf16 first
@@ -2191,26 +2392,26 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     reset_counts()
     eager_prof = device_ms(lambda: eager_step(eager, batch), 3)
     calls = {k: v / 3 for k, v in launch_counts().items()}
-    want = {**PER_FORWARD, **PER_BACKWARD}
+    want = {**dict.fromkeys(calls, 0), **PER_FORWARD, **PER_BACKWARD}
     if calls != want:
         fail(f"eager steps launched {calls} a step, not {want}")
     if not eager_prof:
         fail("the profiler recorded no device events")
-    per_call = {k: v / calls[k] for k, v in kernel_events(eager_prof).items()}
-    if any(v < 1 or v != round(v) for v in per_call.values()):
-        fail(f"device events a call {per_call} are not whole numbers")
+    per_call = events_a_call(eager_prof, calls)
     reset_counts()
     replay_prof = device_ms(lambda: graph.train_step(batch), 3)
     if any(launch_counts().values()):
         fail(f"a replay called kernel wrappers: {launch_counts()}")
-    replayed = {k: v / per_call[k]
-                for k, v in kernel_events(replay_prof).items()}
+    replayed = replayed_launches(replay_prof, per_call)
     if replayed != want:
         fail(f"a replayed step launched {replayed}, not {want}")
     stats["replay_launches"] = {k: int(v) for k, v in replayed.items()}
     stats["device_events_a_call"] = per_call
     print(f"[dispatch] a replayed step launches {stats['replay_launches']} "
           f"(device events by kernel name, {per_call} a call)")
+
+    stats["dropout"] = dropout_groups(tcfg, cfg, state_dict, graphs, want,
+                                      per_call, losses["graph"], card)
 
     # 4. step times, busy time, events, capture, memory
     progress("phase 7: timing")
@@ -2440,8 +2641,9 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
     stats = {"card": card, "crystals_per_replica": N_GRAPHS,
              "steps": N_PARALLEL_STEPS}
     n_layers = cfg.n_graph
-    want_dp = {**PER_FORWARD, **PER_BACKWARD}
-    want_edge = edge_launches(n_layers)
+    zero = dict.fromkeys(launch_counts(), 0)
+    want_dp = {**zero, **PER_FORWARD, **PER_BACKWARD}
+    want_edge = {**zero, **edge_launches(n_layers)}
     launches = {}
     for label, n, shards, want in (("dp2_gloo", 2, 1, want_dp),
                                    ("edge2_gloo", 2, 2, want_edge)):
@@ -2586,6 +2788,258 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
     return stats, launches
 
 
+def gp_head(tmp, model, cfg, state_dict, data, card: str
+            ) -> tuple[dict, dict]:
+    """Phase 11: the GP head on the frozen reference-default backbone (phase
+    4's config and weights, bf16 compute) over a pool of ``N_GP_GRAPHS``
+    crystals, at the reference GP's settings (``GP_INDUCING`` inducing
+    points, ``GP_BATCH`` crystals a step).
+
+    (a) #1, #3 and #5 against their plain versions at a GP batch's shapes
+        (phase 2's checks on the bf16 ``model``), the same bits twice.
+    (b) ``fit_gp_streaming`` for ``GP_EPOCHS`` epochs of 4 steps: exact
+        wrapper launches (the inducing batch's forward, then each batch
+        shape's eager first step and capture: 10/6/20 each, no backward
+        kernel); then ``GP_CHECKED`` batches twice through a ``GPFit``
+        whose steps replay and one whose steps are eager on the card: the
+        same losses and parameters bit for bit; a replayed step's device
+        events by kernel name (10/6/20 forward, no backward kernel); step
+        ms replayed and eager, busy ms, idle share, capture s, peak
+        memory, and what stays allocated once the fits are dropped.
+    (c) On a ``GP_CHECK_POOL``-crystal pool, one batch an epoch: the
+        on-the-fly history equals ``Trainer.embeddings`` + ``fit_gp``'s
+        within GP_RTOL / GP_ATOL (``tests/test_gp.py``'s check).
+    (d) ``cli.train_gp`` on phase 5's run, precomputed and ``--on-the-fly``:
+        exit 0, a finite val MAE, exact launches, wall s.
+    Returns the phase's numbers and the wrapper launches of (b)'s fit."""
+    from cgat_tpu_torch.cli import train_gp as cli_train_gp
+    from cgat_tpu_torch.data.dataset import (GraphLoader, load_dataset_dir,
+                                             split_dataset)
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    from cgat_tpu_torch.training import Trainer, TrainerConfig, load_trainer
+    from cgat_tpu_torch.training.dispatch import signature
+    from cgat_tpu_torch.uncertainty import gp
+
+    def signatures(graphs, batch_size, epochs, **kw) -> tuple[int, int]:
+        """Batch shapes and steps of ``fit_gp_streaming``'s loader."""
+        loader = GraphLoader(graphs, min(batch_size, len(graphs)),
+                             shuffle=True, seed=0, **kw)
+        keys, steps = set(), 0
+        for e in range(epochs):
+            loader.set_epoch(e)
+            for b in loader:
+                keys.add(signature(b))
+                steps += 1
+        return len(keys), steps
+
+    def forwards(k: int) -> dict[str, int]:
+        return {**zero, **{w: v * k for w, v in PER_FORWARD.items()}}
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    stats: dict = {"pool": N_GP_GRAPHS, "batch": GP_BATCH,
+                   "inducing": GP_INDUCING}
+    pool = random_graphs(500, N_GP_GRAPHS, n_atoms_range=(8, 16),
+                         max_nbr=24, full_degree=True)
+    loader = GraphLoader(pool, GP_BATCH, shuffle=True, seed=0, max_nbr=24,
+                         node_bucket=64)
+
+    # (a) the forward kernels at a GP batch's shapes
+    progress("phase 11: kernels at a GP batch")
+    first = next(iter(loader)).to("cuda")
+    stats["batch_shapes"] = {"node_slots": int(first.num_node_slots),
+                             "edge_slots": int(first.num_edge_slots)}
+    stats["kernels"] = {r["name"]: {k: r[k] for k in (
+        "shape", "max_abs_err", "rel_norm_err", "ms", "device_ms",
+        "plain_ms", "bound_ms", "bound_by", "deterministic")}
+        for r in check_kernels(model, first)}
+    del first
+
+    # (b) the on-the-fly fit, and its step replayed against eager
+    progress("phase 11: on-the-fly fit")
+    trainer = Trainer(TrainerConfig(batch_size=GP_BATCH), cfg, mean=0.0,
+                      std=1.0, device="cuda")
+    backbone = trainer.init_state(state_dict).eval()
+    y = np.asarray([g.target for g in pool], np.float32)
+    mean, std = float(y.mean()), float(y.std(ddof=1))
+    keys, steps = signatures(pool, GP_BATCH, GP_EPOCHS, max_nbr=24,
+                             node_bucket=64)
+    # cuBLAS keeps a workspace for each stream it ran on, for the process:
+    # cleared here and after the fits, so that the second reading counts
+    # the fits' memory alone
+    torch._C._cuda_clearCublasWorkspaces()
+    allocated = settled_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, history = gp.fit_gp_streaming(
+        backbone, pool, mean=mean, std=std, num_inducing=GP_INDUCING,
+        epochs=GP_EPOCHS, batch_size=GP_BATCH, seed=0, max_nbr=24,
+        node_bucket=64, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = launch_counts()
+    if fit_launches != forwards(1 + 2 * keys):
+        fail(f"fit_gp_streaming ({keys} batch shapes in {steps} steps) "
+             f"launched {fit_launches}, not {forwards(1 + 2 * keys)}")
+    if not (np.isfinite(history).all()
+            and all(torch.isfinite(t).all() for _, t in params.named())):
+        fail(f"fit_gp_streaming: non-finite history {history} or params")
+    stats["fit"] = {"history": history, "steps": steps, "graph_keys": keys,
+                    "s": fit_s, "launches": fit_launches}
+    print(f"[gp] fit_gp_streaming: {steps} steps of {GP_BATCH} crystals "
+          f"({keys} batch shapes, each eager then captured) in {fit_s:.2f} "
+          f"s, -ELBO by epoch {[round(v, 5) for v in history]}, launches "
+          f"{ {k: v for k, v in fit_launches.items() if v} } (the inducing "
+          f"batch's forward, then 2 a shape)")
+    del params
+
+    progress("phase 11: replayed against eager GP steps")
+    inducing = gp.inducing_embeddings(backbone, pool[:GP_INDUCING],
+                                      max_nbr=24, node_bucket=64)
+    fits = {}
+    for name in ("graph", "eager"):
+        fits[name] = gp.GPFit(gp.init_gp(inducing.cpu().numpy(),
+                                         device="cuda"), gp.GPConfig(), 1e-2,
+                              gp.streaming_elbo(backbone, mean, std,
+                                                len(pool)),
+                              torch.device("cuda"))
+    fits["eager"].graphs = None
+    loader.set_epoch(0)
+    batches = [b.to("cuda") for b, _ in zip(loader, range(GP_CHECKED))]
+    losses = {name: [float(f.step(b)) for b in batches + batches]
+              for name, f in fits.items()}
+    if losses["graph"] != losses["eager"]:
+        fail(f"replayed GP steps' losses {losses['graph']} differ from the "
+             f"eager steps' {losses['eager']}")
+    for (name, a), (_, b) in zip(fits["graph"].params.named(),
+                                 fits["eager"].params.named()):
+        if not torch.equal(a, b):
+            fail(f"GP parameter {name}: replayed and eager steps differ")
+    batch = batches[0]
+    want = forwards(1)
+    reset_counts()
+    eager_prof = device_ms(lambda: fits["eager"].step(batch), 3)
+    calls = {k: v / 3 for k, v in launch_counts().items()}
+    if calls != want:
+        fail(f"an eager GP step launched {calls}, not {want}")
+    per_call = events_a_call(eager_prof, calls)
+    reset_counts()
+    replay_prof = device_ms(lambda: fits["graph"].step(batch), 3)
+    if any(launch_counts().values()):
+        fail(f"a GP replay called kernel wrappers: {launch_counts()}")
+    replayed = replayed_launches(replay_prof, per_call)
+    if replayed != want:
+        fail(f"a replayed GP step launched {replayed}, not {want}")
+    stats["step"] = {"losses": losses["graph"],
+                     "replay_launches": {k: int(v)
+                                         for k, v in replayed.items()},
+                     "capture_s": list(fits["graph"].graphs.capture_s
+                                       .values())}
+    for name, prof in (("eager", eager_prof), ("graph", replay_prof)):
+        walls = timed_ms(lambda: fits[name].step(batch), 10)
+        busy = sum(v[0] for v in prof.values())
+        med = float(np.median(walls))
+        stats["step"][name] = {
+            "step_ms_median": med, "step_ms_min": float(np.min(walls)),
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / med,
+            "device_events": sum(v[1] for v in prof.values()),
+            "top_device_ms": [[k[:70], v[0], v[1]] for k, v in sorted(
+                prof.items(), key=lambda kv: -kv[1][0])[:6]]}
+    stats["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fits, batches, batch, inducing
+    stats["left_after_drop_bytes"] = settled_allocated() - allocated
+    torch._C._cuda_clearCublasWorkspaces()
+    stats["left_without_cublas_workspaces_bytes"] = (settled_allocated()
+                                                     - allocated)
+    launched = {k: v for k, v in stats["step"]["replay_launches"].items()
+                if v}
+    print(f"[gp] {2 * GP_CHECKED} GP steps replayed equal eager steps on the "
+          f"card bit for bit; a replayed step launches {launched} and no "
+          f"backward kernel (the backbone is frozen); capture s "
+          f"{[round(v, 3) for v in stats['step']['capture_s']]}")
+    for name in ("eager", "graph"):
+        r = stats["step"][name]
+        print(f"[gp] {name} step of {GP_BATCH} crystals: median "
+              f"{r['step_ms_median']:.2f} ms, min {r['step_ms_min']:.2f} ms; "
+              f"device busy {r['device_busy_ms']:.2f} ms in "
+              f"{r['device_events']:.0f} device events, idle share "
+              f"{r['device_idle_share']:.3f} ({card})")
+        for k, ms, count in r["top_device_ms"]:
+            print(f"[gp]   {ms:8.4f} ms  {count:5.0f} x  {k}")
+    print(f"[gp] peak device memory {stats['peak_memory_gib']:.2f} GiB; "
+          f"{stats['left_after_drop_bytes']} bytes stay allocated once the "
+          f"fits are dropped, "
+          f"{stats['left_without_cublas_workspaces_bytes']} once cuBLAS's "
+          f"workspaces are cleared ({card})")
+
+    # (c) on the fly against precomputed embeddings, one batch an epoch
+    progress("phase 11: on-the-fly against precomputed")
+    small = pool[:GP_CHECK_POOL]
+    ys = y[:GP_CHECK_POOL]
+    m_c, s_c = float(ys.mean()), float(ys.std(ddof=1))
+    emb = trainer.embeddings(small)
+    kw = dict(num_inducing=GP_INDUCING, epochs=GP_CHECK_EPOCHS,
+              batch_size=GP_BATCH, seed=0, verbose=False)
+    _, h_pre = gp.fit_gp(emb, (ys - m_c) / s_c, device="cuda", **kw)
+    _, h_fly = gp.fit_gp_streaming(backbone, small, mean=m_c, std=s_c,
+                                   max_nbr=24, node_bucket=64, **kw)
+    if not np.allclose(h_fly, h_pre, rtol=GP_RTOL, atol=GP_ATOL):
+        fail(f"on-the-fly history {h_fly} vs precomputed {h_pre} (rtol "
+             f"{GP_RTOL}, atol {GP_ATOL})")
+    diff = float(np.max(np.abs(np.subtract(h_fly, h_pre))))
+    stats["fly_vs_precomputed"] = {"on_the_fly": h_fly, "precomputed": h_pre,
+                                   "max_abs_diff": diff}
+    print(f"[gp] on a {GP_CHECK_POOL}-crystal pool, one batch an epoch: the "
+          f"on-the-fly history {[round(v, 6) for v in h_fly]} equals the "
+          f"precomputed one within {diff:.3e} (rtol {GP_RTOL}, atol "
+          f"{GP_ATOL})")
+    del trainer, backbone, emb
+
+    # (d) cli.train_gp on phase 5's run, both modes
+    run = os.path.join(tmp, "logs", "runs", "cli")
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe, _ = load_trainer(run, device="cuda")
+    tcfg = probe.cfg
+    del probe
+    graphs = load_dataset_dir(data["data_path"], fea_path=tcfg.fea_path,
+                              max_neighbor_number=tcfg.max_nbr,
+                              target=tcfg.target)
+    tr, va, _ = split_dataset(len(graphs), seed=0)
+    cli_keys, _ = signatures([graphs[i] for i in tr], GP_BATCH,
+                             GP_CLI_EPOCHS, max_nbr=tcfg.max_nbr,
+                             node_bucket=tcfg.node_bucket,
+                             num_comp_slots=tcfg.num_comp_slots)
+    batches_of = lambda n: -(-n // tcfg.batch_size)
+    stats["cli"] = {}
+    for mode, flags, fwd in (
+            ("precomputed", [], batches_of(len(graphs))),
+            ("on_the_fly", ["--on-the-fly"],
+             1 + 2 * cli_keys + batches_of(len(va)))):
+        out = os.path.join(tmp, f"gp_{mode}.pickle.gz")
+        t0 = time.perf_counter()
+        counts, _ = cli_call(f"cli.train_gp {' '.join(flags)}".strip(),
+                             cli_train_gp.main,
+                             ["--cgat-model", run, "--epochs",
+                              str(GP_CLI_EPOCHS), "--out", out, *flags],
+                             forwards(fwd), phase=11)
+        wall = time.perf_counter() - t0
+        with gzip.open(out, "rb") as f:
+            saved = pickle.load(f)
+        if not (math.isfinite(saved["val_mae"])
+                and np.isfinite(saved["history"]).all()
+                and saved["params"].inducing.shape[1] == cfg.embedding_dim):
+            fail(f"cli.train_gp {mode}: val MAE {saved['val_mae']}, history "
+                 f"{saved['history']}, inducing "
+                 f"{saved['params'].inducing.shape}")
+        stats["cli"][mode] = {"s": wall, "val_mae": saved["val_mae"],
+                              "history": saved["history"],
+                              "launches": counts}
+        print(f"[gp] cli.train_gp {mode}: {wall:.1f} s, val MAE "
+              f"{saved['val_mae']:.5f}, last -ELBO "
+              f"{saved['history'][-1]:.5f} ({card})")
+    return stats, fit_launches
+
+
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
     """The card's forward vs the port's own bf16 forward on the CPU (plain
     versions), same weights, same batch."""
@@ -2653,6 +3107,7 @@ def main() -> int:
                      num_edge_slots=n0 * 24, num_comp_slots=8, max_nbr=24,
                      orig_fea=200).to(device)
     rows = check_kernels(model, batch0)
+    dropout_row = check_dropout(cfg, int(batch0.num_edge_slots))
     pair_row = check_pair_path(model, requests[0])
     progress("phase 3: serve")
     launches, stats = serve(model, requests, card)
@@ -2678,7 +3133,10 @@ def main() -> int:
         exp_stats, exp_launches = export(tmp, requests, card)
         progress("phase 10: streaming")
         stream_stats, stream_launches = streaming(tmp, cli_stats, card)
-    progress("phase 11: report")
+        progress("phase 11: gp")
+        gp_stats, gp_launches = gp_head(tmp, model, cfg, state_dict,
+                                        cli_stats, card)
+    progress("phase 12: report")
 
     print(card_line())
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
@@ -2692,6 +3150,7 @@ def main() -> int:
     print(json.dumps({"parallel": par_stats}))
     print(json.dumps({"export": exp_stats}))
     print(json.dumps({"streaming": stream_stats}))
+    print(json.dumps({"gp": gp_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
@@ -2715,6 +3174,7 @@ def main() -> int:
                     r["name"], 0),
                 "export_launches": exp_launches[r["name"]],
                 "streaming_launches": stream_launches[r["name"]],
+                "gp_launches": gp_launches[r["name"]],
                 "parallel_launches": {k: v[r["name"]]
                                       for k, v in par_launches.items()},
                 **({"pair_launches": par_stats["edge2_gloo"][
@@ -2736,6 +3196,26 @@ def main() -> int:
                 **({"edge_rows": edge_rows[r["name"]]}
                    if r["name"] in edge_rows else {})}
                for r in rows + train_rows]
+    # the port's own kernel, on the dropout training step's path: its
+    # launches in phase 6's dropout steps (forward and backward wrappers)
+    # and in a replayed dropout step of phase 7 (profiler)
+    d_replay = disp_stats["dropout"]["replay_launches"]
+    kernels.append({
+        "name": "dropout", "route": "cuda",
+        "source": f"cgat_tpu_torch/csrc/{SOURCES['dropout']}.cu",
+        "replaces": REPLACES["dropout"],
+        "launches": var_launches["dropout"] + var_launches["dropout_bwd"],
+        "launches_forward": var_launches["dropout"],
+        "launches_backward": var_launches["dropout_bwd"],
+        "replay_launches": d_replay["dropout"] + d_replay["dropout_bwd"],
+        "masks_equal": dropout_row["masks_equal"],
+        **{k: dropout_row[k] for k in (
+            "shape", "max_abs_err", "rel_norm_err", "checks",
+            "deterministic", "kept_share", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}})
+    if not all(k["launches"] for k in kernels):
+        fail(f"a kernel was never launched on its path: "
+             f"{[k['name'] for k in kernels if not k['launches']]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ card a rank (NCCL); imports torch and the port, never JAX:
 
     python tests/_torch_parallel_worker.py step <spec.json>
     python tests/_torch_parallel_worker.py fit <spec.json>
+    python tests/_torch_parallel_worker.py gp <spec.json>
 
 ``step``: one parallel AdamW step of the tiny model from the weights in
 ``spec["state_dict"]`` on the first group of ``spec["graphs"]`` random
@@ -16,7 +17,10 @@ and the parameters after the step to ``spec["out"]``. ``fit``: a
 (over the shards of ``spec["stream"]``'s ``data_path`` when it is given,
 ``streaming=True``, else on random graphs); every rank saves its
 metrics, the test split's parallel evaluation and embeddings, and rank 0
-the final weights.
+the final weights. ``gp``: ``cli.train_gp`` with ``spec["argv"]`` as one
+rank of the world, then this rank's embeddings of ``spec["data"]`` by the
+run's trainer across the mesh, saved to ``rank<r>.npz`` beside
+``spec["out"]``.
 """
 import json
 import os
@@ -99,9 +103,23 @@ def fit(spec: dict) -> None:
              emb=t.embeddings(t.test_graphs))
 
 
+def gp(spec: dict) -> None:
+    import numpy as np
+    from cgat_tpu_torch.cli import train_gp
+    from cgat_tpu_torch.data.dataset import load_dataset_dir
+    from cgat_tpu_torch.training import load_trainer
+    assert train_gp.main(spec["argv"]) == 0
+    t, _ = load_trainer(spec["run"], device="cpu", parallel=True,
+                        n_devices=2, edge_shards=1)
+    emb = t.embeddings(load_dataset_dir(spec["data"], max_neighbor_number=4,
+                                        target="e_above_hull"))
+    np.savez(os.path.join(os.path.dirname(spec["out"]),
+                          f"rank{torch.distributed.get_rank()}.npz"), emb=emb)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     with open(sys.argv[2]) as f:
         spec = json.load(f)
-    {"step": step, "fit": fit}[sys.argv[1]](spec)
+    {"step": step, "fit": fit, "gp": gp}[sys.argv[1]](spec)
     torch.distributed.destroy_process_group()

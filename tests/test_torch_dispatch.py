@@ -378,15 +378,16 @@ def test_resume_of_a_flat_dispatch_run_is_exact(tmp_path):
 
 
 def test_dropout_and_bad_counts_with_steps_per_dispatch_raise():
-    """Dropout masks come from host generators, which a replayed step
-    would repeat: dropout with K > 1 raises on any device, naming the
-    ROADMAP item; K = 1 with dropout and K > 1 without it build."""
+    """Dropout's masks come from the device step count, so dropout with
+    K > 1 trains (its losses are K = 1's: ``tests/test_torch_dropout.py``)
+    and no error names dropout; a bad count still raises."""
     graphs = random_graphs(0, 12, **GRAPHS)
-    with pytest.raises(NotImplementedError, match="device-side dropout"):
-        Trainer(TrainerConfig(steps_per_dispatch=2),
+    t = Trainer(TrainerConfig(**TRAIN, steps_per_dispatch=2),
                 CGATConfig(**TINY, dropout=0.1), graphs, device="cpu")
-    Trainer(TrainerConfig(), CGATConfig(**TINY, dropout=0.1), graphs,
-            device="cpu")
+    t.init_state()
+    got = t.train_group(next(iter(t.grouped_loader(t.train_graphs))))
+    assert len(got) == 2 and t.step == int(t.step_count) == 2
+    assert all(np.isfinite(float(m["loss"])) for m in got)
     t = Trainer(TrainerConfig(**TRAIN, steps_per_dispatch=2, acc_batches=2),
                 CGATConfig(**TINY), graphs, device="cpu")
     t.init_state()

@@ -18,9 +18,9 @@ import torch
 from cgat_tpu_torch.data import collate, host_offsets
 from cgat_tpu_torch.data.synthetic import random_graphs
 from cgat_tpu_torch.models import CGATConfig, CGAtNet, init_state_dict
-from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, hyper_apply,
-                                        mh_network, segment_attention,
-                                        segment_sum)
+from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, dropout,
+                                        hyper_apply, mh_network,
+                                        segment_attention, segment_sum)
 from cgat_tpu_torch.training import Trainer, TrainerConfig
 
 pytestmark = pytest.mark.gpu
@@ -413,6 +413,11 @@ def test_kernels_launch_on_the_tensors_device(dev):
     vals = t(m)
     _close(segment_sum.segment_sum(vals, ids, offn, 300),
            segment_sum.segment_sum_plain(vals, ids, 300), torch.float32)
+    # dropout, forward and backward
+    step = torch.tensor(3, dtype=torch.int64, device=d1)
+    for fn in (dropout.dropout, dropout.dropout_bwd):
+        assert torch.equal(fn(vals, 0.2, (1, 2), step),
+                           dropout.dropout_plain(vals, 0.2, (1, 2), step))
     assert torch.cuda.current_device() == 0
     assert all(v - before[k] == 1 for k, v in _launches().items())
 
@@ -530,7 +535,8 @@ def test_train_step_on_card_matches_cpu(dev):
         "segment_attention": n + 1, "mh_network": 2 * n,
         "hyper_apply": 4 * n, "segment_attention_bwd": n + 1,
         "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
-        "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1}
+        "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1,
+        "dropout": 0, "dropout_bwd": 0}
     grads = [p.grad for p in card.model.parameters() if p.grad is not None]
     assert all(g.dtype == torch.float32 for g in grads)
     assert torch.isfinite(torch.stack(torch._foreach_norm(grads))).all()
@@ -566,7 +572,9 @@ def test_cli_train_and_resume_on_card(dev, tmp_path):
     assert cli_train.main(["--data-path", str(tmp_path / "p.pickle.gz"),
                            "--smoke-test", "--ckpt-dir", str(tmp_path),
                            "--run-name", "r", *flags]) == 0
-    assert all(v > before[k] for k, v in _launches().items())
+    # every kernel but dropout's (the model has none)
+    assert all(v > before[k] for k, v in _launches().items()
+               if not k.startswith("dropout"))
     run = tmp_path / "runs" / "r"
     trainer, meta = load_trainer(str(run), tag="last")
     assert meta["epoch"] == 1
@@ -639,7 +647,8 @@ def test_hyper_edge_train_step_launch_counts(dev):
         "segment_attention": n + 1, "mh_network": 2 * n,
         "hyper_apply": 8 * n - 4, "segment_attention_bwd": n + 1,
         "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 8 * n - 4,
-        "hyper_apply_bwd_dk": 8 * n - 4, "segment_sum": 4 * n - 1}
+        "hyper_apply_bwd_dk": 8 * n - 4, "segment_sum": 4 * n - 1,
+        "dropout": 0, "dropout_bwd": 0}
     grads = [p.grad for p in card.model.parameters() if p.grad is not None]
     assert torch.isfinite(torch.stack(torch._foreach_norm(grads))).all()
     card.apply_update()
@@ -681,14 +690,16 @@ def _eager_step(t, batch):
     ({}, {}), ({}, {"remat": True}), ({}, {"hyper_remat": True}),
     ({"optim": "LAMB", "acc_batches": 2}, {}),
     ({"optim": "SGD", "acc_batches": 3}, {}),
-    ({"steps_per_dispatch": 1}, {})])
+    ({"steps_per_dispatch": 1}, {}),
+    ({}, {"dropout": 0.1}), ({"steps_per_dispatch": 1}, {"dropout": 0.1})])
 def test_graph_steps_match_eager_steps(dev, tkw, mkw):
     """Two epochs of groups of batches, taken one step by one step
     eagerly and one group by one group through ``train_group`` (every
     ``train_step`` on the card: each shape's and optimizer phase's first
     step eager, the rest replays of its CUDA graph), the learning rate
     changed half way: the same losses and parameters, bit for bit, under
-    remat's checkpoints, MultiSteps' phases and K = 1 too."""
+    remat's checkpoints, MultiSteps' phases, dropout (its masks drawn from
+    the device step count) and K = 1 too."""
     (eager, graph), groups = _dispatch_pair(dev, tkw, mkw)
     got, want = [], []
     for j, group in enumerate(groups):
@@ -735,7 +746,8 @@ def test_replayed_step_launches_every_kernel(dev):
         "segment_attention": n + 1, "mh_network": 2 * n,
         "hyper_apply": 4 * n, "segment_attention_bwd": n + 1,
         "mh_network_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
-        "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1}
+        "hyper_apply_bwd_dk": 4 * n, "segment_sum": 2 * n + 1,
+        "dropout": 0, "dropout_bwd": 0}
     before = _launches()
     replay_names = device_names(lambda: graph.train_step(batch))
     assert _launches() == before
@@ -1014,7 +1026,131 @@ def test_streaming_train_step_replays(dev, tmp_path):
             losses.append(float(trainer.train_step(batch)["loss"]))
             got = {k: v - before[k] for k, v in _launches().items()}
             new = len(trainer.step_graphs.graphs) - keys
-            assert got == {k: 2 * new * v for k, v in step.items()}
+            assert got == {**dict.fromkeys(got, 0),
+                           **{k: 2 * new * v for k, v in step.items()}}
             replays += 1 - new
     assert len(losses) == 2 * len(loader) and replays > len(losses) // 2
     assert all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [18432 * 640, 1001, 3])
+def test_dropout_kernel_equals_plain_bit_for_bit(dev, dtype, n):
+    """Both entry points give the plain version's bits (the same masks
+    and the same rounding of x * scale) at the node layers' shape, a
+    ragged tail and an unaligned view (the one-at-a-time path), at a step
+    past 2**32; an empty tensor launches nothing."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=g, device=dev).to(dtype)
+    step = torch.tensor(2 ** 32 + 5, dtype=torch.int64, device=dev)
+    key = dropout.site_key(0, 1, 2)
+    for fn in (dropout.dropout, dropout.dropout_bwd):
+        for v in (x, x[1:]):
+            got = fn(v, 0.1, key, step)
+            want = dropout.dropout_plain(v, 0.1, key, step)
+            assert torch.equal(got, want)
+            assert torch.equal(got != 0, want != 0)
+    before = _launches()
+    assert dropout.dropout(x[:0], 0.1, key, step).numel() == 0
+    assert _launches() == before
+
+
+def test_dropout_replays_draw_new_masks(dev):
+    """A CUDA graph of a dropout call and the step's increment: each
+    replay reads the device step, so two replays draw different masks,
+    each the plain version's at its step."""
+    x = torch.ones(1 << 16, device=dev)
+    step = torch.zeros((), dtype=torch.int64, device=dev)
+    key = dropout.site_key(7)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        dropout.dropout(x, 0.5, key, step)
+        step.add_(1)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dropout.dropout(x, 0.5, key, step)
+        step.add_(1)
+    masks = []
+    for _ in range(2):
+        graph.replay()
+        masks.append(out.clone())
+    assert not torch.equal(masks[0], masks[1])
+    for i, m in enumerate(masks):
+        assert torch.equal(m, dropout.dropout_plain(
+            x, 0.5, key, torch.tensor(i + 1, device=dev)))
+    assert int(step) == 3
+
+
+def _gp_case(dev):
+    """The bf16 2-layer model on the card (eval), 60 graphs, and the
+    arguments of an on-the-fly GP fit of 3 epochs of 3 steps."""
+    model = CGAtNet(CGATConfig(**SMALL, compute_dtype="bfloat16"))
+    model.load_state_dict(init_state_dict(model, seed=0))
+    graphs = random_graphs(4, 60, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    kw = dict(mean=0.1, std=1.3, num_inducing=16, epochs=3, batch_size=16,
+              max_nbr=16, node_bucket=16, verbose=False)
+    return model.to(dev).eval(), graphs, kw
+
+
+def test_replayed_gp_step_equals_an_eager_one(dev, monkeypatch):
+    """``fit_gp_streaming`` on the card: the inducing batch's forward,
+    then each batch shape's eager first step and capture call the
+    forward's wrappers (none of a backward: the backbone is frozen), a
+    replay none; the history and parameters equal a fit whose every step
+    is eager on the card, bit for bit."""
+    from cgat_tpu_torch.data.dataset import GraphLoader
+    from cgat_tpu_torch.training.dispatch import signature
+    from cgat_tpu_torch.uncertainty import gp
+
+    model, graphs, kw = _gp_case(dev)
+    loader = GraphLoader(graphs, 16, shuffle=True, seed=0, max_nbr=16,
+                         node_bucket=16)
+    keys, steps = set(), 0
+    for epoch in range(kw["epochs"]):
+        loader.set_epoch(epoch)
+        for b in loader:
+            keys.add(signature(b))
+            steps += 1
+    n = SMALL["n_graph"]
+    before = _launches()
+    got = gp.fit_gp_streaming(model, graphs, **kw)
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        **dict.fromkeys(before, 0),
+        **{k: v * (1 + 2 * len(keys)) for k, v in (
+            ("segment_attention", n + 1), ("mh_network", 2 * n),
+            ("hyper_apply", 4 * n))}}
+    assert len(keys) < steps
+    monkeypatch.setattr(gp, "StepGraphs", lambda device: None)
+    want = gp.fit_gp_streaming(model, graphs, **kw)
+    assert got[1] == want[1] and all(np.isfinite(got[1]))
+    for (name, a), (_, b) in zip(got[0].named(), want[0].named()):
+        assert torch.equal(a, b), name
+
+
+def test_a_dropped_gp_fit_frees_its_graphs(dev):
+    """Nothing of a GP fit's graphs outlives it: once its parameters are
+    dropped, the card holds what it held before the fit (cuBLAS's
+    per-stream workspaces cleared both times: the fit's side stream makes
+    one, which is not the graphs' memory)."""
+    import gc
+
+    from cgat_tpu_torch.uncertainty import gp
+
+    def settled():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    model, graphs, kw = _gp_case(dev)
+    gp.fit_gp_streaming(model, graphs, **kw)
+    before = settled()
+    params, history = gp.fit_gp_streaming(model, graphs, **kw)
+    assert params.inducing.is_cuda and np.isfinite(history).all()
+    assert settled() > before
+    del params
+    assert settled() == before

@@ -18,7 +18,7 @@ from cgat_tpu_torch.data import collate
 from cgat_tpu_torch.data.synthetic import random_graphs
 from cgat_tpu_torch.models import (CGATConfig, CGAtNet, init_state_dict,
                                    state_dict_from_jax)
-from cgat_tpu_torch.models.cgat import dropout
+from cgat_tpu_torch.models.cgat import DropoutKey, dropout
 from cgat_tpu_torch.ops.kernels import hyper_apply, mh_network
 from cgat_tpu_torch.ops.kernels import segment_attention
 
@@ -266,20 +266,23 @@ def test_variant_grads_and_kernel_calls(variant, extra, monkeypatch):
 
 def test_dropout_keep_rate_scaling_and_replay():
     """Kept with probability 1 - p and scaled by 1/(1 - p); the same
-    (seed, step, site) draws the same mask and another step another one;
-    p = 0 in training and any p in eval give the default forward's bits.
-    The masks cannot be JAX's bit for bit (torch's Philox generator, not
-    JAX's threefry), so a training forward under dropout is not held
-    against cgat_tpu; its eval forward is, in
+    (seed, site) path and device step draw the same mask, another step or
+    another path another one; p = 0 in training and any p in eval give
+    the default forward's bits. The masks cannot be JAX's bit for bit
+    (the port's Philox, not JAX's threefry), so a training forward under
+    dropout is not held against cgat_tpu; its eval forward is, in
     ``test_f32_forward_matches_jax``."""
+    def key(path, step):
+        return DropoutKey(path, torch.tensor(step, dtype=torch.int64))
+
     x = torch.ones(200_000)
-    y = dropout(x, 0.25, (0, 7, 3))
+    y = dropout(x, 0.25, key((0, 3), 7))
     kept = y != 0
     assert abs(float(kept.float().mean()) - 0.75) < 0.005
     assert torch.equal(y[kept], torch.full_like(y[kept], 1 / 0.75))
-    assert torch.equal(y, dropout(x, 0.25, (0, 7, 3)))
-    assert not torch.equal(y, dropout(x, 0.25, (0, 8, 3)))
-    assert not torch.equal(y, dropout(x, 0.25, (1, 7, 3)))
+    assert torch.equal(y, dropout(x, 0.25, key((0, 3), 7)))
+    assert not torch.equal(y, dropout(x, 0.25, key((0, 3), 8)))
+    assert not torch.equal(y, dropout(x, 0.25, key((1, 3), 7)))
     _, params, _, _, batch = _pair(SMALL)
     outs = {}
     for p, mode in ((0.0, "eval"), (0.0, "train"), (0.3, "eval"),
@@ -289,7 +292,7 @@ def test_dropout_keep_rate_scaling_and_replay():
         model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
         model.train(mode == "train")
         with torch.no_grad():
-            outs[p, mode] = model(batch, dropout_key=(0, 5))
+            outs[p, mode] = model(batch, dropout_key=key((0,), 5))
     assert torch.equal(outs[0.0, "train"], outs[0.0, "eval"])
     assert torch.equal(outs[0.3, "eval"], outs[0.0, "eval"])
     assert not torch.equal(outs[0.3, "train"], outs[0.0, "eval"])

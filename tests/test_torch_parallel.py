@@ -104,7 +104,9 @@ def _start_world(mode: str, spec: dict, n: int, tmp) -> list:
     return procs
 
 
-def _join(procs) -> None:
+def _join(procs) -> list[str]:
+    """Wait for every rank; each must exit 0. Returns their outputs."""
+    outs = []
     for p in procs:
         try:
             out, _ = p.communicate(timeout=240)
@@ -113,6 +115,8 @@ def _join(procs) -> None:
                 q.kill()
             raise
         assert p.returncode == 0, out[-4000:]
+        outs.append(out)
+    return outs
 
 
 # ------------------------------------------------------------ the collate
@@ -471,6 +475,55 @@ def test_cli_train_on_two_gloo_ranks_with_two_edge_shards(tmp_path):
     with open(d / "logs" / "runs" / "r" / "metrics.jsonl") as f:
         epochs = [json.loads(line)["epoch"] for line in f]
     assert sorted(set(epochs)) == [0, 1]
+
+
+def test_cli_train_gp_on_two_gloo_ranks(tmp_path):
+    """``cli.train_gp --devices 2`` as two gloo ranks: each rank's
+    embeddings across the mesh equal one process's, every rank fits the
+    same GP, and rank 0 alone writes the pickle, whose history and val
+    MAE are one process's ``cli.train_gp``'s."""
+    from cgat_tpu_torch.cli import train_gp as cli_train_gp
+    from cgat_tpu_torch.data.dataset import load_dataset_dir
+    from cgat_tpu_torch.training import load_trainer
+    d = tmp_path
+    with gzip.open(d / "raw.pickle.gz", "wb") as f:
+        pickle.dump(random_structures(0, 30), f)
+    assert cli_prepare.main(["--file", "raw.pickle.gz", "--source-dir",
+                             str(d), "--target-dir", str(d), "--target-file",
+                             "p.pickle.gz", "--max-nbr", "4"]) == 0
+    data = str(d / "p.pickle.gz")
+    t = Trainer(TrainerConfig(data_path=data, target="e_above_hull",
+                              max_nbr=4, batch_size=4, node_bucket=8,
+                              epochs=1, check_val_every_n_epoch=1,
+                              ckpt_dir=str(d), run_name="r"),
+                CGATConfig(**{**TINY, "orig_elem_fea_len": 200}),
+                device="cpu")
+    t.fit()
+    run = str(d / "runs" / "r")
+    argv = ["--cgat-model", run, "--inducing-points", "6", "--epochs", "3",
+            "--batch-size", "8", "--device", "cpu"]
+    world = d / "world"
+    world.mkdir()
+    outs = _join(_start_world("gp", {
+        "argv": argv + ["--devices", "2", "--out", str(world / "gp.pkl.gz")],
+        "run": run, "data": data, "out": str(world / "gp.pkl.gz")}, 2,
+        str(d)))
+    assert [sum(line.startswith("wrote ") for line in o.splitlines())
+            for o in outs] == [1, 0]
+    one_path = d / "one.pkl.gz"
+    assert cli_train_gp.main(argv + ["--out", str(one_path)]) == 0
+    one, _ = load_trainer(run, device="cpu")
+    want = one.embeddings(load_dataset_dir(data, max_neighbor_number=4,
+                                           target="e_above_hull"))
+    for r in (0, 1):
+        np.testing.assert_allclose(np.load(world / f"rank{r}.npz")["emb"],
+                                   want, rtol=1e-5, atol=1e-6)
+    with gzip.open(world / "gp.pkl.gz") as f:
+        got = pickle.load(f)
+    with gzip.open(one_path) as f:
+        ref = pickle.load(f)
+    np.testing.assert_allclose(got["history"], ref["history"], rtol=1e-4)
+    np.testing.assert_allclose(got["val_mae"], ref["val_mae"], rtol=1e-4)
 
 
 @pytest.mark.parametrize("n,shards", [(2, 1), (2, 2)])

@@ -159,7 +159,8 @@ def test_port_runs_without_jax_loaded():
             "cgat_tpu_torch.data.featurizer, cgat_tpu_torch.native, "
             "cgat_tpu_torch.cli.common, cgat_tpu_torch.cli.prepare, "
             "cgat_tpu_torch.cli.train, cgat_tpu_torch.cli.evaluate, "
-            "cgat_tpu_torch.cli.predict; "
+            "cgat_tpu_torch.cli.predict, cgat_tpu_torch.cli.train_gp, "
+            "cgat_tpu_torch.uncertainty, cgat_tpu_torch.ops.kernels.dropout; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'sklearn', 'cgat_tpu')]; print(bad); "
             "sys.exit(bool(bad))")
