@@ -54,14 +54,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..data.batching import CrystalBatch, HaloBatch
+from ..data.batching import OFFN_MARGIN, CrystalBatch, HaloBatch
 from ..ops.attention import (edge_softmax_aggregate,
                              edge_softmax_aggregate_pair)
 from ..ops.gather import GatherPlan, gather_rows
 from ..ops.kernels.dropout import Dropout, site_key
 from ..ops.segment import (NEG_BIG, SOFTMAX_EPS, segment_max,
                            segment_softmax, segment_softmax_pair,
-                           segment_sum)
+                           segment_sum, take_rows)
 from ..parallel.collectives import all_gather, all_reduce, all_to_all
 from .blocks import (MultiHeadNetwork, ResidualNetwork, SimpleNetwork,
                      TorchLinear)
@@ -137,13 +137,6 @@ def dropout(x, rate: float, key: DropoutKey):
     if rate >= 1.0:
         return torch.zeros_like(x)
     return Dropout.apply(x, rate, site_key(*key.path), key.step)
-
-
-def _gather(table, idx, plan):
-    """``table[idx]``, through :func:`gather_rows` (the segment-sum kernel
-    as its backward) when there is a ``plan``."""
-    return table[idx.long()] if plan is None else gather_rows(table, idx,
-                                                               plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,10 +254,11 @@ class GATConvNodes(nn.Module):
         not apply here, as there."""
         n = x.shape[0]
         drop = dropout_key is not None
-        m_cat = torch.cat([_gather(x, edge_dst, plans and plans[0]),
+        m_cat = torch.cat([take_rows(x, edge_dst, plans and plans[0]),
                            edge_attr,
-                           _gather(x, edge_src, plans and plans[1])], dim=-1)
-        m_cat_h = torch.cat([_gather(x, h.dst, h.plan), h.attr,
+                           take_rows(x, edge_src, plans and plans[1])],
+                          dim=-1)
+        m_cat_h = torch.cat([take_rows(x, h.dst, h.plan), h.attr,
                              h.table[h.src.long()]], dim=-1)
         if self._flat(drop):
             # the MH kernel on both blocks, (E, H*F) into the pair path
@@ -279,15 +273,20 @@ class GATConvNodes(nn.Module):
         alpha, m = self.MH_A(m_cat), self.MH_M(m_cat)
         alpha_h, m_h = self.MH_A(m_cat_h), self.MH_M(m_cat_h)
         if drop:
+            # through the segment-sum kernel with the blocks' plans, as
+            # the single-shard dropout path: deterministic sums
+            plan = plans and plans[0]
             w, w_h = segment_softmax_pair(alpha, edge_dst, edge_mask,
-                                          alpha_h, h.dst, h.mask, n)
+                                          alpha_h, h.dst, h.mask, n,
+                                          plan_a=plan, plan_b=h.plan)
             w = dropout(w, self.dropout, dropout_key)
             w_h = dropout(w_h, self.dropout, dropout_key.site(1))
             zero = torch.zeros((), dtype=m.dtype, device=m.device)
             aggr = (segment_sum(torch.where(edge_mask[:, None, None], w * m,
-                                            zero), edge_dst, n)
+                                            zero), edge_dst, n, plan)
                     + segment_sum(torch.where(h.mask[:, None, None],
-                                              w_h * m_h, zero), h.dst, n))
+                                              w_h * m_h, zero), h.dst, n,
+                                  h.plan))
         else:
             aggr = edge_softmax_aggregate_pair(
                 alpha, m, edge_dst, edge_mask, alpha_h, m_h, h.dst, h.mask,
@@ -346,10 +345,11 @@ class GATConvEdges(nn.Module):
         block's [local nodes | received rows])."""
         if self.no_hyper:
             return self.Pooling_NN(edge_attr)
-        src_rows = (_gather(x, edge_src, plans and plans[1])
+        src_rows = (take_rows(x, edge_src, plans and plans[1])
                     if src_table is None else src_table[edge_src.long()])
         m_cat = torch.cat([src_rows, edge_attr,
-                           _gather(x, edge_dst, plans and plans[0])], dim=-1)
+                           take_rows(x, edge_dst, plans and plans[0])],
+                          dim=-1)
         alpha = torch.exp(self.MH_A(m_cat))
         alpha = alpha / alpha.sum(dim=1, keepdim=True)      # across heads
         if dropout_key is not None:
@@ -393,9 +393,11 @@ class MHAttention(nn.Module):
         then pools its own atoms and completes every crystal's softmax
         with (C, H, F) collectives: the max all-gathered, the numerator and
         denominator summed (as the JAX package does under ``axis_name``,
-        in plain ops, with gradients through all three)."""
+        with gradients through all three; the gathers and sums go
+        through the segment-sum kernel with ``plan``, so they are
+        deterministic)."""
         m = self.MH_M(fea)
-        alpha = self.MH_A(torch.cat([fea, _gather(cry_fea, node2graph,
+        alpha = self.MH_A(torch.cat([fea, take_rows(cry_fea, node2graph,
                                                   plan)], dim=-1))
         if edge_group is None:
             agg = edge_softmax_aggregate(alpha, m, node2graph, num_graphs,
@@ -406,13 +408,13 @@ class MHAttention(nn.Module):
         masked = torch.where(keep, alpha, torch.full_like(alpha, NEG_BIG))
         gmax = all_gather(segment_max(masked, node2graph, num_graphs),
                           edge_group.group).amax(dim=0)
-        ids = node2graph.long()
-        ex = torch.where(keep, torch.exp(alpha - gmax[ids]),
+        ex = torch.where(keep, torch.exp(alpha - take_rows(gmax, node2graph,
+                                                           plan)),
                          torch.zeros_like(alpha))
         num, den = all_reduce(
             torch.stack(torch.broadcast_tensors(
-                segment_sum(ex * m, node2graph, num_graphs),
-                segment_sum(ex, node2graph, num_graphs))),
+                segment_sum(ex * m, node2graph, num_graphs, plan),
+                segment_sum(ex, node2graph, num_graphs, plan))),
             edge_group.group)
         agg = num / (den + SOFTMAX_EPS)
         return agg.reshape(-1, self.heads * self.out_channels)
@@ -437,6 +439,8 @@ class _Layout:
             self.plans = (GatherPlan(batch.edge_dst, None, batch.edge_dst_offn),
                           GatherPlan(batch.edge_src_sorted,
                                      batch.edge_src_perm, batch.edge_src_offn))
+            self.pool_plan = GatherPlan(batch.node2graph, None,
+                                        batch.node2graph_offn)
             return
         if edge_group is None:
             if batch.nodes.is_cuda:
@@ -448,6 +452,7 @@ class _Layout:
             self.src, self.dst = batch.edge_src, batch.edge_dst
             self.src_h, self.dst_h = batch.halo_src, batch.halo_dst
             self.offn = self.offn_h = self.plans = self.plan_h = None
+            self.pool_plan = None
             self.exchange = lambda x: x
             return
         offset = edge_group.index * batch.nodes.shape[0]
@@ -460,6 +465,14 @@ class _Layout:
                       GatherPlan(batch.edge_src_sorted, batch.edge_src_perm,
                                  batch.edge_src_offn))
         self.plan_h = GatherPlan(self.dst_h, None, batch.halo_dst_offn)
+        # the pool's plan over this rank's node slice (the collate ships
+        # none for a sharded batch): its crystal ids are sorted, so their
+        # CSR pointers are one search on the device
+        ids = batch.node2graph
+        self.pool_plan = GatherPlan(ids, None, torch.searchsorted(
+            ids, torch.arange(batch.num_graphs + OFFN_MARGIN + 1,
+                              dtype=ids.dtype, device=ids.device),
+            out_int32=True))
         send = batch.halo_send_idx
 
         def exchange(x):
@@ -578,9 +591,7 @@ class CGAtNet(nn.Module):
         crys_fea = self.cry_pool(
             elem_fea, crys_fea, batch.node2graph, batch.node_mask,
             batch.num_graphs, offn=batch.node2graph_offn,
-            plan=(None if batch.node2graph_offn is None else
-                  GatherPlan(batch.node2graph, None, batch.node2graph_offn)),
-            edge_group=edge_group)
+            plan=lay.pool_plan, edge_group=edge_group)
         if cfg.mean_pooling:
             crys_fea = crys_fea.view(-1, cfg.msg_heads,
                                      cfg.elem_fea_len).mean(dim=1)

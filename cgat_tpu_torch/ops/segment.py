@@ -38,7 +38,7 @@ def segment_sum(data, segment_ids, num_segments,
     return out.index_add_(0, segment_ids.long(), data)
 
 
-def _take(table, segment_ids, plan: GatherPlan | None):
+def take_rows(table, segment_ids, plan: GatherPlan | None):
     """``table[segment_ids]`` (through :func:`gather_rows` when the ids'
     ``plan`` is given)."""
     if plan is None:
@@ -65,21 +65,24 @@ def segment_softmax(scores, segment_ids, num_segments, *, mask=None,
         scores = torch.where(_expand(mask, scores), scores,
                              torch.full_like(scores, NEG_BIG))
     seg_max = segment_max(scores, segment_ids, num_segments)
-    unnorm = torch.exp(scores - _take(seg_max, segment_ids, plan))
+    unnorm = torch.exp(scores - take_rows(seg_max, segment_ids, plan))
     if mask is not None:
         unnorm = torch.where(_expand(mask, unnorm), unnorm,
                              torch.zeros_like(unnorm))
     denom = segment_sum(unnorm, segment_ids, num_segments, plan)
-    return unnorm / (_take(denom, segment_ids, plan) + eps)
+    return unnorm / (take_rows(denom, segment_ids, plan) + eps)
 
 
 def segment_softmax_pair(scores_a, ids_a, mask_a, scores_b, ids_b, mask_b,
-                         num_segments, *, eps=SOFTMAX_EPS):
+                         num_segments, *, eps=SOFTMAX_EPS,
+                         plan_a: GatherPlan | None = None,
+                         plan_b: GatherPlan | None = None):
     """Segment softmax over the union of two row blocks (an edge-sharded
     batch's local and halo blocks): each segment normalises over its rows
     in both. Returns each block's weights ``(w_a, w_b)``, equal (the
     softmax is shift-invariant) to :func:`segment_softmax` of the
-    concatenated blocks. Masked rows get weight exactly 0."""
+    concatenated blocks. Masked rows get weight exactly 0. ``plan_a``,
+    ``plan_b``: the blocks' gather plans, for the deterministic path."""
     sa = torch.where(_expand(mask_a, scores_a), scores_a,
                      torch.full_like(scores_a, NEG_BIG))
     sb = torch.where(_expand(mask_b, scores_b), scores_b,
@@ -88,10 +91,13 @@ def segment_softmax_pair(scores_a, ids_a, mask_a, scores_b, ids_b, mask_b,
                        segment_max(sb, ids_b, num_segments))
     # exponentiate the masked scores: masked rows sit at NEG_BIG, so no
     # exponent overflows in the branch that is not taken
-    ea = torch.where(_expand(mask_a, sa), torch.exp(sa - mx[ids_a.long()]),
+    ea = torch.where(_expand(mask_a, sa),
+                     torch.exp(sa - take_rows(mx, ids_a, plan_a)),
                      torch.zeros_like(sa))
-    eb = torch.where(_expand(mask_b, sb), torch.exp(sb - mx[ids_b.long()]),
+    eb = torch.where(_expand(mask_b, sb),
+                     torch.exp(sb - take_rows(mx, ids_b, plan_b)),
                      torch.zeros_like(sb))
-    den = (segment_sum(ea, ids_a, num_segments)
-           + segment_sum(eb, ids_b, num_segments))
-    return (ea / (den[ids_a.long()] + eps), eb / (den[ids_b.long()] + eps))
+    den = (segment_sum(ea, ids_a, num_segments, plan_a)
+           + segment_sum(eb, ids_b, num_segments, plan_b))
+    return (ea / (take_rows(den, ids_a, plan_a) + eps),
+            eb / (take_rows(den, ids_b, plan_b) + eps))

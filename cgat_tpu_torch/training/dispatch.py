@@ -56,19 +56,37 @@ class _Graph:
     metrics: dict             # outputs, cloned out after each replay
 
 
+# the side stream of each card, shared by every StepGraphs on it: cuBLAS
+# keeps a workspace for each stream it ran on until the process ends, so a
+# stream of each StepGraphs's own would leave one behind with every
+# dropped trainer and GP fit
+_SIDE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """The one side stream of ``device`` (made at its first use)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return _SIDE_STREAMS[index]
+
+
 class StepGraphs:
     """The CUDA graphs of a training step on ``device``, by key (batch
     signature, optimizer phase); ``capture_s`` holds each key's capture
     seconds. It keeps no reference to the trainer (whose work comes with
     each call), so a trainer that is dropped frees its graphs' memory at
-    once."""
+    once; the eager first steps run on the card's one side stream
+    (:func:`side_stream`)."""
 
     def __init__(self, device):
         self.device = device
         self.graphs: dict[tuple, _Graph] = {}
         self.capture_s: dict[tuple, float] = {}
         self.pool = torch.cuda.graph_pool_handle()
-        self.side = torch.cuda.Stream(device)
+        self.side = side_stream(device)
 
     def step(self, batch: CrystalBatch, phase: int, step_fn, advance) -> dict:
         """One training step on ``batch`` (on the card) in optimizer phase

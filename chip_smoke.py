@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Twelve phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Thirteen phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -109,11 +109,14 @@ failure exits non-zero:
    card (spawned processes; eager steps, gloo's collectives staged
    through the host), 3 steps each against one process on the same
    groups, each rank's launches a step exact (edge = 2: 20/10/20 and
-   20/10/20/20/15, the pair path 10 and 10) and the boundary exchange's
-   rows and bytes a layer; a one-rank NCCL world through the parallel
-   step, its steps after the first replayed with the collectives
-   captured, against the one-card trainer; dp = 2 over NCCL when there
-   are two cards, else a line saying it was skipped;
+   20/10/20/20/19, the pair path 10 and 10) and the boundary exchange's
+   rows and bytes a layer; under edge = 2 each rank also takes a
+   ``dropout=0.1`` forward and backward twice from the same state, whose
+   loss and summed gradient must have the same bits (the halo layer's
+   and the sharded pool's sums through #8); a one-rank NCCL world
+   through the parallel step, its steps after the first replayed with
+   the collectives captured, against the one-card trainer; dp = 2 over
+   NCCL when there are two cards, else a line saying it was skipped;
 9. export: ``cli.export`` on phase 5's run directory, ``load_artifact``
    on the card, phase 3's requests served from it with exact launches (a
    warm-up and a capture for each signature, replays after), the
@@ -135,16 +138,32 @@ failure exits non-zero:
    epoch, the on-the-fly history against ``Trainer.embeddings`` +
    ``fit_gp`` (rtol 1e-4, atol 1e-5); ``cli.train_gp`` on phase 5's run,
    precomputed and ``--on-the-fly``, with exact launches;
-12. report the card, and the nine kernels as one JSON line (with their
+12. active_learning: ``cgat_tpu_torch.tools`` on 1,024 prototype
+   crystals (``random_structures``, the port's featuriser, 4 shards of
+   256): a Metropolis initial sample of 256, then three rounds of
+   ``active_learning_round`` with the reference-default model (bf16,
+   batch 64, 2 epochs): ranked by error, by an SVGP's predictive std on
+   the sample's frozen embeddings (64 inducing points, 30 epochs), and by
+   error from round 2's weights; each absorbs 128. The sample must grow
+   256, 384, 512, 640 and the pool shrink as much, with no id in both;
+   round 1's pool errors agree with the same run's f32 forward on the
+   CPU (rtol 5e-2, atol 5e-2 x max); every kernel launches in the phase,
+   each backward kernel in every round's training; the card's allocated
+   memory after rounds 2 and 3 (trainers and GP fit dropped) stays within
+   4 MiB of round 1's; then ``tools.embeddings`` over the final sample and
+   the ``tools.tsne`` CLI on the card; each round's seconds split into
+   train, score (the GP fit's apart) and absorb;
+13. report the card, and the nine kernels as one JSON line (with their
    launches in phases 5 and 6 as ``cli_launches`` and
    ``variants_launches``, a replayed step's as ``replay_launches``, a
    rank's a step in phase 8 as ``parallel_launches``, the pair path's
    as ``pair_launches`` with its phase-2 check as ``pair_path``, #5
    to #7 at the edge rows as ``edge_rows``, a replayed request's as
    ``serve_replay_launches``, phase 9's as ``export_launches``, phase
-   10's as ``streaming_launches`` and phase 11's fit as ``gp_launches``;
-   the dropout row's launches are phase 6's dropout steps'); the last
-   line is ``{"ok": true, "device": {...}}``.
+   10's as ``streaming_launches``, phase 11's fit as ``gp_launches``
+   and phase 12's as ``al_launches``; the dropout row's launches are
+   phase 6's dropout steps'); the last line is ``{"ok": true, "device":
+   {...}}``.
 
 Each phase's start goes to stderr with the seconds since start, so a run
 that is stopped shows how far it got; past ``WATCHDOG_S`` seconds the
@@ -153,6 +172,7 @@ script prints every thread's stack to stderr and exits with 1.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import faulthandler
 import gc
@@ -163,6 +183,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -212,6 +233,14 @@ GP_CHECK_POOL = 512            # the pool of the on-the-fly-vs-precomputed check
 GP_CHECK_EPOCHS = 5
 GP_CLI_EPOCHS = 10             # epochs of each cli.train_gp call
 GP_RTOL, GP_ATOL = 1e-4, 1e-5  # on-the-fly vs precomputed (tests/test_gp.py)
+AL_POOL = 1024                 # prototype structures in phase 12's pool
+AL_SHARDS = 4                  # pool shards of AL_POOL / AL_SHARDS each
+AL_INITIAL = 256               # the Metropolis initial sample
+AL_NEW = 128                   # entries absorbed a round
+AL_EPOCHS = 2                  # training epochs a round
+AL_GP = dict(num_inducing=64, epochs=30, batch_size=256)  # round 2's fit
+AL_MEMORY_TOL = 4 << 20        # bytes a later round may hold above round 1
+PROFILE_PAD_S = 0.005          # host pause at each end of a profiled run
 # a substring of the name of the device kernel each wrapper launches (a
 # fixed number of times a call): phase 7 counts a replayed step's launches
 # by these names
@@ -853,21 +882,29 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
     return launches, stats
 
 
-def device_ms(fn, n_runs: int, by_launch: bool = False
-              ) -> dict[str, list[float]]:
+def device_ms(fn, n_runs: int, by_launch: bool = False,
+              pad_s: float = PROFILE_PAD_S) -> dict[str, list[float]]:
     """Device time and event count per run of ``fn`` by kernel name, from
     torch.profiler's device events over ``n_runs`` runs (empty if it
     recorded none). ``by_launch`` gives each launch of a kernel that runs
     c > 1 times a run a row of its own, "[j/c] name" for its j-th launch
-    in the run's time order."""
+    in the run's time order.
+
+    The runs start and end ``pad_s`` inside the profiler's window: a
+    kernel launched right after the profiler starts can fall outside its
+    capture window and be dropped (``python3 chip_variants.py
+    profiler_window`` counts such losses with and without the pause)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(n_runs):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
@@ -1169,13 +1206,15 @@ def edge_launches(n: int) -> dict[str, int]:
     with an ``n``-layer default model: a node layer runs the MH kernel on
     its local and its halo block (4), the pair path (#1 twice), its
     hypernetwork (4); the crystal pool completes its softmax across the
-    ranks in plain ops (no #1); the backward adds the halo block's
-    destination gather to the two node gathers (3 segment sums a layer)
-    and the pool's gather is plain."""
+    ranks with collectives around #8 (no #1); the backward adds the halo
+    block's destination gather to the two node gathers (3 segment sums a
+    layer), and the pool sums its numerator and denominator with #8 and
+    its two gathers (the crystal features, the max) take #8 as their
+    backward (4)."""
     return {"mh_network": 4 * n, "segment_attention": 2 * n,
             "hyper_apply": 4 * n, "mh_network_bwd": 4 * n,
             "segment_attention_bwd": 2 * n, "hyper_apply_bwd_dhdx": 4 * n,
-            "hyper_apply_bwd_dk": 4 * n, "segment_sum": 3 * n}
+            "hyper_apply_bwd_dk": 4 * n, "segment_sum": 3 * n + 4}
 
 
 def pair_counts() -> tuple[int, int]:
@@ -2461,9 +2500,8 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
           f"device memory {stats['peak_memory_gib']:.2f} GiB ({card})")
     del eager, graph, tr, gdev, batch, got
     stats["left_after_drop_bytes"] = settled_allocated() - allocated
-    print(f"[dispatch] both trainers dropped (the graph trainer's side "
-          f"stream with them): {stats['left_after_drop_bytes']} bytes stay "
-          f"allocated")
+    print(f"[dispatch] both trainers dropped (the card's one side stream "
+          f"stays): {stats['left_after_drop_bytes']} bytes stay allocated")
 
     # 5. the CLI with --steps-per-dispatch 2
     argv = ["--data-path", data["data_path"], "--target", "e_above_hull",
@@ -2544,8 +2582,51 @@ def _parallel_rank(rank: int, n: int, port: int, spec: dict) -> None:
         rec["pair"].append(pair_counts())
         rec["losses"].append(float(m["loss"]))
     rec["replayed"] = t.step_graphs is not None
+    if spec["edge_shards"] > 1:
+        rec["dropout_twice"] = dropout_twice(t, spec["state_dict"], batch)
     torch.save(rec, f"{spec['out']}{rank}")
     dist.destroy_process_group()
+
+
+def dropout_twice(t, state_path: str, batch) -> dict:
+    """A ``dropout=0.1`` model's forward and backward on this rank's part
+    of an edge-sharded group, twice from the same weights and step: the
+    global loss and the world's summed gradient must have the same bits
+    (the halo layer's softmax and sums and the sharded pool go through
+    the segment-sum kernel with their gather plans, so nothing sums with
+    atomics). Returns the check and the first run's launches."""
+    from cgat_tpu_torch.models import CGATConfig, CGAtNet
+    from cgat_tpu_torch.models.cgat import DropoutKey
+    from cgat_tpu_torch.parallel import (global_loss_and_metrics,
+                                         reduce_gradients)
+    mesh = t.mesh
+    model = CGAtNet(CGATConfig(compute_dtype="bfloat16", dropout=DROPOUT))
+    model.load_state_dict(torch.load(state_path), strict=True)
+    model = model.to(t.device).train()
+    key = DropoutKey((0, mesh.dp.index, mesh.edge.index),
+                     torch.zeros((), dtype=torch.int64, device=t.device))
+    runs, launches = [], None
+    for _ in range(2):
+        reset_counts()
+        model.zero_grad(set_to_none=True)
+        out = model(batch, edge_group=mesh.edge, dropout_key=key)
+        loss, _ = global_loss_and_metrics(out, batch, t.mean, t.std,
+                                          t.criterion, mesh)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in model.parameters()]
+        reduce_gradients(grads, mesh.world)
+        torch.cuda.synchronize()
+        launches = launches or launch_counts()
+        runs.append((loss.detach().clone(),
+                     torch.cat([g.reshape(-1) for g in grads])))
+    return {"same_bits": bool(torch.equal(runs[0][0], runs[1][0])
+                              and torch.equal(runs[0][1], runs[1][1])),
+            "loss": float(runs[0][0]),
+            "grad_norm": float(torch.linalg.vector_norm(runs[0][1])),
+            "max_abs_grad_diff": float((runs[0][1] - runs[1][1]).abs()
+                                       .max()),
+            "launches": launches}
 
 
 def one_process_losses(cfg, state_dict, mean, std, dp: int, shards: int
@@ -2671,6 +2752,17 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
         if not diff <= MODEL_RTOL:
             fail(f"{label}: losses {ranks[0]['losses']} vs one process "
                  f"{ref} (largest relative difference {diff:.3e})")
+        if shards > 1:
+            twice = [rec["dropout_twice"] for rec in ranks]
+            if not all(d["same_bits"] for d in twice):
+                fail(f"{label}: a dropout={DROPOUT} step taken twice from "
+                     f"the same state differs: {twice}")
+            stats["edge2_dropout_twice"] = twice
+            print(f"[parallel] {label}: a dropout={DROPOUT} step twice from "
+                  f"the same state, each rank: the same bits in the loss "
+                  f"and the summed gradient (loss {twice[0]['loss']:.6f}, "
+                  f"|grad| {twice[0]['grad_norm']:.6f}); a rank's launches "
+                  f"{ {k: v for k, v in twice[0]['launches'].items() if v} }")
         stats[label] = {"losses": ranks[0]["losses"], "one_process": ref,
                         "max_rel_diff": diff,
                         "step_ms": [rec["step_ms"] for rec in ranks],
@@ -3040,6 +3132,275 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
     return stats, fit_launches
 
 
+def al_pool(root: str) -> tuple[str, float]:
+    """Phase 12's pool: AL_POOL prototype crystals (ids "i,1") through the
+    port's featuriser, in AL_SHARDS shards; returns the directory and the
+    featurisation seconds."""
+    from cgat_tpu_torch.data.featurizer import build_dataset_prepare
+    from cgat_tpu_torch.data.structures import random_structures
+    from cgat_tpu_torch.tools import shards
+
+    structures = random_structures(1200, AL_POOL)
+    for i, e in enumerate(structures):
+        e["data"]["id"] = f"{i},1"
+    t0 = time.perf_counter()
+    prepared = build_dataset_prepare(structures, progress=False)
+    prepare_s = time.perf_counter() - t0
+    if len(prepared["batch_ids"]) != AL_POOL:
+        fail(f"phase 12: {len(prepared['batch_ids'])} of {AL_POOL} "
+             f"structures prepared")
+    pool = os.path.join(root, "pool")
+    size = AL_POOL // AL_SHARDS
+    for s in range(AL_SHARDS):
+        shards.save_pickle(shards.select_entries(
+            prepared, range(s * size, (s + 1) * size)),
+            shards.shard_path(s, pool))
+    return pool, prepare_s
+
+
+def pool_and_sample_ids(pool: str, sample_path: str) -> tuple[list, list]:
+    from cgat_tpu_torch.tools import shards
+    left = [b for _, p in shards.iter_shards(pool)
+            for b in shards.entry_ids(shards.load_pickle(p))]
+    return left, shards.entry_ids(shards.load_pickle(sample_path))
+
+
+def al_cpu_check(run: str, shard0: str, csv_path: str, card: str) -> dict:
+    """Round 1's pool errors on the card (its CSV for shard 0) against the
+    same run's f32 forward on the CPU over that shard (the plain
+    versions), computed as ``calculate_errors`` does; within MODEL_RTOL
+    and MODEL_RTOL x max|per-atom prediction|, as check_against_cpu."""
+    from cgat_tpu_torch.data.dataset import load_prepared
+    from cgat_tpu_torch.models import CGAtNet
+    from cgat_tpu_torch.tools import shards
+    from cgat_tpu_torch.training import load_trainer
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, _ = load_trainer(run, device="cpu")
+    f32 = CGAtNet(dataclasses.replace(trainer.model_cfg,
+                                      compute_dtype="float32"))
+    f32.load_state_dict(trainer.model.state_dict(), strict=True)
+    trainer.model = f32.eval()
+    data = shards.load_pickle(shard0)
+    graphs = load_prepared(data, max_neighbor_number=trainer.cfg.max_nbr,
+                           target=trainer.cfg.target)
+    t0 = time.perf_counter()
+    pred = trainer.predict(graphs) / np.asarray([g.n_atoms for g in graphs])
+    cpu_s = time.perf_counter() - t0
+    want = np.abs(pred - np.asarray(data["target"][trainer.cfg.target],
+                                    np.float64).reshape(-1))
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if [r["batch_ids"] for r in rows] != shards.entry_ids(data):
+        fail("phase 12: round 1's error CSV does not list shard 0's ids")
+    got = np.asarray([float(r["errors"]) for r in rows])
+    scale = float(np.abs(pred).max())
+    err = float(np.abs(got - want).max())
+    if not (np.isfinite(got).all() and np.allclose(
+            got, want, rtol=MODEL_RTOL, atol=MODEL_RTOL * scale)):
+        fail(f"phase 12: round 1's pool errors on the card vs the CPU f32 "
+             f"forward: max abs diff {err:.3e} (max|prediction| "
+             f"{scale:.3e})")
+    print(f"[al] round 1's pool errors over shard 0 ({len(rows)} crystals) "
+          f"on the card vs the same run's f32 forward on the CPU: max abs "
+          f"diff {err:.3e}, max|per-atom prediction| {scale:.3e} (rtol "
+          f"{MODEL_RTOL}, atol {MODEL_RTOL} x max); the CPU took "
+          f"{cpu_s:.1f} s ({card})")
+    return {"crystals": len(rows), "max_abs_diff": err,
+            "max_abs_prediction": scale, "cpu_s": cpu_s}
+
+
+def active_learning(tmp: str, card: str) -> tuple[dict, dict]:
+    """Phase 12: three active-learning rounds of the reference-default
+    model (bf16, batch 64, AL_EPOCHS epochs a round) through
+    ``cgat_tpu_torch.tools``, on a pool of AL_POOL prototype crystals in
+    AL_SHARDS shards: a Metropolis initial sample of AL_INITIAL; round 1
+    ranks the pool by error, round 2 by an SVGP's predictive std on the
+    sample's frozen embeddings (AL_GP), round 3 by error from round 2's
+    weights (``pretrained_run``); each absorbs AL_NEW. Then
+    ``tools.embeddings`` over the final sample and ``tools.tsne``'s CLI on
+    the card. Checks: the sample and pool sizes after every step, no id in
+    both; round 1's pool errors against the CPU's f32 forward; every
+    kernel launched in the phase, each backward kernel in every round's
+    training; the card's allocated memory after rounds 2 and 3 (trainers
+    and GP fit dropped) within AL_MEMORY_TOL of round 1's. Returns the
+    phase's numbers and each kernel's launches in it."""
+    from cgat_tpu_torch.models import CGATConfig
+    from cgat_tpu_torch.tools import embeddings, errors, loop, shards
+    from cgat_tpu_torch.tools import tsne
+    from cgat_tpu_torch.training import TrainerConfig
+    from cgat_tpu_torch.uncertainty import gp
+
+    root = os.path.join(tmp, "al")
+    pool, prepare_s = al_pool(root)
+    al = os.path.join(root, "al_pool")
+    sample_path = os.path.join(root, "sample.pickle.gz")
+    stats: dict = {"pool": AL_POOL, "shards": AL_SHARDS,
+                   "prepare_s": prepare_s,
+                   "prepare_ms_per_structure": prepare_s / AL_POOL * 1e3,
+                   "rounds": []}
+    total = dict.fromkeys(launch_counts(), 0)
+
+    def counted(fn):
+        """Run ``fn`` with the counts set to 0 just before and read just
+        after (added to the phase's); returns its result, seconds and
+        launches."""
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, time.perf_counter() - t0, got
+
+    def sizes(want_sample: int, step: str) -> None:
+        left, taken = pool_and_sample_ids(al, sample_path)
+        if (len(taken), len(left)) != (want_sample, AL_POOL - want_sample) \
+                or set(left) & set(taken) or len(set(taken)) != len(taken):
+            fail(f"phase 12 {step}: sample {len(taken)} (want "
+                 f"{want_sample}), pool {len(left)} (want "
+                 f"{AL_POOL - want_sample}), "
+                 f"{len(set(left) & set(taken))} ids in both")
+
+    progress("phase 12: initial sample")
+    t0 = time.perf_counter()
+    first = loop.initial_sample(pool, al, AL_INITIAL, method="metropolis",
+                                seed=1)
+    shards.save_pickle(first, sample_path)
+    stats["initial_sample_s"] = time.perf_counter() - t0
+    sizes(AL_INITIAL, "initial sample")
+
+    # each stage of a round, timed and counted from inside the round
+    stage: dict = {}
+    originals = {name: getattr(loop, name) for name in (
+        "calculate_errors", "_score_pool_by_gp_std", "get_highest_errors")}
+    fit_gp = gp.fit_gp
+
+    def staged(name, fn):
+        def run(*args, **kwargs):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "absorb" and stage.get("snapshot"):
+                # round 1's shard 0 as it was scored, for the CPU check
+                shutil.copyfile(shards.shard_path(0, al), stage["snapshot"])
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage[f"{name}_s"] = time.perf_counter() - t0
+            stage[f"{name}_launches"] = {
+                k: v - before[k] for k, v in launch_counts().items()}
+            return out
+        return run
+
+    loop.calculate_errors = staged("score", originals["calculate_errors"])
+    loop._score_pool_by_gp_std = staged("score",
+                                        originals["_score_pool_by_gp_std"])
+    loop.get_highest_errors = staged("absorb",
+                                     originals["get_highest_errors"])
+    gp.fit_gp = staged("gp_fit", fit_gp)
+    cfg = CGATConfig(compute_dtype="bfloat16")
+    memory = []
+    run_dirs = []
+    try:
+        for r, (acq, pretrained) in enumerate(
+                (("error", False), ("gp_std", False), ("error", True)), 1):
+            progress(f"phase 12: round {r} ({acq}"
+                     f"{', from round 2' if pretrained else ''})")
+            stage.clear()
+            if r == 1:
+                stage["snapshot"] = os.path.join(root, "round1_shard0.pkl")
+            tcfg = TrainerConfig(batch_size=N_GRAPHS, epochs=AL_EPOCHS,
+                                 target="e_above_hull",
+                                 ckpt_dir=os.path.join(root, "logs"),
+                                 run_name=f"round{r}")
+            (run, new), secs, got = counted(
+                lambda: loop.active_learning_round(
+                    al, sample_path, trainer_cfg=tcfg, model_cfg=cfg,
+                    n_new=AL_NEW, acquisition=acq,
+                    pretrained_run=run_dirs[-1] if pretrained else None,
+                    gp_kwargs=AL_GP, device="cuda"))
+            run_dirs.append(run)
+            if new is None or len(new["batch_ids"]) != AL_NEW:
+                fail(f"phase 12 round {r}: absorbed "
+                     f"{None if new is None else len(new['batch_ids'])}")
+            sizes(AL_INITIAL + r * AL_NEW, f"round {r}")
+            train = {k: v - stage["score_launches"][k]
+                     - stage["absorb_launches"][k] for k, v in got.items()}
+            missing = [k for k in PER_BACKWARD if not train[k]]
+            if missing:
+                fail(f"phase 12 round {r}: no {missing} launch in the "
+                     f"round's training ({train})")
+            rec = {"acquisition": acq, "pretrained": pretrained,
+                   "s": secs, "train_s": secs - stage["score_s"]
+                   - stage["absorb_s"], "score_s": stage["score_s"],
+                   "absorb_s": stage["absorb_s"],
+                   "gp_fit_s": stage.get("gp_fit_s"),
+                   "sample": AL_INITIAL + r * AL_NEW,
+                   "pool": AL_POOL - AL_INITIAL - r * AL_NEW,
+                   "train_launches": train,
+                   "score_launches": stage["score_launches"]}
+            if r == 1:
+                stats["cpu_check"] = al_cpu_check(
+                    run, stage["snapshot"], errors.error_csv_path(0, al),
+                    card)
+            rec["allocated_bytes"] = settled_allocated()
+            memory.append(rec["allocated_bytes"])
+            if memory[-1] - memory[0] > AL_MEMORY_TOL:
+                fail(f"phase 12 round {r}: {memory[-1]} bytes allocated "
+                     f"with its trainers and GP fit dropped, "
+                     f"{memory[-1] - memory[0]} above round 1's")
+            stats["rounds"].append(rec)
+            gp_part = ("" if rec["gp_fit_s"] is None else
+                       f", of it the GP fit {rec['gp_fit_s']:.2f}")
+            print(f"[al] round {r} ({acq}"
+                  f"{', from round 2' if pretrained else ''}): {secs:.1f} s "
+                  f"(train {rec['train_s']:.1f}, score "
+                  f"{rec['score_s']:.1f}{gp_part}, absorb "
+                  f"{rec['absorb_s']:.2f}); sample "
+                  f"{rec['sample']}, pool {rec['pool']}; "
+                  f"{rec['allocated_bytes']} bytes allocated after it "
+                  f"({card})")
+    finally:
+        for name, fn in originals.items():
+            setattr(loop, name, fn)
+        gp.fit_gp = fit_gp
+
+    progress("phase 12: embeddings and t-SNE")
+    emb_dir = os.path.join(root, "embeddings")
+    _, emb_s, _ = counted(lambda: embeddings.calculate_embeddings(
+        run_dirs[-1], sample_path, emb_dir, device="cuda"))
+    out_csv = os.path.join(root, "tsne.csv")
+    n_final = AL_INITIAL + 3 * AL_NEW
+    rc, tsne_s, got = counted(lambda: tsne.main(
+        [os.path.join(emb_dir, os.path.basename(sample_path)), "--target",
+         "e_above_hull", "--out", out_csv, "--device", "cuda"]))
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    coords = np.asarray([[float(r["x"]), float(r["y"])] for r in rows])
+    if rc != 0 or len(rows) != n_final or not np.isfinite(coords).all() \
+            or any(got.values()):
+        fail(f"phase 12: tools.tsne exited {rc}, {len(rows)} rows (want "
+             f"{n_final}), finite {np.isfinite(coords).all()}, launches "
+             f"{got}")
+    stats.update(embeddings_s=emb_s, tsne_s=tsne_s, tsne_points=n_final,
+                 memory_after_round_bytes=memory,
+                 memory_above_round1_bytes=[m - memory[0] for m in memory],
+                 launches=dict(total))
+    missing = [k for k, v in total.items() if not v and k in
+               {**PER_FORWARD, **PER_BACKWARD}]
+    if missing:
+        fail(f"phase 12: {missing} never launched in the phase")
+    print(f"[al] tools.embeddings over the {n_final}-crystal sample "
+          f"{emb_s:.1f} s; tools.tsne on the card {tsne_s:.1f} s ({n_final} "
+          f"points); memory after each round above round 1's "
+          f"{stats['memory_above_round1_bytes']} bytes (tol "
+          f"{AL_MEMORY_TOL}); launches in the phase "
+          f"{ {k: v for k, v in total.items() if v} } ({card})")
+    return stats, dict(total)
+
+
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
     """The card's forward vs the port's own bf16 forward on the CPU (plain
     versions), same weights, same batch."""
@@ -3136,7 +3497,9 @@ def main() -> int:
         progress("phase 11: gp")
         gp_stats, gp_launches = gp_head(tmp, model, cfg, state_dict,
                                         cli_stats, card)
-    progress("phase 12: report")
+        progress("phase 12: active learning")
+        al_stats, al_launches = active_learning(tmp, card)
+    progress("phase 13: report")
 
     print(card_line())
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
@@ -3151,6 +3514,7 @@ def main() -> int:
     print(json.dumps({"export": exp_stats}))
     print(json.dumps({"streaming": stream_stats}))
     print(json.dumps({"gp": gp_stats}))
+    print(json.dumps({"active_learning": al_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
@@ -3175,6 +3539,7 @@ def main() -> int:
                 "export_launches": exp_launches[r["name"]],
                 "streaming_launches": stream_launches[r["name"]],
                 "gp_launches": gp_launches[r["name"]],
+                "al_launches": al_launches[r["name"]],
                 "parallel_launches": {k: v[r["name"]]
                                       for k, v in par_launches.items()},
                 **({"pair_launches": par_stats["edge2_gloo"][
@@ -3208,6 +3573,7 @@ def main() -> int:
         "launches_forward": var_launches["dropout"],
         "launches_backward": var_launches["dropout_bwd"],
         "replay_launches": d_replay["dropout"] + d_replay["dropout_bwd"],
+        "al_launches": al_launches["dropout"] + al_launches["dropout_bwd"],
         "masks_equal": dropout_row["masks_equal"],
         **{k: dropout_row[k] for k in (
             "shape", "max_abs_err", "rel_norm_err", "checks",

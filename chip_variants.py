@@ -3,7 +3,7 @@
 
     python3 chip_variants.py [mh_network | hyper_apply_bwd_dk |
                               mh_network_bwd | hyper_apply |
-                              hyper_apply_timeline]
+                              hyper_apply_timeline | profiler_window]
 
 Builds the kernel's source as it is and variants of it, each from a
 patched copy under ``build/variants/<study>/``, then times each in turns
@@ -93,6 +93,15 @@ pass of each consumer warpgroup: its start, its first k-block's data, its
 products done and its epilogue done (the tail pass last, without the data
 stamp), and at each k-block the producer issues. Prints a few blocks' stamps
 and the mean of each interval by pass.
+
+``profiler_window``: not a kernel variant but ``chip_smoke.device_ms``'s.
+The reference-default bf16 model's eager forward on request 0's batch of
+64 crystals, profiled three forwards at a time, ``WINDOW_PROFILES`` times
+with no pause at the ends of the profiler's window and as many times with
+``chip_smoke.PROFILE_PAD_S`` (in turns). A profile whose device events by
+kernel name (``chip_smoke.kernel_events``) differ from three times one
+padded forward's has lost events; prints how many of each kind did, and
+the device events each counted.
 """
 from __future__ import annotations
 
@@ -111,6 +120,7 @@ from cgat_tpu_torch.ops.kernels import mh_network as mk
 
 OUT = Path(__file__).resolve().parent / "build" / "variants"
 SHAPE = (19968, 384, 256, 128, 5)      # E, cat, hid, F, heads
+WINDOW_PROFILES = 100                  # profiles of each kind
 CASES = [(37, 48, 32, 16, 2), (300, 384, 80, 128, 5), (500, 64, 128, 16, 2),
          (1000, 384, 256, 128, 5)]
 
@@ -736,6 +746,47 @@ STUDIES = {
 }
 
 
+def profiler_window() -> None:
+    """How many profiles of three eager forwards lose device events, with
+    and without the pause at the window's ends."""
+    from cgat_tpu_torch.data import collate, pad_to_bucket
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    from cgat_tpu_torch.models import CGATConfig, CGAtNet, init_state_dict
+
+    cs.build_kernels()
+    model = CGAtNet(CGATConfig(compute_dtype="bfloat16"))
+    model.load_state_dict(init_state_dict(model, seed=0), strict=True)
+    model = model.to_compute_dtype().to("cuda").eval()
+    graphs = random_graphs(0, cs.N_GRAPHS, n_atoms_range=(8, 16),
+                           max_nbr=24, full_degree=True)
+    n = pad_to_bucket(sum(g.n_atoms for g in graphs), 64)
+    batch = collate(graphs, num_graphs=cs.N_GRAPHS, num_node_slots=n,
+                    num_edge_slots=n * 24, num_comp_slots=8, max_nbr=24,
+                    orig_fea=200).to(torch.device("cuda"))
+
+    def forward():
+        with torch.inference_mode():
+            model(batch)
+
+    forward()
+    want = {k: round(3 * v) for k, v in
+            cs.kernel_events(cs.device_ms(forward, 1)).items()}
+    lost = {"no pause": 0, f"{cs.PROFILE_PAD_S} s pause": 0}
+    events = {k: set() for k in lost}
+    for _ in range(WINDOW_PROFILES):
+        for kind, pad in zip(lost, (0.0, cs.PROFILE_PAD_S)):
+            prof = cs.device_ms(forward, 3, pad_s=pad)
+            got = {k: round(3 * v) for k, v in cs.kernel_events(prof).items()}
+            lost[kind] += got != want
+            events[kind].add(round(3 * sum(v[1] for v in prof.values())))
+    for kind in lost:
+        print(f"[variants] profiler_window {kind}: {lost[kind]} of "
+              f"{WINDOW_PROFILES} profiles of 3 eager forwards lost kernel "
+              f"events (want { {k: v for k, v in want.items() if v} }); "
+              f"device events a profile "
+              f"{sorted(events[kind])}", flush=True)
+
+
 def run_study(study: str) -> None:
     """Check each variant that computes the function, then time all in
     mirrored turns."""
@@ -768,11 +819,14 @@ def main() -> int:
     study = sys.argv[1] if len(sys.argv) > 1 else "mh_network"
     if study == "hyper_apply_timeline":
         fwd_timeline()
+    elif study == "profiler_window":
+        profiler_window()
     elif study in STUDIES:
         run_study(study)
     else:
         print(f"chip_variants: no study {study!r}; one of "
-              f"{[*STUDIES, 'hyper_apply_timeline']}", file=sys.stderr)
+              f"{[*STUDIES, 'hyper_apply_timeline', 'profiler_window']}",
+              file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -8,6 +8,7 @@ card a rank (NCCL); imports torch and the port, never JAX:
     python tests/_torch_parallel_worker.py step <spec.json>
     python tests/_torch_parallel_worker.py fit <spec.json>
     python tests/_torch_parallel_worker.py gp <spec.json>
+    python tests/_torch_parallel_worker.py spy <spec.json>
 
 ``step``: one parallel AdamW step of the tiny model from the weights in
 ``spec["state_dict"]`` on the first group of ``spec["graphs"]`` random
@@ -20,7 +21,12 @@ metrics, the test split's parallel evaluation and embeddings, and rank 0
 the final weights. ``gp``: ``cli.train_gp`` with ``spec["argv"]`` as one
 rank of the world, then this rank's embeddings of ``spec["data"]`` by the
 run's trainer across the mesh, saved to ``rank<r>.npz`` beside
-``spec["out"]``.
+``spec["out"]``. ``spy``: an edge-sharded forward and backward of the
+tiny model under ``dropout=0.1`` on the first group, once with a spy that
+counts every ``Tensor.index_add_`` outside the segment-sum kernel's plain
+version and every ``segment_sum`` without a plan, and once with every
+plan dropped (the atomics path); rank 0 saves both runs' loss, summed
+gradient and counts.
 """
 import json
 import os
@@ -117,9 +123,92 @@ def gp(spec: dict) -> None:
                           f"rank{torch.distributed.get_rank()}.npz"), emb=emb)
 
 
+def spy(spec: dict) -> None:
+    import contextlib
+
+    from cgat_tpu_torch.data.synthetic import random_graphs
+    from cgat_tpu_torch.models import CGATConfig, cgat
+    from cgat_tpu_torch.ops import segment
+    from cgat_tpu_torch.ops.kernels import segment_sum as kernel
+    from cgat_tpu_torch.parallel import (ParallelLoader,
+                                         global_loss_and_metrics,
+                                         reduce_gradients)
+    from cgat_tpu_torch.training import Trainer, TrainerConfig
+    t = Trainer(TrainerConfig(n_devices=2, edge_shards=2),
+                CGATConfig(**TINY, dropout=0.1), mean=MEAN, std=STD,
+                device="cpu")
+    t.init_state(torch.load(spec["state_dict"]))
+    mesh = t.mesh
+    batch = t.rank_batch(next(iter(ParallelLoader(
+        random_graphs(0, 16, **GRAPHS), 4, 1, max_nbr=4, node_bucket=8,
+        num_comp_slots=8, edge_shards=2))))
+    counts = {"index_add_": 0, "segment_sum_without_plan": 0}
+    inside = []
+    index_add_ = torch.Tensor.index_add_
+    plain, seg_sum, take = (kernel.segment_sum_plain, segment.segment_sum,
+                            segment.take_rows)
+
+    def counted_index_add_(self, *args, **kwargs):
+        if not inside:
+            counts["index_add_"] += 1
+        return index_add_(self, *args, **kwargs)
+
+    def kernel_plain(*args):
+        inside.append(1)
+        try:
+            return plain(*args)
+        finally:
+            inside.pop()
+
+    def counted_seg_sum(data, ids, n, plan=None):
+        counts["segment_sum_without_plan"] += plan is None
+        return seg_sum(data, ids, n, plan)
+
+    @contextlib.contextmanager
+    def patched(sum_fn, take_fn):
+        saved = [(m, name, getattr(m, name)) for m in (segment, cgat)
+                 for name in ("segment_sum", "take_rows")]
+        for m in (segment, cgat):
+            m.segment_sum, m.take_rows = sum_fn, take_fn
+        kernel.segment_sum_plain = kernel_plain
+        torch.Tensor.index_add_ = counted_index_add_
+        try:
+            yield
+        finally:
+            torch.Tensor.index_add_ = index_add_
+            kernel.segment_sum_plain = plain
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+
+    def run():
+        t.model.zero_grad(set_to_none=True)
+        out = t.model(batch, edge_group=mesh.edge,
+                      dropout_key=cgat.DropoutKey(
+                          (0, mesh.dp.index, mesh.edge.index),
+                          torch.zeros((), dtype=torch.int64)))
+        loss, _ = global_loss_and_metrics(out, batch, MEAN, STD,
+                                          t.criterion, mesh)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in t.model.parameters()]
+        reduce_gradients(grads, mesh.world)
+        return {"loss": float(loss), "counts": dict(counts),
+                "grad": torch.cat([g.reshape(-1) for g in grads])}
+
+    with patched(counted_seg_sum, take):
+        planned = run()
+    counts.update(dict.fromkeys(counts, 0))
+    with patched(lambda data, ids, n, plan=None:
+                 counted_seg_sum(data, ids, n, None),
+                 lambda table, ids, plan: take(table, ids, None)):
+        atomics = run()
+    if torch.distributed.get_rank() == 0:
+        torch.save({"planned": planned, "atomics": atomics}, spec["out"])
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     with open(sys.argv[2]) as f:
         spec = json.load(f)
-    {"step": step, "fit": fit, "gp": gp}[sys.argv[1]](spec)
+    {"step": step, "fit": fit, "gp": gp, "spy": spy}[sys.argv[1]](spec)
     torch.distributed.destroy_process_group()

@@ -1154,3 +1154,45 @@ def test_a_dropped_gp_fit_frees_its_graphs(dev):
     assert settled() > before
     del params
     assert settled() == before
+
+
+def test_dropped_trainers_and_gp_fits_leave_no_memory(dev):
+    """Every ``StepGraphs`` on a card runs its eager first steps on the
+    card's one side stream (``training/dispatch.py``), so five trainers
+    and five ``fit_gp``s, each capturing its step and then dropped, leave
+    the card's allocated memory where a first one left it, within 1 MiB
+    (cuBLAS's workspaces not cleared: a side stream of each owner's own
+    kept one of ~33 MiB for each)."""
+    import gc
+
+    from cgat_tpu_torch.uncertainty import gp
+
+    graphs = random_graphs(5, 8, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((64, 32)).astype(np.float32)
+    y = rng.standard_normal(64).astype(np.float32)
+
+    def settled():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    def owners():
+        t = Trainer(TrainerConfig(batch_size=8, node_bucket=16, max_nbr=16),
+                    CGATConfig(**SMALL, compute_dtype="bfloat16"), mean=0.1,
+                    std=1.3, device=dev)
+        t.init_state()
+        batch = collate(graphs, max_nbr=16, node_bucket=16)
+        losses = [float(t.train_step(batch)["loss"]) for _ in range(2)]
+        assert len(t.step_graphs.graphs) == 1 and np.isfinite(losses).all()
+        params, history = gp.fit_gp(emb, y, num_inducing=16, epochs=3,
+                                    batch_size=32, verbose=False, device=dev)
+        assert params.inducing.is_cuda and np.isfinite(history).all()
+
+    owners()
+    before = settled()
+    for _ in range(5):
+        owners()
+    assert abs(settled() - before) <= 1 << 20

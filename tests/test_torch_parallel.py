@@ -423,6 +423,32 @@ def test_world_matches_cgat_tpu_mesh_step(worlds, world):
                                    rtol=1e-2, atol=1e-3, err_msg=k)
 
 
+def test_edge_sharded_dropout_step_sums_through_the_plans(tmp_path):
+    """Two edge-sharded gloo ranks under ``dropout=0.1``: the halo layer's
+    softmax and sums and the sharded crystal pool go through the gather
+    plans (no ``index_add_`` outside the segment-sum kernel's plain
+    version, no segment sum without a plan: on the card, no atomics), and
+    give the loss and the summed gradient of the same step with every
+    plan dropped, within the one-process tolerance above."""
+    _, params = _jax_weights()
+    sd_path = os.path.join(tmp_path, "weights.pt")
+    torch.save(state_dict_from_jax(params, CGATConfig(**TINY)), sd_path)
+    spec = {"edge_shards": 2, "state_dict": sd_path,
+            "out": os.path.join(tmp_path, "spy.pt")}
+    _join(_start_world("spy", spec, 2, str(tmp_path)))
+    got = torch.load(spec["out"])
+    planned, atomics = got["planned"], got["atomics"]
+    assert planned["counts"] == {"index_add_": 0,
+                                 "segment_sum_without_plan": 0}
+    # the spy sees the path it guards against
+    assert atomics["counts"]["index_add_"] > 0
+    assert atomics["counts"]["segment_sum_without_plan"] > 0
+    np.testing.assert_allclose(planned["loss"], atomics["loss"], rtol=1e-5)
+    grad, want = planned["grad"], atomics["grad"]
+    assert float(want.norm()) > 0
+    assert float((grad - want).norm()) <= 1e-5 * float(want.norm())
+
+
 def test_fit_on_two_ranks_writes_once_and_evaluates_across_them(tmp_path):
     """``fit`` with ``n_devices=2, edge_shards=2``: rank 0 alone writes
     metrics.jsonl and the checkpoints; both ranks see the same metrics,

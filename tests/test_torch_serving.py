@@ -136,7 +136,7 @@ def _port_files():
 
 
 def test_port_imports_nothing_of_jax():
-    banned = ("jax", "flax", "optax", "sklearn", "cgat_tpu")
+    banned = ("jax", "flax", "optax", "sklearn", "pymatgen", "cgat_tpu")
     bad = []
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -160,9 +160,17 @@ def test_port_runs_without_jax_loaded():
             "cgat_tpu_torch.cli.common, cgat_tpu_torch.cli.prepare, "
             "cgat_tpu_torch.cli.train, cgat_tpu_torch.cli.evaluate, "
             "cgat_tpu_torch.cli.predict, cgat_tpu_torch.cli.train_gp, "
-            "cgat_tpu_torch.uncertainty, cgat_tpu_torch.ops.kernels.dropout; "
+            "cgat_tpu_torch.uncertainty, cgat_tpu_torch.ops.kernels.dropout, "
+            "cgat_tpu_torch.tools, cgat_tpu_torch.tools.additional_data, "
+            "cgat_tpu_torch.tools.analysis, cgat_tpu_torch.tools.annotate, "
+            "cgat_tpu_torch.tools.element_correlation, "
+            "cgat_tpu_torch.tools.embeddings, cgat_tpu_torch.tools.errors, "
+            "cgat_tpu_torch.tools.loop, cgat_tpu_torch.tools.metropolis, "
+            "cgat_tpu_torch.tools.periodic, cgat_tpu_torch.tools.sample, "
+            "cgat_tpu_torch.tools.shards, cgat_tpu_torch.tools.tsne; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'sklearn', 'cgat_tpu')]; print(bad); "
+            "('jax', 'flax', 'optax', 'sklearn', 'pymatgen', 'cgat_tpu')]; "
+            "print(bad); "
             "sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
