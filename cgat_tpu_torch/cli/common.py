@@ -12,10 +12,8 @@ request) is the port's own, its counterpart of choosing the JAX platform.
 ``--devices N`` is the number of ranks (one card each under NCCL; gloo
 processes with ``--device cpu``), 0 meaning every visible card, and
 ``--edge-shards S`` must divide it. ``--streaming`` trains from the shards
-under ``--data-path`` (out of core; ``--val-path`` required). A flag whose
-feature is not ported yet (``--profile-epoch``) raises
-``NotImplementedError`` naming the slice that brings it, before any data
-is read.
+under ``--data-path`` (out of core; ``--val-path`` required).
+``--profile-epoch N`` writes epoch N's trace under ``<run>/profile``.
 """
 from __future__ import annotations
 
@@ -203,22 +201,10 @@ def device_from_args(args) -> torch.device:
     return torch.device(args.device)
 
 
-# (flag, dest, the value the port runs, the slice that brings the rest)
-_NOT_PORTED = (
-    ("--profile-epoch", "profile_epoch", -1, "slice 9 (tracing)"),
-)
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature the port does
-    not have yet; resolve ``--devices 0`` to every visible card (one with
-    ``--device cpu`` or without a card; the world's size inside a torchrun
-    world) and check that ``--edge-shards`` divides the devices."""
-    for flag, dest, value, where in _NOT_PORTED:
-        if hasattr(args, dest) and getattr(args, dest) != value:
-            raise NotImplementedError(
-                f"{flag} ({dest}={getattr(args, dest)!r}) is not ported yet; "
-                f"it comes with {where}")
+def check_devices(args) -> None:
+    """Resolve ``--devices 0`` to every visible card (one with ``--device
+    cpu`` or without a card; the world's size inside a torchrun world) and
+    check that ``--edge-shards`` divides the devices."""
     if not hasattr(args, "devices"):
         return
     if args.devices < 0:
@@ -237,7 +223,7 @@ def check_ported(args) -> None:
 
 
 def configs_from_args(args) -> tuple[TrainerConfig, CGATConfig]:
-    check_ported(args)
+    check_devices(args)
     # apex AMP levels 01/02 = mixed precision (reference train.py:106-110);
     # the port's counterpart is bf16 compute with f32 master weights
     if getattr(args, "amp_optimization", "00") in ("01", "02"):

@@ -56,9 +56,11 @@ streaming variant, in the same order after a resume. Every loader of
 ``data.prefetch.PrefetchLoader``, which collates the next batches on a
 host thread while the card works.
 
-Not ported yet, named by the ``TrainerConfig`` field that asks for it
-(which raises ``NotImplementedError`` with the slice that brings it):
-profiling.
+``profile_epoch`` N records epoch N's training steps as a
+``torch.profiler`` trace under ``<run>/profile`` (``utils.profiling.trace``;
+one file a rank, named by it), on every path: eager, replayed, grouped,
+streaming and on a mesh. Each training step is an ``annotate`` span
+``train_step`` in it.
 """
 from __future__ import annotations
 
@@ -86,7 +88,7 @@ from ..parallel import (ParallelLoader, StreamingParallelLoader,
                         init_distributed, local_batch, local_dp_rows,
                         make_mesh, make_parallel_embed_step,
                         make_parallel_eval_step, make_parallel_train_step)
-from ..utils.profiling import ThroughputMeter
+from ..utils.profiling import ThroughputMeter, annotate, trace
 from . import losses as L
 from . import schedules
 from .dispatch import StepGraphs
@@ -157,18 +159,7 @@ class TrainerConfig:
     edge_shards: int = 1
 
 
-# (field, the value the port runs, the slice of the port that brings the rest)
-_NOT_PORTED = (
-    ("profile_epoch", -1, "slice 9 (tracing)"),
-)
-
-
-def _check_ported(cfg: TrainerConfig) -> None:
-    for field, value, where in _NOT_PORTED:
-        if getattr(cfg, field) != value:
-            raise NotImplementedError(
-                f"TrainerConfig.{field}={getattr(cfg, field)!r} is not ported "
-                f"yet; it comes with {where}")
+def _check_config(cfg: TrainerConfig) -> None:
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"moment_dtype must be one of {list(_MOMENT_DTYPES)}")
     if cfg.n_devices < 0:
@@ -308,7 +299,7 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, model_cfg: CGATConfig,
                  graphs=None, *, mean: float | None = None,
                  std: float | None = None, device=None):
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
@@ -560,16 +551,18 @@ class Trainer:
         parallel world ``batch`` is the rank's own (:meth:`rank_batch`),
         and the step is replayed under NCCL only: gloo's collectives
         cannot be captured."""
-        batch = batch.to(self.device)
-        if self.device.type == "cuda" \
-                and (self.mesh is None or self.mesh.backend == "nccl"):
-            if self.step_graphs is None:
-                self.step_graphs = StepGraphs(self.device)
-            return self.step_graphs.step(batch, self.opt.phase,
-                                         self._step_on_device, self._advance)
-        metrics = self._step_on_device(batch)
-        self._advance()
-        return metrics
+        with annotate("train_step"):
+            batch = batch.to(self.device)
+            if self.device.type == "cuda" \
+                    and (self.mesh is None or self.mesh.backend == "nccl"):
+                if self.step_graphs is None:
+                    self.step_graphs = StepGraphs(self.device)
+                return self.step_graphs.step(batch, self.opt.phase,
+                                             self._step_on_device,
+                                             self._advance)
+            metrics = self._step_on_device(batch)
+            self._advance()
+            return metrics
 
     def train_group(self, group: CrystalBatch) -> list[dict]:
         """One step per batch of a stacked group (``grouped_loader``), in
@@ -624,16 +617,19 @@ class Trainer:
                 self.opt.lr = lr_of_epoch(epoch, val_mae)
                 meter = ThroughputMeter()
                 steps = []
-                for batch in loader:
-                    if self.mesh is not None:
-                        steps.append(self.train_step(self.rank_batch(batch)))
-                    elif grouped:
-                        steps += self.train_group(batch)
-                    else:
-                        steps.append(self.train_step(batch))
-                    meter.update(**loader.last_counts,
-                                 steps=cfg.steps_per_dispatch
-                                 if grouped else 1)
+                with trace(os.path.join(log_dir, "profile")
+                           if epoch == cfg.profile_epoch else None):
+                    for batch in loader:
+                        if self.mesh is not None:
+                            steps.append(self.train_step(
+                                self.rank_batch(batch)))
+                        elif grouped:
+                            steps += self.train_group(batch)
+                        else:
+                            steps.append(self.train_step(batch))
+                        meter.update(**loader.last_counts,
+                                     steps=cfg.steps_per_dispatch
+                                     if grouped else 1)
                 if not steps:
                     raise RuntimeError("training split smaller than one "
                                        "batch")

@@ -1,1 +1,3 @@
-"""Host-side utilities of the port."""
+"""Host-side utilities of the port: profiling and tracing
+(``profiling``), and the kernels' work against the H100's rooflines
+(``roofline``)."""

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Thirteen phases, any
+Needs one CUDA card and nvcc; imports nothing of JAX. Fourteen phases, any
 failure exits non-zero:
 
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
@@ -153,17 +153,34 @@ failure exits non-zero:
    4 MiB of round 1's; then ``tools.embeddings`` over the final sample and
    the ``tools.tsne`` CLI on the card; each round's seconds split into
    train, score (the GP fit's apart) and absorb;
-13. report the card, and the nine kernels as one JSON line (with their
+13. tools: slices 8c and 9 on phase 5's data and run: ``tools.ensemble``
+   trains two seeds (each member's exact launches, the card's allocated
+   memory after member 2 within 4 MiB of member 1's), predicts,
+   summarizes (finite columns, a nonzero spread) and soups them (the
+   members' f64 mean cast to f32, to the bit; ``cli.predict`` on the
+   soup); phase 5's run exported to a reference ``.ckpt`` and imported
+   back (the same weights and the same predictions on the card, bit for
+   bit); ``cli.train --profile-epoch 0`` and ``1`` (a capturing and a
+   replay-only epoch), each trace holding every kernel's device events
+   and a ``train_step`` span a step; ``utils.roofline``'s ``measure_*``
+   (each bound the one phases 2 and 4 print, no share above 1.05);
+   ``tools.step_trace`` (its categories adding up to its total, within 5
+   % of phase 7's busy ms);
+14. report the card, and the nine kernels as one JSON line (with their
    launches in phases 5 and 6 as ``cli_launches`` and
    ``variants_launches``, a replayed step's as ``replay_launches``, a
    rank's a step in phase 8 as ``parallel_launches``, the pair path's
    as ``pair_launches`` with its phase-2 check as ``pair_path``, #5
    to #7 at the edge rows as ``edge_rows``, a replayed request's as
    ``serve_replay_launches``, phase 9's as ``export_launches``, phase
-   10's as ``streaming_launches``, phase 11's fit as ``gp_launches``
-   and phase 12's as ``al_launches``; the dropout row's launches are
-   phase 6's dropout steps'); the last line is ``{"ok": true, "device":
-   {...}}``.
+   10's as ``streaming_launches``, phase 11's fit as ``gp_launches``,
+   phase 12's as ``al_launches`` and phase 13's as ``tools_launches``;
+   the dropout row's launches are phase 6's dropout steps'); the last
+   line is ``{"ok": true, "device": {...}}``.
+
+Device time comes from ``cgat_tpu_torch.utils.profiling.device_ms`` and
+every bound from ``cgat_tpu_torch.utils.roofline``'s work functions, as in
+the tools; ``chip_variants.py`` reads ``device_ms`` from here.
 
 Each phase's start goes to stderr with the seconds since start, so a run
 that is stopped shows how far it got; past ``WATCHDOG_S`` seconds the
@@ -176,6 +193,7 @@ import csv
 import dataclasses
 import faulthandler
 import gc
+import glob
 import gzip
 import io
 import json
@@ -184,7 +202,6 @@ import os
 import pickle
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -192,9 +209,11 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+from cgat_tpu_torch.device import card_line
+from cgat_tpu_torch.utils import roofline
+from cgat_tpu_torch.utils.profiling import device_ms
+from cgat_tpu_torch.utils.roofline import (BF16_TENSOR_FLOPS, F32_FLOPS,
+                                           bound, hyper_work)
 
 N_GRAPHS = 64                  # crystals per request and per batch
 N_REQUESTS = 3
@@ -240,7 +259,11 @@ AL_NEW = 128                   # entries absorbed a round
 AL_EPOCHS = 2                  # training epochs a round
 AL_GP = dict(num_inducing=64, epochs=30, batch_size=256)  # round 2's fit
 AL_MEMORY_TOL = 4 << 20        # bytes a later round may hold above round 1
-PROFILE_PAD_S = 0.005          # host pause at each end of a profiled run
+ENSEMBLE_SEEDS = (0, 1)        # phase 13's ensemble members
+ENSEMBLE_MEMORY_TOL = 4 << 20  # bytes member 2 may hold above member 1
+TRACE_BUCKET = 768             # phase 13's traced runs: one batch shape
+SHARE_LIMIT = 1.05             # a kernel's share of its roofline, at most
+STEP_TRACE_TOL = 0.05          # step_trace's total against phase 7's busy ms
 # a substring of the name of the device kernel each wrapper launches (a
 # fixed number of times a call): phase 7 counts a replayed step's launches
 # by these names
@@ -358,15 +381,6 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi reports them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=120)
-    return smi.stdout.strip().splitlines()[0]
-
-
 _T0 = time.perf_counter()
 
 
@@ -393,27 +407,6 @@ def time_ms(fn, reps: int = 20, windows: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
-
-
-def bound(n_bytes: float, flops: float, peak: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def hyper_work(b: int, c: int, i: int, o: int) -> dict[str, tuple]:
-    """(bytes, operations) of one call of #5, #6 and #7 on ``b`` rows
-    (hidden width C, I inputs, O outputs): each input read once, each
-    output written once."""
-    f = o * i + o
-    return {"hyper_apply": (2.0 * (b * c + f * c + f + b * i + b * o),
-                            2.0 * b * c * f + 2.0 * b * o * i),
-            "hyper_apply_bwd_dhdx": (
-                2.0 * (2 * b * c + 2 * b * i + b * o + f * c + f),
-                4.0 * b * f * c + 2.0 * b * o * i),
-            "hyper_apply_bwd_dk": (
-                2.0 * (b * c + b * i + b * o + o * i * c) + 4.0 * o * i,
-                2.0 * b * o * i * c)}
 
 
 def hyper_yardsticks(hidden, k, bias, x, g, o) -> dict:
@@ -593,10 +586,8 @@ def check_kernels(model, batch) -> list[dict]:
                 torch.addmm(b_in, x_a, win.T), mk.LEAKY_SLOPE)
             torch.baddbmm(b_out.view(H, 1, f), p.view(-1, H, hid).transpose(
                 0, 1), wout.view(H, f, hid).transpose(1, 2))
-        flops = 2.0 * n_edges * (cat * H * hid + H * hid * f)
-        nbytes = 2.0 * (n_edges * cat + H * hid * cat + H * hid
-                        + H * f * hid + H * f + n_edges * H * f)
-        b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        b_ms, b_by = bound(*roofline.mh_network_work(n_edges, cat, H, hid,
+                                                     f), BF16_TENSOR_FLOPS)
         rows.append({"name": "mh_network", "shape": [n_edges, cat, H * hid,
                                                      H * f],
                      **checks_row(checks),
@@ -639,11 +630,8 @@ def check_kernels(model, batch) -> list[dict]:
         checks.append(compare("segment_attention",
                               sk.segment_attention(*pool_args),
                               sk.segment_attention_plain(*pool_args)[0]))
-        real_e = int(n_real)
-        flops = 6.0 * real_e * hf          # max, sub, exp, add, fma (2)
-        nbytes = 2.0 * 2 * real_e * hf + 4.0 * (n_nodes + 1) \
-            + 2.0 * n_nodes * hf
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        b_ms, b_by = bound(*roofline.segment_attention_work(
+            int(n_real), hf, n_nodes), F32_FLOPS)
         rows.append({"name": "segment_attention",
                      "shape": [n_edges, hf, n_nodes], **checks_row(checks),
                      "ms": time_ms(lambda: sk.segment_attention(*seg_args)),
@@ -722,8 +710,7 @@ def check_dropout(cfg, n_edges: int) -> dict:
             deterministic(fn.__name__, lambda: (fn(x, DROPOUT, key, step),))
             checks.append(compare(fn.__name__, got, want))
         kept = float(want_mask.float().mean())
-        n = x.numel()
-        b_ms, b_by = bound(2.0 * 2 * n, float(n), F32_FLOPS)
+        b_ms, b_by = bound(*roofline.dropout_work(x.numel()), F32_FLOPS)
         row = {"name": "dropout", "shape": list(shape), **checks_row(checks),
                "masks_equal": True, "deterministic": True,
                "kept_share": kept,
@@ -882,47 +869,6 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
     return launches, stats
 
 
-def device_ms(fn, n_runs: int, by_launch: bool = False,
-              pad_s: float = PROFILE_PAD_S) -> dict[str, list[float]]:
-    """Device time and event count per run of ``fn`` by kernel name, from
-    torch.profiler's device events over ``n_runs`` runs (empty if it
-    recorded none). ``by_launch`` gives each launch of a kernel that runs
-    c > 1 times a run a row of its own, "[j/c] name" for its j-th launch
-    in the run's time order.
-
-    The runs start and end ``pad_s`` inside the profiler's window: a
-    kernel launched right after the profiler starts can fall outside its
-    capture window and be dropped (``python3 chip_variants.py
-    profiler_window`` counts such losses with and without the pause)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(pad_s)
-        for _ in range(n_runs):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(pad_s)
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    names = [e.name.replace("(anonymous namespace)::", "") for e in events]
-    per_run = {n: max(1, round(names.count(n) / n_runs)) for n in set(names)}
-    seen: dict[str, int] = {}
-    per_name: dict[str, list[float]] = {}
-    for name, e in zip(names, events):
-        if by_launch and per_run[name] > 1:
-            j = seen.get(name, 0)
-            seen[name] = j + 1
-            name = f"[{j % per_run[name] + 1}/{per_run[name]}] {name}"
-        ms, count = per_name.get(name, (0.0, 0.0))
-        per_name[name] = [ms + e.time_range.elapsed_us() / 1e3 / n_runs,
-                          count + 1.0 / n_runs]
-    return per_name
-
-
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -1066,12 +1012,11 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
 
     rows = []
 
-    def row(name, fn, plain, outs, wants, shape, nbytes, flops, peak,
-            **extra):
+    def row(name, fn, plain, outs, wants, shape, work, peak, **extra):
         if len(outs) != len(wants):
             fail(f"{name}: {len(outs)} outputs, {len(wants)} plain ones")
         checks = [compare(name, a, b) for a, b in zip(outs, wants)]
-        b_ms, b_by = bound(nbytes, flops, peak)
+        b_ms, b_by = bound(*work, peak)
         rows.append({"name": name, "shape": shape, **checks_row(checks),
                      "ms": time_ms(fn), "device_ms": kernel_device_ms(fn),
                      "plain_ms": time_ms(plain),
@@ -1091,9 +1036,8 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             sk.segment_attention_bwd(*args) + sk.segment_attention_bwd(*pool),
             sk.segment_attention_bwd_plain(*args)
             + sk.segment_attention_bwd_plain(*pool), [e, hf, n_nodes],
-            nbytes=2.0 * 2 * real * hf + 2.0 * 2 * e * hf + 4.0 * real
-            + (2.0 + 2.0 + 4.0 + 4.0) * n_nodes * hf,
-            flops=7.0 * real * hf, peak=F32_FLOPS,
+            work=roofline.segment_attention_bwd_work(e, real, hf, n_nodes),
+            peak=F32_FLOPS,
             pool_ms=time_ms(lambda: sk.segment_attention_bwd(*pool)))
 
         rec = seen["mh_network"]
@@ -1117,9 +1061,9 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
         row("mh_network_bwd", lambda: mk.mh_network_bwd(*args),
             lambda: mk.mh_network_bwd_plain(*args), mk.mh_network_bwd(*args),
             mk.mh_network_bwd_plain(*args), [e, cat, hh, hf],
-            nbytes=2.0 * (e * cat + e * hh + e * hf + e * cat
-                          + 2 * (hh * cat + hh + hf * hid + hf)),
-            flops=4.0 * e * hh * (hf // heads + cat), peak=BF16_TENSOR_FLOPS,
+            work=roofline.mh_network_bwd_work(e, cat, heads, hid,
+                                              hf // heads),
+            peak=BF16_TENSOR_FLOPS,
             deterministic=deterministic(
                 "mh_network_bwd", lambda: mk.mh_network_bwd(*args)),
             cublas_ms=time_ms(cublas),
@@ -1139,12 +1083,11 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
         work = hyper_work(b, c, i, o)
         yard = hyper_yardsticks(*args)
         cublas = yard["hyper_apply_bwd_dhdx"]
-        nbytes, flops = work["hyper_apply_bwd_dhdx"]
         row("hyper_apply_bwd_dhdx", lambda: hk.hyper_apply_bwd_dhdx(*args),
             lambda: hk.hyper_apply_bwd_dhdx_plain(*args),
             hk.hyper_apply_bwd_dhdx(*args),
             hk.hyper_apply_bwd_dhdx_plain(*args), [b, c, i, o],
-            nbytes=nbytes, flops=flops, peak=BF16_TENSOR_FLOPS,
+            work=work["hyper_apply_bwd_dhdx"], peak=BF16_TENSOR_FLOPS,
             deterministic=deterministic(
                 "hyper_apply_bwd_dhdx",
                 lambda: hk.hyper_apply_bwd_dhdx(*args)),
@@ -1157,11 +1100,11 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
                 lambda: hk.hyper_apply_bwd_dhdx(*args), split=True))
         args = (hidden, xh, g, o)
         cublas_dk = yard["hyper_apply_bwd_dk"]
-        nbytes, flops = work["hyper_apply_bwd_dk"]
         row("hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args),
             lambda: hk.hyper_apply_bwd_dk_plain(*args),
             hk.hyper_apply_bwd_dk(*args), hk.hyper_apply_bwd_dk_plain(*args),
-            [b, c, i, o], nbytes=nbytes, flops=flops, peak=BF16_TENSOR_FLOPS,
+            [b, c, i, o], work=work["hyper_apply_bwd_dk"],
+            peak=BF16_TENSOR_FLOPS,
             deterministic=deterministic(
                 "hyper_apply_bwd_dk", lambda: hk.hyper_apply_bwd_dk(*args)),
             cublas_ms=time_ms(cublas_dk),
@@ -1186,9 +1129,8 @@ def check_backward_kernels(seen, n_nodes, n_graphs) -> list[dict]:
             [ssk.segment_sum(*args), ssk.segment_sum(*pool)],
             [ssk.segment_sum_plain(args[0], args[1], n_nodes),
              ssk.segment_sum_plain(pool[0], pool[1], n_graphs)],
-            [e, f, n_nodes],
-            nbytes=2.0 * (e * f + n_nodes * f) + 4.0 * (n_nodes + 1),
-            flops=1.0 * e * f, peak=F32_FLOPS,
+            [e, f, n_nodes], work=roofline.segment_sum_work(e, f, n_nodes),
+            peak=F32_FLOPS,
             library_ms=time_ms(lambda: lib_out.index_add_(0, lib_idx,
                                                           args[0])),
             library_device_ms=kernel_device_ms(
@@ -1288,15 +1230,9 @@ def check_pair_path(model, graphs) -> dict:
     deterministic("pair path", lambda: run(edge_softmax_aggregate_pair))
     e_l, e_h = int(b.edge_mask.sum()), int(b.halo_mask.sum())
     hf = leaves[0].shape[1]
-    # forward: both blocks' alpha and m read, out/max/den of both blocks
-    # written and read by the merge, out written; backward: the four
-    # gradients written, alpha, m read again, g, out, max, den read twice
-    fwd_bytes = 2.0 * 2 * (e_l + e_h) * hf + (2 + 8 + 8) * 2 * n_loc * hf \
-        + 2.0 * n_loc * hf
-    bwd_bytes = 2.0 * 4 * (e_l + e_h) * hf + 2 * (2 + 2 + 4 + 4) * n_loc * hf
-    fb, fby = bound(fwd_bytes, 6.0 * (e_l + e_h) * hf + 12.0 * n_loc * hf,
-                    F32_FLOPS)
-    bb, bby = bound(bwd_bytes, 5.0 * (e_l + e_h) * hf, F32_FLOPS)
+    work = roofline.pair_work(e_l, e_h, hf, n_loc)
+    fb, fby = bound(*work["pair"], F32_FLOPS)
+    bb, bby = bound(*work["pair_bwd"], F32_FLOPS)
     row = {"shape": {"local_rows": int(leaves[0].shape[0]),
                      "halo_rows": int(leaves[2].shape[0]),
                      "real_local": e_l, "real_halo": e_h, "hf": hf,
@@ -1674,7 +1610,8 @@ def cli(tmp: str) -> tuple[dict, dict]:
         test=test_m, checkpoint_mb=size / 2 ** 20,
         checkpoint_save_ms=float(np.median(save_ms)),
         checkpoint_load_ms=float(np.median(load_ms)), launches=total,
-        data_path=data, steps_per_epoch=steps, val_batches=evals,
+        data_path=data, prepared=n, steps_per_epoch=steps,
+        val_batches=evals,
         test_batches=-(-len(test) // N_GRAPHS), graph_keys=[keys, keys_2])
     for r in stats["epochs"]:
         print(f"[cli] epoch {r['epoch']:.0f}: {r['epoch_time'] * 1e3:.0f} ms "
@@ -3401,6 +3338,295 @@ def active_learning(tmp: str, card: str) -> tuple[dict, dict]:
     return stats, dict(total)
 
 
+def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
+    """Phase 13: the tools of slices 8c and 9 on phase 5's data and run, at
+    full width.
+
+    (a) ``tools.ensemble train`` of two seeds with phase 5's flags: each
+        member's exact launches (its captured keys and evaluation
+        batches) and the card's allocated bytes after each (member 2
+        within 4 MiB of member 1); ``predict`` and ``summarize`` (finite
+        columns, a nonzero spread); ``soup``, whose weights must be the
+        f64 mean of the members' cast to f32 bit for bit, and
+        ``cli.predict`` on it.
+    (b) Phase 5's run exported to a reference ``.ckpt`` and imported
+        back: the same state dict bit for bit, the normalisation rounded
+        to f32 (the reference's Parameters), and the same predictions on
+        the card bit for bit (the imported run's model in phase 5's
+        compute dtype: an import computes in f32, as in cgat_tpu).
+    (c) ``cli.train --smoke-test --profile-epoch 0`` and a second run with
+        ``--profile-epoch 1``, every batch one shape (``TRACE_BUCKET``
+        node slots): a capturing epoch and a replay-only one. Each writes
+        one trace under ``<run>/profile`` that must hold each kernel's
+        device events in the counts its epoch's steps imply (phase 7's
+        events a call) and one ``train_step`` span a step.
+    (d) ``utils.roofline``'s ``measure_*`` at the main path's shapes: each
+        bound equal to the bound phases 2 and 4 printed, each share of a
+        roofline at most ``SHARE_LIMIT``.
+    (e) ``tools.step_trace --iters 10 --k 1``: its categories add up to
+        its total, within ``STEP_TRACE_TOL`` of phase 7's busy ms a
+        replayed step.
+    Returns the phase's numbers and every kernel's launches in its CLI
+    calls (a), (b) and (c)."""
+    from cgat_tpu_torch.cli import predict as cli_predict
+    from cgat_tpu_torch.cli import train as cli_train
+    from cgat_tpu_torch.data.dataset import load_prepared
+    from cgat_tpu_torch.tools import ensemble, import_torch, step_trace
+    from cgat_tpu_torch.training import (CheckpointManager, Trainer,
+                                         load_trainer)
+    from cgat_tpu_torch.utils.profiling import trace_files, trace_kernels
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    total = dict(zero)
+    stats: dict = {}
+    phase_t0 = time.perf_counter()
+
+    def want(fwd: int, bwd: int) -> dict[str, int]:
+        return {**zero, **{k: v * fwd for k, v in PER_FORWARD.items()},
+                **{k: v * bwd for k, v in PER_BACKWARD.items()}}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    logs = os.path.join(tmp, "logs")
+    base = ["--data-path", data["data_path"], "--target", "e_above_hull",
+            "--smoke-test"]
+    evals = data["val_batches"]
+    batches = -(-data["prepared"] // N_GRAPHS)
+
+    # (a) the ensemble: each member's launches and the memory after it
+    progress("phase 13: tools.ensemble train")
+    t0 = time.perf_counter()
+    members = []
+    real_main = cli_train.main
+
+    def member_main(argv):
+        seed = argv[argv.index("--seed") + 1]
+        keys, _ = cli_graph_keys(base + ["--seed", seed], range(2))
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = real_main(argv)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        if got != want(2 * keys + evals, 2 * keys):
+            fail(f"ensemble member {seed}: launches {got} != "
+                 f"{want(2 * keys + evals, 2 * keys)}")
+        add(got)
+        members.append({"seed": int(seed), "graph_keys": keys,
+                        "allocated": settled_allocated()})
+        return rc
+
+    cli_train.main = member_main
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            ensemble.main(["train", "--seeds", *map(str, ENSEMBLE_SEEDS),
+                           "--ckpt-dir", logs, "--", *base])
+    finally:
+        cli_train.main = real_main
+    grew = members[1]["allocated"] - members[0]["allocated"]
+    if len(members) != len(ENSEMBLE_SEEDS) or abs(grew) > \
+            ENSEMBLE_MEMORY_TOL:
+        fail(f"ensemble members {members}: allocated after member 2 "
+             f"{grew} bytes above member 1 (at most "
+             f"{ENSEMBLE_MEMORY_TOL})")
+    stats["ensemble"] = {"members": members,
+                         "train_s": time.perf_counter() - t0}
+    out = os.path.join(tmp, "ensemble")
+    counts, _ = cli_call("tools.ensemble predict", ensemble.main,
+                         ["predict", "--ckpt-dir", logs, "--out-dir", out,
+                          "--data", data["data_path"]],
+                         want(len(ENSEMBLE_SEEDS) * batches, 0), phase=13)
+    add(counts)
+    _, printed = cli_call("tools.ensemble summarize", ensemble.main,
+                          ["summarize", "--out-dir", out], zero, phase=13)
+    # one dataset, named after the prepared file
+    summary, = [os.path.join(d, "ensemble.csv") for d in
+                glob.glob(os.path.join(out, "*"))]
+    with open(summary) as f:
+        cols = np.asarray([[float(v) for v in r]
+                           for r in list(csv.reader(f))[1:]])
+    if cols.shape != (data["prepared"], 3) or not np.isfinite(cols).all() \
+            or not (cols[:, 1] > 0).any():
+        fail(f"ensemble.csv: shape {cols.shape}, finite "
+             f"{np.isfinite(cols).all()}, spread max {cols[:, 1].max()}")
+    stats["ensemble"]["summary"] = {"mae_of_mean": printed.strip(),
+                                    "spread_mean": float(cols[:, 1].mean())}
+    soup_run = os.path.join(logs, "runs", "soup")
+    cli_call("tools.ensemble soup", ensemble.main,
+             ["soup", "--ckpt-dir", logs, "--out-run", soup_run], zero,
+             phase=13)
+    soup_sd, soup_meta = CheckpointManager.load(soup_run, map_location="cpu")
+    member_sds = [CheckpointManager.load(
+        os.path.join(logs, "runs", ensemble.member_run_name("ens_", s)),
+        map_location="cpu")[0] for s in ENSEMBLE_SEEDS]
+    for k, v in soup_sd.items():
+        mean64 = sum(m[k].double() for m in member_sds) / len(member_sds)
+        if not torch.equal(v, mean64.float()):
+            fail(f"soup: {k} is not the f64 mean of the members' cast to "
+                 f"f32")
+    path = os.path.join(tmp, "soup_predict.pickle.gz")
+    counts, _ = cli_call("cli.predict (soup)", cli_predict.main,
+                         [soup_run, data["data_path"], "--out", path],
+                         want(batches, 0), phase=13)
+    add(counts)
+    with gzip.open(path, "rb") as f:
+        pred = pickle.load(f)["pred"]
+    if pred.shape != (data["prepared"],) or not np.isfinite(pred).all():
+        fail("cli.predict on the soup: predictions not finite")
+    stats["ensemble"]["soup_members"] = soup_meta["soup_members"]
+    print(f"[tools] ensemble of seeds {list(ENSEMBLE_SEEDS)}: "
+          f"{[m['graph_keys'] for m in members]} step graphs, exact "
+          f"launches, allocated after member 2 {grew:+d} bytes from member "
+          f"1; ensemble.csv finite, mean spread "
+          f"{stats['ensemble']['summary']['spread_mean']:.4f}; the soup is "
+          f"the members' f64 mean to the bit, its predictions finite")
+
+    # (b) export phase 5's run, import it back
+    progress("phase 13: import_torch --export, import")
+    run = os.path.join(logs, "runs", "cli")
+    ckpt = os.path.join(tmp, "cli.ckpt")
+    imported = os.path.join(logs, "runs", "imported")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_torch.main([run, "--export", "--out", ckpt])
+        import_torch.main([ckpt, "--out", imported])
+    round_trip_s = time.perf_counter() - t0
+    sd0, meta0 = CheckpointManager.load(run, map_location="cpu")
+    sd1, meta1 = CheckpointManager.load(imported, map_location="cpu")
+    # the reference keeps mean and std as f32 Parameters
+    norm = [float(np.float32(meta0[k])) for k in ("mean", "std")]
+    if sorted(sd0) != sorted(sd1) or not all(
+            torch.equal(v, sd1[k]) for k, v in sd0.items()) \
+            or norm != [meta1["mean"], meta1["std"]]:
+        fail(f"export then import changed the weights or the normalisation "
+             f"({meta0['mean']}, {meta0['std']} -> {meta1['mean']}, "
+             f"{meta1['std']})")
+    graphs = load_prepared(data["data_path"], target="e_above_hull")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t_orig, _ = load_trainer(run, device="cuda")
+        want_pred = t_orig.predict(graphs)
+        t_imp, _ = load_trainer(imported, device="cuda")
+        cfg = dataclasses.replace(
+            t_imp.model_cfg, compute_dtype=t_orig.model_cfg.compute_dtype)
+        if cfg != t_orig.model_cfg:
+            fail(f"the imported model config {t_imp.model_cfg} differs from "
+                 f"the run's {t_orig.model_cfg} beyond its compute dtype")
+        served = Trainer(t_imp.cfg, cfg, mean=t_imp.mean, std=t_imp.std,
+                         device="cuda")
+        served.init_state(t_imp.model.state_dict())
+        got_pred = served.predict(graphs)
+    counts = launch_counts()
+    if counts != want(2 * batches, 0):
+        fail(f"the two runs' predictions launched {counts}, not "
+             f"{want(2 * batches, 0)}")
+    add(counts)
+    if not np.array_equal(got_pred, want_pred):
+        fail(f"the imported run's predictions differ from the run's: max "
+             f"{np.abs(got_pred - want_pred).max():.3e}")
+    del t_orig, t_imp, served
+    stats["import_export"] = {"tensors": len(sd0), "round_trip_s":
+                              round_trip_s, "compute_dtype_imported":
+                              meta1["model_config"]["compute_dtype"]}
+    print(f"[tools] phase 5's run exported to a reference .ckpt and imported "
+          f"back in {round_trip_s:.1f} s: {len(sd0)} tensors equal bit for "
+          f"bit, the normalisation rounded to f32 as the reference stores "
+          f"it; {len(got_pred)} predictions on the card equal bit for bit")
+
+    # (c) a capturing and a replay-only profiled epoch
+    per_call = disp["device_events_a_call"]
+    per_step = {k: (PER_FORWARD.get(k, 0) + PER_BACKWARD.get(k, 0))
+                * per_call.get(k, 1) for k in REPLAY_KERNELS}
+    stats["trace"] = {}
+    for epoch in (0, 1):
+        name = f"trace{epoch}"
+        argv = base + ["--node-bucket", str(TRACE_BUCKET), "--ckpt-dir",
+                       logs, "--run-name", name, "--profile-epoch",
+                       str(epoch)]
+        keys, steps = cli_graph_keys(argv, range(2))
+        if keys != 1:
+            fail(f"{name}: {keys} batch shapes, not 1")
+        t0 = time.perf_counter()
+        counts, _ = cli_call(f"cli.train --profile-epoch {epoch}",
+                             cli_train.main, argv,
+                             want(2 * keys + evals, 2 * keys), phase=13)
+        train_s = time.perf_counter() - t0
+        add(counts)
+        files = trace_files(os.path.join(logs, "runs", name, "profile"))
+        if len(files) != 1:
+            fail(f"{name}: {len(files)} traces under its profile directory")
+        per_name = trace_kernels(files[0])
+        got = kernel_events(per_name)
+        n = steps // 2
+        expect = {k: float(v * n) for k, v in per_step.items()}
+        spans = per_name.get("span:train_step", [0.0, 0])[1]
+        if got != expect or spans != n:
+            fail(f"{name}: device events {got} and {spans} train_step spans "
+                 f"in the trace, not {expect} and {n}")
+        stats["trace"][name] = {
+            "epoch": epoch, "captures": epoch == 0, "steps": n,
+            "kernel_events": got, "train_s": train_s,
+            "trace_mb": os.path.getsize(files[0]) / 2 ** 20,
+            "device_ms": sum(v[0] for k, v in per_name.items()
+                             if not k.startswith("span:"))}
+        print(f"[tools] cli.train --profile-epoch {epoch} "
+              f"({'capturing' if epoch == 0 else 'replay-only'}): one trace "
+              f"of {stats['trace'][name]['trace_mb']:.1f} MiB, {n} "
+              f"train_step spans, device events {got}, "
+              f"{stats['trace'][name]['device_ms']:.2f} ms of device time")
+
+    # (d) the roofline at the main path's shapes
+    progress("phase 13: roofline")
+    printed = {r["name"]: r for r in rows}
+    measured = {
+        **roofline.measure_kernels(),
+        **roofline.measure_mh_kernels(
+            fwd_rows=printed["mh_network"]["shape"][0],
+            bwd_rows=printed["mh_network_bwd"]["shape"][0]),
+        **roofline.measure_hyper_kernels(
+            fwd_rows=printed["hyper_apply"]["shape"][0],
+            bwd_rows=printed["hyper_apply_bwd_dhdx"]["shape"][0])}
+    for k, r in measured.items():
+        if r["bound_ms"] != printed[k]["bound_ms"]:
+            fail(f"roofline: {k}'s bound {r['bound_ms']} != the "
+                 f"{printed[k]['bound_ms']} of its phase")
+        if r["share"] > SHARE_LIMIT:
+            fail(f"roofline: {k} reads {r['share']:.3f} of its roofline")
+        print(f"[tools] roofline {k} {r['shape']}: device {r['device_ms']:.4f}"
+              f" ms ({r['events_a_call']:.2f} events a call seen), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bytes_share']:.3f} of {roofline.HBM_BYTES_PER_S:.3g} B/s,"
+              f" {r['ops_share']:.3f} of {roofline.PEAKS[k]:.3g} op/s "
+              f"({card})")
+    stats["roofline"] = measured
+
+    # (e) the step trace
+    progress("phase 13: tools.step_trace")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        step_trace.main(["--iters", "10", "--k", "1"])
+    text = out.getvalue()
+    res = json.loads(text[text.index("{\n"):])
+    busy = disp["graph"]["device_busy_ms"]
+    cats = {k: v["ms"] for k, v in res["categories"].items()}
+    total_ms = res["device_ms_per_step"]
+    if not math.isclose(sum(cats.values()), total_ms, rel_tol=1e-9) \
+            or abs(total_ms - busy) > STEP_TRACE_TOL * busy:
+        fail(f"step_trace: categories {cats} sum to {sum(cats.values())}, "
+             f"total {total_ms} ms against phase 7's busy {busy} ms")
+    stats["step_trace"] = {k: res[k] for k in (
+        "device_ms_per_step", "events_per_step", "categories")}
+    stats["step_trace"]["top_events"] = res["top_events"][:12]
+    print(f"[tools] step_trace: {total_ms:.3f} ms of device time a replayed "
+          f"step in {res['events_per_step']:.0f} events (phase 7: "
+          f"{busy:.3f} ms) ({card})")
+    print(json.dumps({"step_trace_categories_ms": cats}))
+    stats["phase_s"] = time.perf_counter() - phase_t0
+    print(f"[tools] phase 13 took {stats['phase_s']:.1f} s")
+    return stats, total
+
+
 def check_against_cpu(model, cpu_model, graphs, sig_nodes) -> float:
     """The card's forward vs the port's own bf16 forward on the CPU (plain
     versions), same weights, same batch."""
@@ -3499,7 +3725,11 @@ def main() -> int:
                                         cli_stats, card)
         progress("phase 12: active learning")
         al_stats, al_launches = active_learning(tmp, card)
-    progress("phase 13: report")
+        progress("phase 13: tools")
+        tools_stats, tools_launches = tools(tmp, cli_stats,
+                                            rows + train_rows + [dropout_row],
+                                            disp_stats, card)
+    progress("phase 14: report")
 
     print(card_line())
     print(json.dumps({"serving": {"crystals_per_request": N_GRAPHS,
@@ -3515,6 +3745,7 @@ def main() -> int:
     print(json.dumps({"streaming": stream_stats}))
     print(json.dumps({"gp": gp_stats}))
     print(json.dumps({"active_learning": al_stats}))
+    print(json.dumps({"tools": tools_stats}))
     # launches: a forward kernel's count on the serving path (3 requests),
     # a backward kernel's on the training path (13 steps); train_launches
     # is every kernel's count on the training path, cli_launches in the
@@ -3540,6 +3771,7 @@ def main() -> int:
                 "streaming_launches": stream_launches[r["name"]],
                 "gp_launches": gp_launches[r["name"]],
                 "al_launches": al_launches[r["name"]],
+                "tools_launches": tools_launches[r["name"]],
                 "parallel_launches": {k: v[r["name"]]
                                       for k, v in par_launches.items()},
                 **({"pair_launches": par_stats["edge2_gloo"][
@@ -3574,6 +3806,8 @@ def main() -> int:
         "launches_backward": var_launches["dropout_bwd"],
         "replay_launches": d_replay["dropout"] + d_replay["dropout_bwd"],
         "al_launches": al_launches["dropout"] + al_launches["dropout_bwd"],
+        "tools_launches": (tools_launches["dropout"]
+                           + tools_launches["dropout_bwd"]),
         "masks_equal": dropout_row["masks_equal"],
         **{k: dropout_row[k] for k in (
             "shape", "max_abs_err", "rel_norm_err", "checks",

@@ -97,11 +97,12 @@ and the mean of each interval by pass.
 ``profiler_window``: not a kernel variant but ``chip_smoke.device_ms``'s.
 The reference-default bf16 model's eager forward on request 0's batch of
 64 crystals, profiled three forwards at a time, ``WINDOW_PROFILES`` times
-with no pause at the ends of the profiler's window and as many times with
-``chip_smoke.PROFILE_PAD_S`` (in turns). A profile whose device events by
-kernel name (``chip_smoke.kernel_events``) differ from three times one
-padded forward's has lost events; prints how many of each kind did, and
-the device events each counted.
+bare (no primer kernels, no pause at the ends of the profiler's window)
+and as many times with ``device_ms``'s window (its primer and its
+``PROFILE_PAD_S`` pause), in turns. A profile whose device events
+by kernel name (``chip_smoke.kernel_events``) differ from three times
+one windowed forward's has lost events; prints how many of each kind
+did, and the device events each counted.
 """
 from __future__ import annotations
 
@@ -771,11 +772,11 @@ def profiler_window() -> None:
     forward()
     want = {k: round(3 * v) for k, v in
             cs.kernel_events(cs.device_ms(forward, 1)).items()}
-    lost = {"no pause": 0, f"{cs.PROFILE_PAD_S} s pause": 0}
+    lost = {"bare": 0, "primer and pause": 0}
     events = {k: set() for k in lost}
     for _ in range(WINDOW_PROFILES):
-        for kind, pad in zip(lost, (0.0, cs.PROFILE_PAD_S)):
-            prof = cs.device_ms(forward, 3, pad_s=pad)
+        for kind, window in zip(lost, ({"pad_s": 0.0, "primer": 0}, {})):
+            prof = cs.device_ms(forward, 3, **window)
             got = {k: round(3 * v) for k, v in cs.kernel_events(prof).items()}
             lost[kind] += got != want
             events[kind].add(round(3 * sum(v[1] for v in prof.values())))

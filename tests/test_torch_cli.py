@@ -272,15 +272,29 @@ def test_cli_flags_equal_cgat_tpu(argv):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--streaming"], ValueError, "streaming=True requires --val-path"),
-    (["--profile-epoch", "0"], NotImplementedError, "slice 9"),
+    (["--profile-epoch", "1"], None, None),
 ])
-def test_flags_not_ported_raise(argv, error, match, tmp_path):
-    """Before any data is read (the data path does not exist): a flag not
-    ported yet raises naming its slice, and ``--streaming`` without
-    ``--val-path`` raises cgat_tpu's ``ValueError``."""
-    with pytest.raises(error, match=match):
-        cli_train.main(["--data-path", str(tmp_path / "none"),
-                        "--device", "cpu", *argv])
+def test_flags_not_ported_raise(argv, error, match, tmp_path, prepared):
+    """No flag is left unported. ``--streaming`` without ``--val-path``
+    raises cgat_tpu's ``ValueError`` before any data is read (the data
+    path does not exist); ``--profile-epoch 1`` traces a smoke test's
+    epoch 1: one trace under the run's ``profile`` directory, with that
+    epoch's steps as ``train_step`` spans."""
+    from cgat_tpu_torch.utils.profiling import trace_files, trace_kernels
+
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cli_train.main(["--data-path", str(tmp_path / "none"),
+                            "--device", "cpu", *argv])
+        return
+    assert cli_train.main(["--data-path", str(prepared), *TINY_FLAGS,
+                           "--smoke-test", "--ckpt-dir", str(tmp_path),
+                           "--run-name", "p", *argv]) == 0
+    run = tmp_path / "runs" / "p"
+    steps = [m["step"] for m in _metrics(run) if "train_loss" in m]
+    path, = trace_files(str(run / "profile"))
+    assert len(steps) == 2
+    assert trace_kernels(path)["span:train_step"][1] == steps[1] - steps[0]
 
 
 def test_devices_zero_is_one_card_and_cuda_needs_a_card(prepared, capsys):

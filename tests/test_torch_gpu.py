@@ -759,6 +759,70 @@ def test_replayed_step_launches_every_kernel(dev):
     assert {k: replay_names[k] for k in mine} == mine
 
 
+def test_a_trace_of_replayed_steps_holds_every_kernel(dev, tmp_path):
+    """``utils.profiling.trace`` around 3 replayed steps: the written
+    trace holds 3 times an eager step's device events of each of the
+    eight kernels (by name) and one ``train_step`` span a step."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cgat_tpu_torch.utils.profiling import (trace, trace_files,
+                                                trace_kernels)
+
+    (eager, graph), groups = _dispatch_pair(dev, {}, {})
+    batch = groups[0].to(dev).map(lambda t: t[0])
+    graph.train_step(batch)
+    _eager_step(eager, batch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _eager_step(eager, batch)
+        torch.cuda.synchronize()
+    eager_names = Counter(e.name for e in prof.events()
+                          if e.device_type == DeviceType.CUDA)
+    with trace(str(tmp_path)):
+        for _ in range(3):
+            graph.train_step(batch)
+    path, = trace_files(str(tmp_path))
+    per_name = trace_kernels(path)
+    ours = ("segment_attention_fwd", "segment_attention_bwd", "gemm_kernel",
+            "pass_a::", "fwd::kernel", "dhdx::", "dk::kernel",
+            "segment_sum_kernel")
+    for pattern in ours:
+        want = sum(v for k, v in eager_names.items() if pattern in k)
+        got = sum(v[1] for k, v in per_name.items() if pattern in k)
+        assert want > 0 and got == 3 * want, pattern
+    assert per_name["span:train_step"][1] == 3
+
+
+def test_measured_kernels_stay_under_their_rooflines(dev):
+    """``utils.roofline``'s measurements at the main path's shapes: no
+    kernel reads above 1.05 of the bound its work sets."""
+    from cgat_tpu_torch.utils import roofline
+
+    rows = {**roofline.measure_kernels(iters=5),
+            **roofline.measure_mh_kernels(iters=5),
+            **roofline.measure_hyper_kernels(iters=5)}
+    assert len(rows) == 9
+    for name, r in rows.items():
+        assert 0 < r["share"] <= 1.05, (name, r)
+        assert r["share"] == pytest.approx(max(r["bytes_share"],
+                                               r["ops_share"]))
+
+
+def test_step_trace_categories_add_up_to_its_total(dev):
+    from cgat_tpu_torch.tools import step_trace
+
+    res = step_trace.step_trace(iters=3)
+    cats = res["categories"]
+    assert sum(c["ms"] for c in cats.values()) == pytest.approx(
+        res["device_ms_per_step"], rel=1e-9)
+    for name in ("#1 segment_attention", "#3 mh_network", "#4 mh_network_bwd",
+                 "#8 segment_sum", "optimizer"):
+        assert cats[name]["ms"] > 0, name
+
+
 def test_a_dropped_trainer_frees_its_step_graphs(dev):
     """The graphs of the step hold no reference to their trainer, so a
     trainer that is dropped goes at once, with its graphs' memory (not at

@@ -167,7 +167,10 @@ def test_port_runs_without_jax_loaded():
             "cgat_tpu_torch.tools.embeddings, cgat_tpu_torch.tools.errors, "
             "cgat_tpu_torch.tools.loop, cgat_tpu_torch.tools.metropolis, "
             "cgat_tpu_torch.tools.periodic, cgat_tpu_torch.tools.sample, "
-            "cgat_tpu_torch.tools.shards, cgat_tpu_torch.tools.tsne; "
+            "cgat_tpu_torch.tools.shards, cgat_tpu_torch.tools.tsne, "
+            "cgat_tpu_torch.tools.ensemble, cgat_tpu_torch.tools.import_torch, "
+            "cgat_tpu_torch.tools.step_trace, cgat_tpu_torch.utils.roofline, "
+            "cgat_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'sklearn', 'pymatgen', 'cgat_tpu')]; "
             "print(bad); "

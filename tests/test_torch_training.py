@@ -2,6 +2,7 @@
 loader, losses, schedules, AdamW against optax, and the slice as a whole,
 a 25-step loss curve of the same model, weights and batches."""
 import dataclasses
+import os
 
 import numpy as np
 import jax
@@ -439,10 +440,11 @@ def test_bf16_train_step_runs_every_plain_backward(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """Nothing is left unported: ``profile_epoch`` traces its epoch (the
+    fit below); what is refused is a config that cannot run."""
+    from cgat_tpu_torch.utils.profiling import trace_files, trace_kernels
+
     graphs = random_graphs(0, 12, **GRAPHS)
-    with pytest.raises(NotImplementedError, match="profile_epoch"):
-        Trainer(TrainerConfig(profile_epoch=0), CGATConfig(**TINY), graphs,
-                device="cpu")
     # streaming is ported: without a validation path it raises cgat_tpu's
     # error, before the training shards are read
     with pytest.raises(ValueError, match="streaming=True requires"):
@@ -451,7 +453,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(TrainerConfig(), CGATConfig(**TINY), graphs)
-    t = Trainer(TrainerConfig(**TRAIN, ckpt_dir=str(tmp_path)),
+    t = Trainer(TrainerConfig(**TRAIN, ckpt_dir=str(tmp_path),
+                              profile_epoch=0),
                 CGATConfig(**TINY), graphs, device="cpu")
     model = t.init_state()
     again = init_state_dict(model, seed=0)
@@ -460,3 +463,6 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     assert [h["epoch"] for h in history] == [0, 1]
     assert all(np.isfinite(h["train_loss"]) and "val_mae" in h
                for h in history)
+    # epoch 0's steps, traced under the run's profile directory
+    path, = trace_files(os.path.join(t.last_log_dir, "profile"))
+    assert trace_kernels(path)["span:train_step"][1] == t.step // 2
