@@ -15,7 +15,13 @@ and its backward, per real edge ``e -> n`` with ``q = g / (den + 1e-16)``::
 (padded edges get 0), from the f32 per-node max and exp-sum the forward
 returns. The kernels are in ``cgat_tpu_torch/csrc/segment_attention.cu``.
 CPU tensors go through the plain versions; CUDA tensors launch the kernels
-or raise.
+or raise. The forward has two kernels behind one entry point: the stream
+kernel (a persistent grid, each block streaming the rows of the nodes that
+start in its equal span of the real rows and writing its share of the
+nodes with none, :func:`stream_spans`) for rows of
+whole 16-byte groups on 16-byte aligned arrays (:func:`streams`), and the
+per-node kernel for the rest; ``segment_attention.stream_launches`` and
+``segment_attention.per_node_launches`` count each, ``launches`` both.
 
 The pair path (:class:`SegmentAttentionPair`, the JAX package's
 ``_pair_fwd_impl`` / ``_pair_vjp_bwd``) is the same softmax over the union
@@ -39,6 +45,9 @@ from ..segment import (NEG_BIG, SOFTMAX_EPS, segment_max,
 from . import build
 
 _P = ctypes.c_void_p
+# 16-byte column groups of a row the stream kernel takes at most
+# (bulk::MAX_GROUPS in the source)
+STREAM_MAX_GROUPS = 480
 
 
 @functools.cache
@@ -68,6 +77,43 @@ def _segments(offn, n_real, num_nodes, n_rows):
     rows = torch.arange(n_rows, device=offn.device)
     valid = (rows >= off[0]) & (rows < off[-1])
     return ids, valid
+
+
+def streams(hf: int, element_size: int, *tensors) -> bool:
+    """Whether the forward's entry point takes the stream kernel for rows
+    of ``hf`` elements of ``element_size`` bytes and these arrays (None
+    for an output not asked for): rows of whole 16-byte groups, at most
+    ``STREAM_MAX_GROUPS`` of them, every array 16-byte aligned."""
+    row = hf * element_size
+    addr = 0
+    for t in tensors:
+        if t is not None:
+            addr |= t.data_ptr()
+    return row % 16 == 0 and row // 16 <= STREAM_MAX_GROUPS \
+        and addr % 16 == 0
+
+
+def stream_spans(offn, n_real, num_nodes: int, blocks: int):
+    """The stream kernel's partition in torch ops: block ``b`` of
+    ``blocks`` spans ``n_real // blocks`` real rows, the first ``n_real %
+    blocks`` blocks one more, in order, and owns the nodes whose clamped
+    start ``min(offn[n], n_real)`` lies in its span, ``[n_lo, n_hi)`` (the
+    counts of starts below each end of its span), with their rows ``[r0,
+    r1)``, which may run past the span's end; and an equal share, ``[e_lo,
+    e_hi)``, of the nodes that start at ``n_real`` (no real row), split as
+    the rows are. Returns ``(n_lo, n_hi, r0, r1, e_lo, e_hi)``, each
+    ``(blocks,)`` int64."""
+    def split(total):
+        per, extra = divmod(total, blocks)
+        return torch.tensor([b * per + min(b, extra)
+                             for b in range(blocks + 1)])
+
+    real = int(n_real)
+    off = torch.clamp(offn[:num_nodes + 1].long().cpu(), max=real)
+    below = (off[None, :num_nodes] < split(real)[:, None]).sum(1)
+    n_lo, n_hi = below[:-1], below[1:]
+    empties = below[-1] + split(num_nodes - int(below[-1]))
+    return n_lo, n_hi, off[n_lo], off[n_hi], empties[:-1], empties[1:]
 
 
 def segment_attention_plain(alpha, m, offn, n_real, num_nodes):
@@ -138,10 +184,16 @@ def segment_attention(alpha, m, offn, n_real, num_nodes, *,
                      None if den is None else den.data_ptr())
     build.check("segment_attention", code)
     segment_attention.launches += 1
+    if streams(hf, alpha.element_size(), alpha, m, out, mx, den):
+        segment_attention.stream_launches += 1
+    else:
+        segment_attention.per_node_launches += 1
     return (out, mx, den) if return_stats else out
 
 
 segment_attention.launches = 0
+segment_attention.stream_launches = 0
+segment_attention.per_node_launches = 0
 
 
 def segment_attention_bwd_plain(alpha, m, ids, n_real, g, out, mx, den):

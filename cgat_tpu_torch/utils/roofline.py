@@ -13,8 +13,10 @@ both. ``measure_kernels``, ``measure_mh_kernels`` and
 inputs the L2 cache does not hold) at the main path's shapes: the
 forward kernels at serving request 0's (64 crystals, 832 node and 19,968
 edge slots), the backward kernels at the first training step's (768 node
-and 18,432 edge slots); #5 to #7 at C = I = O = 128. They need the
-card::
+and 18,432 edge slots); #5 to #7 at C = I = O = 128; #1 also at the
+training step's, writing the max and exp-sum its backward reads, and at a
+GP batch of 512 crystals (5,952 node and 142,848 edge slots). They need
+the card::
 
     python -m cgat_tpu_torch.utils.roofline
 
@@ -64,13 +66,16 @@ def bound(n_bytes: float, ops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def segment_attention_work(real_edges: int, hf: int,
-                           num_nodes: int) -> tuple[float, float]:
+def segment_attention_work(real_edges: int, hf: int, num_nodes: int,
+                           stats: bool = False) -> tuple[float, float]:
     """#1 on ``real_edges`` real rows of width ``hf`` into ``num_nodes``
-    segments: alpha and m read, the CSR pointers read, out written (bf16);
-    max, subtract, exp, add and a multiply-add a row element."""
+    segments: alpha and m read, the CSR pointers read, out written (bf16),
+    and with ``stats`` the f32 max and exp-sum written (a training step's
+    calls and the pair path's); max, subtract, exp, add and a multiply-add
+    a row element."""
     return (2.0 * 2 * real_edges * hf + 4.0 * (num_nodes + 1)
-            + 2.0 * num_nodes * hf, 6.0 * real_edges * hf)
+            + 2.0 * num_nodes * hf + (8.0 * num_nodes * hf if stats else 0),
+            6.0 * real_edges * hf)
 
 
 def segment_attention_bwd_work(edge_rows: int, real_edges: int, hf: int,
@@ -202,6 +207,20 @@ def training_batch(device, batch_size: int = 64):
                                     shuffle=True))).to(device)
 
 
+def gp_batch(device, batch_size: int = 512):
+    """The first batch of ``chip_smoke.py``'s GP phase: ``batch_size``
+    crystals of its pool of 2,048 (seed 500, full degree), shuffled with
+    seed 0, node slots a multiple of 64."""
+    from ..data.dataset import GraphLoader
+    from ..data.synthetic import random_graphs
+
+    pool = random_graphs(500, 2048, n_atoms_range=(8, 16), max_nbr=24,
+                         full_degree=True)
+    loader = GraphLoader(pool, batch_size, shuffle=True, seed=0, max_nbr=24,
+                         node_bucket=64)
+    return next(iter(loader)).to(device)
+
+
 def _device_time(fn, args, iters: int) -> tuple[float, float]:
     """Device ms of one call ``fn(*a)``, from the device events of
     ``iters`` calls captured in one CUDA graph: each kernel's mean event
@@ -240,9 +259,9 @@ def _device_time(fn, args, iters: int) -> tuple[float, float]:
 def _row(name: str, shape, fn, args, work, iters: int) -> dict:
     ms, events = _device_time(fn, args, iters)
     b_ms, b_by = bound(*work, PEAKS[name])
-    return {"shape": list(shape), "device_ms": ms, "events_a_call": events,
-            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
-            **summarize(work, ms / 1e3, PEAKS[name])}
+    return {"kernel": name, "shape": list(shape), "device_ms": ms,
+            "events_a_call": events, "bound_ms": b_ms, "bound_by": b_by,
+            "share": b_ms / ms, **summarize(work, ms / 1e3, PEAKS[name])}
 
 
 def _randn(gen, *shape, scale: float = 1.0):
@@ -253,8 +272,10 @@ def _randn(gen, *shape, scale: float = 1.0):
 def measure_kernels(batch_size: int = 64, iters: int = 20) -> dict:
     """#1 at serving request 0's shapes, #2 and #8 at the first training
     step's, and dropout on request 0's node-layer dropout site (edge slots
-    x 5 heads x 128), bf16 inputs from a seeded generator; raises without
-    a card."""
+    x 5 heads x 128), bf16 inputs from a seeded generator; also #1 at the
+    training step's shapes with its stats (``segment_attention_stats``)
+    and at a GP batch (``segment_attention_gp``). Each row names its
+    kernel; raises without a card."""
     from ..ops.kernels import dropout as dk
     from ..ops.kernels import segment_attention as sk
     from ..ops.kernels import segment_sum as ssk
@@ -285,6 +306,12 @@ def measure_kernels(batch_size: int = 64, iters: int = 20) -> dict:
     out, mx, den = sk.segment_attention(alpha, m, tr.edge_dst_offn, real,
                                         n_nodes, return_stats=True)
     ids = tr.edge_dst.to(torch.int32).contiguous()
+    rows["segment_attention_stats"] = _row(
+        "segment_attention", [e, hf, n_nodes],
+        lambda a, m: sk.segment_attention(a, m, tr.edge_dst_offn, real,
+                                          n_nodes, return_stats=True),
+        (alpha, m), segment_attention_work(int(real), hf, n_nodes, True),
+        iters)
     rows["segment_attention_bwd"] = _row(
         "segment_attention_bwd", [e, hf, n_nodes],
         lambda a, m, g, o, x, d: sk.segment_attention_bwd(a, m, ids, real,
@@ -296,6 +323,16 @@ def measure_kernels(batch_size: int = 64, iters: int = 20) -> dict:
         "segment_sum", [e, 128, n_nodes],
         lambda v: ssk.segment_sum(v, ids, offn, n_nodes),
         (_randn(gen, e, 128),), segment_sum_work(e, 128, n_nodes), iters)
+
+    gp = gp_batch(dev)
+    n_nodes, e = int(gp.num_node_slots), int(gp.num_edge_slots)
+    real = gp.edge_mask.sum(dtype=torch.int32)
+    rows["segment_attention_gp"] = _row(
+        "segment_attention", [e, hf, n_nodes],
+        lambda a, m: sk.segment_attention(a, m, gp.edge_dst_offn, real,
+                                          n_nodes),
+        (_randn(gen, e, hf), _randn(gen, e, hf)),
+        segment_attention_work(int(real), hf, n_nodes), iters)
     return rows
 
 

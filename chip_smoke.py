@@ -9,7 +9,16 @@ failure exits non-zero:
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold each forward kernel against its plain PyTorch version on the card
    at the shapes the serving forward gives it, and time both with CUDA
-   events; mh_network in both forms (out, and out with h), bit-identical in
+   events; segment_attention through its stream kernel (its own launch
+   counter and its device kernel's name), timed beside scatter_reduce's
+   amax, the exp, two index_add_ sums and the divide (PyTorch calls, a
+   yardstick the port never calls), and on ``segment_layout``'s edge
+   layouts (empty nodes, an empty tail, one node holding every row, no
+   real row, every row real, a 2,000-row node, the request, training and
+   GP shapes) in bf16 at H*F = 640 (the stream kernel) and f32 at 13 (the
+   per-node kernel), each within the tolerances, its max bit-equal, the
+   same bits twice and counted under its kernel's counter;
+   mh_network in both forms (out, and out with h), bit-identical in
    two launches, and timed beside addmm, leaky ReLU and baddbmm (cuBLAS
    calls, a yardstick the port never calls); hyper_apply bit-identical in
    two launches, with its device time by launch, and timed beside addmm
@@ -28,7 +37,9 @@ failure exits non-zero:
    each signature's forward a CUDA graph: a signature's first request (the
    eager warm-up, then the capture) must call mh_network x10,
    segment_attention x6 and hyper_apply x20 twice and no backward kernel,
-   a later one none; it is timed with its capture and peak memory. A
+   a later one none, every segment_attention launch through its stream
+   kernel (its own counter); it is timed with its capture and peak
+   memory. A
    replayed request must give the eager warm-up's bits on the same batch
    and launch 10/6/20 (the profiler's device events by kernel name); the
    steady replayed requests are timed beside an eager ServingModel's on
@@ -163,7 +174,8 @@ failure exits non-zero:
    bit); ``cli.train --profile-epoch 0`` and ``1`` (a capturing and a
    replay-only epoch), each trace holding every kernel's device events
    and a ``train_step`` span a step; ``utils.roofline``'s ``measure_*``
-   (each bound the one phases 2 and 4 print, no share above 1.05);
+   (each bound the one phases 2 and 4 print, #1 also with its stats at
+   the training step's shapes and at a GP batch; no share above 1.05);
    ``tools.step_trace`` (its categories adding up to its total, within 5
    % of phase 7's busy ms);
 14. report the card, and the nine kernels as one JSON line (with their
@@ -439,15 +451,53 @@ def hyper_yardsticks(hidden, k, bias, x, g, o) -> dict:
             "hyper_apply_bwd_dk": dk}
 
 
+def attention_yardstick(alpha, m, offn, n_real, num_nodes):
+    """PyTorch calls computing what #1 computes, on the real rows (several
+    calls, not one: a yardstick the port never calls): the per-node max by
+    ``scatter_reduce_`` (amax), the exp, the two segment sums by
+    ``index_add_`` and the divide."""
+    from cgat_tpu_torch.ops.segment import NEG_BIG, SOFTMAX_EPS
+
+    off = torch.clamp(offn[:num_nodes + 1].long(), max=int(n_real))
+    lo, hi = int(off[0]), int(off[-1])
+    ids = torch.repeat_interleave(torch.arange(num_nodes, device=off.device),
+                                  off[1:] - off[:-1], output_size=hi - lo)
+    a, mm = alpha[lo:hi], m[lo:hi]
+    idx = ids[:, None].expand(-1, alpha.shape[1])
+    shape = (num_nodes, alpha.shape[1])
+
+    def run():
+        af = a.float()
+        mx = torch.full(shape, NEG_BIG, device=a.device).scatter_reduce_(
+            0, idx, af, "amax")
+        ex = torch.exp(af - mx[ids])
+        den = torch.zeros(shape, device=a.device).index_add_(0, ids, ex)
+        num = torch.zeros(shape, device=a.device).index_add_(
+            0, ids, ex * mm.float())
+        return (num / (den + SOFTMAX_EPS)).to(alpha.dtype)
+    return run
+
+
 def launch_counts() -> dict[str, int]:
     from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
     return {k.__name__: k.launches for k in KERNEL_WRAPPERS}
 
 
+def route_counts() -> dict[str, int]:
+    """segment_attention's launches by kernel: the stream kernel's and the
+    per-node kernel's."""
+    from cgat_tpu_torch.ops.kernels.segment_attention import \
+        segment_attention as sa
+    return {"stream": sa.stream_launches, "per_node": sa.per_node_launches}
+
+
 def reset_counts() -> None:
     from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from cgat_tpu_torch.ops.kernels.segment_attention import \
+        segment_attention as sa
     for k in KERNEL_WRAPPERS:
         k.launches = 0
+    sa.stream_launches = sa.per_node_launches = 0
 
 
 def compare(name: str, got, want) -> dict:
@@ -610,7 +660,11 @@ def check_kernels(model, batch) -> list[dict]:
         # crystal pool's shape (nodes -> crystals)
         n_real = batch.edge_mask.sum(dtype=torch.int32)
         seg_args = (alpha, msg, batch.edge_dst_offn, n_real, n_nodes)
+        before = route_counts()
         out, mx, den = sk.segment_attention(*seg_args, return_stats=True)
+        if route_counts()["stream"] != before["stream"] + 1:
+            fail(f"segment_attention: the main path's call did not take the "
+                 f"stream kernel ({route_counts()} from {before})")
         p_out, p_mx, p_den = sk.segment_attention_plain(*seg_args)
         checks = [compare("segment_attention", out, p_out)]
         if not torch.equal(mx, p_mx):
@@ -631,7 +685,14 @@ def check_kernels(model, batch) -> list[dict]:
                               sk.segment_attention(*pool_args),
                               sk.segment_attention_plain(*pool_args)[0]))
         b_ms, b_by = bound(*roofline.segment_attention_work(
-            int(n_real), hf, n_nodes), F32_FLOPS)
+            int(n_real), hf, n_nodes, stats=False), F32_FLOPS)
+        yard = attention_yardstick(*seg_args)
+        compare("segment_attention yardstick", yard(), p_out)
+        split = kernel_device_ms(lambda: sk.segment_attention(*seg_args),
+                                 split=True)
+        if not any("segment_attention_fwd_stream" in k for k in split):
+            fail(f"segment_attention: the stream kernel is not among the "
+                 f"call's device kernels {list(split)}")
         rows.append({"name": "segment_attention",
                      "shape": [n_edges, hf, n_nodes], **checks_row(checks),
                      "ms": time_ms(lambda: sk.segment_attention(*seg_args)),
@@ -645,7 +706,13 @@ def check_kernels(model, batch) -> list[dict]:
                          lambda: sk.segment_attention(*seg_args,
                                                       return_stats=True)),
                      "pool_ms": time_ms(lambda: sk.segment_attention(
-                         *pool_args))})
+                         *pool_args)),
+                     "cublas_ms": time_ms(yard),
+                     "cublas_device_ms": kernel_device_ms(yard),
+                     "cublas_what": "scatter_reduce_ (amax), exp, two "
+                                    "index_add_ sums and the divide "
+                                    "(PyTorch calls)",
+                     "device_split": split})
 
         # hyper_apply: layer 0's first HyperLinear on the real node features
         hl = node.Pooling_NN.Hyper.layers[0].hyper_linear
@@ -677,6 +744,57 @@ def check_kernels(model, batch) -> list[dict]:
                          lambda: hk.hyper_apply(*h_args), split=True)})
     report(rows)
     return rows
+
+
+def check_attention_layouts() -> dict:
+    """Phase 2: #1 on each of ``segment_layout``'s edge layouts, in bf16 at
+    H*F = 640 (rows of whole 16-byte groups: the stream kernel) and f32 at
+    13 (the per-node kernel), seeded random rows: within the tolerances of
+    the plain version, its max bit-equal and its den within rtol 1e-4, the
+    same bits twice, and one launch under the right kernel's counter."""
+    from cgat_tpu_torch.data.synthetic import SEGMENT_LAYOUTS, segment_layout
+    from cgat_tpu_torch.ops.kernels import segment_attention as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {}
+    with torch.inference_mode():
+        for kind in SEGMENT_LAYOUTS:
+            offn, n_real, n = segment_layout(kind)
+            for dtype, hf, route in ((torch.bfloat16, 640, "stream"),
+                                     (torch.float32, 13, "per_node")):
+                e = int(offn[-1])
+                args = ((torch.randn(e, hf, generator=gen, device="cuda")
+                         * 3).to(dtype),
+                        torch.randn(e, hf, generator=gen,
+                                    device="cuda").to(dtype),
+                        torch.from_numpy(offn).cuda(),
+                        torch.tensor(n_real, dtype=torch.int32,
+                                     device="cuda"), n)
+                name = f"segment_attention {kind} {str(dtype)[6:]} {hf}"
+                before = route_counts()
+                out, mx, den = sk.segment_attention(*args, return_stats=True)
+                got = {k: v - before[k] for k, v in route_counts().items()}
+                if got != {"stream": route == "stream",
+                           "per_node": route == "per_node"}:
+                    fail(f"{name}: launched {got}, not one {route} kernel")
+                p_out, p_mx, p_den = sk.segment_attention_plain(*args)
+                check = compare(name, out, p_out)
+                if not torch.equal(mx, p_mx):
+                    fail(f"{name}: per-node max differs from the plain "
+                         f"version")
+                torch.testing.assert_close(den, p_den, rtol=1e-4, atol=1e-6)
+                deterministic(name, lambda: sk.segment_attention(
+                    *args, return_stats=True))
+                res[f"{kind} {str(dtype)[6:]} {hf}"] = {
+                    "rows": e, "real_rows": n_real, "nodes": n,
+                    "kernel": route, **check}
+    worst = max(res.values(), key=lambda r: r["rel_norm_err"])
+    print(f"[kernels] segment_attention on {len(SEGMENT_LAYOUTS)} edge "
+          f"layouts x (bf16 640: stream, f32 13: per-node): each within "
+          f"tolerance (worst norm-wise {worst['rel_norm_err']:.3e}), max "
+          f"bit-equal, the same bits twice, launches under each kernel's "
+          f"counter")
+    return res
 
 
 def check_dropout(cfg, n_edges: int) -> dict:
@@ -772,7 +890,8 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
     """Phase 3: answer the requests through ``ServingModel.predict`` on the
     card, each signature's forward a replayed CUDA graph. A signature's
     first request (eager warm-up, then the capture) must call each
-    wrapper twice a forward, a later one never; a replay must give the
+    wrapper twice a forward, a later one never, and segment_attention's
+    through its stream kernel every time; a replay must give the
     warm-up's bits on the same batch and, by the profiler's device events
     by kernel name, launch 10/6/20. Each signature's first request is
     timed with its capture and peak memory; the steady replayed requests
@@ -820,6 +939,10 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
               f"{r['request_ms']:.2f} ms (capture {r['capture_ms']:.2f} ms), "
               f"peak device memory {r['peak_memory_gib']:.2f} GiB ({card})")
     launches = launch_counts()
+    routes = route_counts()
+    if routes != {"stream": launches["segment_attention"], "per_node": 0}:
+        fail(f"segment_attention's serving launches by kernel {routes}: not "
+             f"all {launches['segment_attention']} through the stream kernel")
 
     # a replay against the eager warm-up on the same batch
     warm = server.predict(requests[0], return_embeddings=True)
@@ -843,7 +966,7 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
     timed = {"replay": timed_ms(lambda: server.predict(requests[1]), N_TIMED),
              "eager": timed_ms(lambda: eager.predict(requests[1]), N_TIMED)}
     stats = {"request_ms": ms, "first_request": first,
-             "replay_bit_equal": True,
+             "segment_attention_routes": routes, "replay_bit_equal": True,
              "replay_launches": {k: int(v) for k, v in replayed.items()},
              "device_events_a_call": per_call,
              "replay_device_busy_ms": busy,
@@ -3588,7 +3711,7 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
             fwd_rows=printed["hyper_apply"]["shape"][0],
             bwd_rows=printed["hyper_apply_bwd_dhdx"]["shape"][0])}
     for k, r in measured.items():
-        if r["bound_ms"] != printed[k]["bound_ms"]:
+        if k in printed and r["bound_ms"] != printed[k]["bound_ms"]:
             fail(f"roofline: {k}'s bound {r['bound_ms']} != the "
                  f"{printed[k]['bound_ms']} of its phase")
         if r["share"] > SHARE_LIMIT:
@@ -3597,7 +3720,8 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
               f" ms ({r['events_a_call']:.2f} events a call seen), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bytes_share']:.3f} of {roofline.HBM_BYTES_PER_S:.3g} B/s,"
-              f" {r['ops_share']:.3f} of {roofline.PEAKS[k]:.3g} op/s "
+              f" {r['ops_share']:.3f} of {roofline.PEAKS[r['kernel']]:.3g} "
+              f"op/s "
               f"({card})")
     stats["roofline"] = measured
 
@@ -3694,6 +3818,8 @@ def main() -> int:
                      num_edge_slots=n0 * 24, num_comp_slots=8, max_nbr=24,
                      orig_fea=200).to(device)
     rows = check_kernels(model, batch0)
+    rows[[r["name"] for r in rows].index("segment_attention")]["layouts"] = \
+        check_attention_layouts()
     dropout_row = check_dropout(cfg, int(batch0.num_edge_slots))
     pair_row = check_pair_path(model, requests[0])
     progress("phase 3: serve")
@@ -3774,6 +3900,8 @@ def main() -> int:
                 "tools_launches": tools_launches[r["name"]],
                 "parallel_launches": {k: v[r["name"]]
                                       for k, v in par_launches.items()},
+                **({"stream_launches": stats["segment_attention_routes"][
+                    "stream"]} if r["name"] == "segment_attention" else {}),
                 **({"pair_launches": par_stats["edge2_gloo"][
                     "pair_launches_per_rank_step"][r["name"]],
                     "pair_path": pair_row}
@@ -3788,7 +3916,8 @@ def main() -> int:
                 "library_ms": r.get("library_ms"),
                 **{k: r[k] for k in ("cublas_ms", "cublas_device_ms",
                                      "library_device_ms",
-                                     "deterministic", "device_split")
+                                     "deterministic", "device_split",
+                                     "layouts")
                    if k in r},
                 **({"edge_rows": edge_rows[r["name"]]}
                    if r["name"] in edge_rows else {})}

@@ -3,7 +3,8 @@
 
     python3 chip_variants.py [mh_network | hyper_apply_bwd_dk |
                               mh_network_bwd | hyper_apply |
-                              hyper_apply_timeline | profiler_window]
+                              segment_attention | hyper_apply_timeline |
+                              profiler_window]
 
 Builds the kernel's source as it is and variants of it, each from a
 patched copy under ``build/variants/<study>/``, then times each in turns
@@ -87,6 +88,27 @@ part out (their outputs are garbage):
 - ``loads_only``: no products and no epilogue: the consumers wait for each
   stage and release it (the tail's stores stay).
 
+``segment_attention`` (``cgat_tpu_torch/csrc/segment_attention.cu``): the
+forward (#1) at the three shapes ``utils.roofline.measure_kernels`` times
+it at (serving request 0's, the first training step's with the f32 max and
+exp-sum written, a GP batch's; seeded random bf16 rows at H*F = 640), each
+by its device time cold in HBM (``roofline._device_time``: 20 calls in a
+CUDA graph over input copies twice the L2) beside its bound. The variants
+that compute the function are held against the plain version (the main
+path's three shapes and ``segment_layout``'s layouts):
+
+- ``committed``: the source as it is (the stream kernel);
+- ``per_node``: every width to the per-node kernel (one block a node, two
+  passes over its rows): the kernel before the stream, unchanged;
+- ``cols16``: 16 bytes of a row a consumer thread (8 bf16 columns: 80
+  threads, 3 warps at H*F = 640), not the fewest bytes within 480 threads
+  (4: 320 threads, 10 warps);
+- ``ring_160k``: a ring of 160 KB (4 stages), not 80 (2);
+- ``stage_20k``: stages of 20 KB (8 rows of each array), not 40 (16);
+- ``loads_only``: the consumers wait for each tile and release it: the
+  bulk copies, the partition and the nodes' stores alone (the outputs are
+  garbage).
+
 ``hyper_apply_timeline``: one launch of the forward at the same two shapes,
 built with clock64() stamps (SM clocks from the block's start) at each
 pass of each consumer warpgroup: its start, its first k-block's data, its
@@ -118,6 +140,8 @@ import chip_smoke as cs
 from cgat_tpu_torch.ops.kernels import build
 from cgat_tpu_torch.ops.kernels import hyper_apply as hk
 from cgat_tpu_torch.ops.kernels import mh_network as mk
+from cgat_tpu_torch.ops.kernels import segment_attention as sk
+from cgat_tpu_torch.utils import roofline
 
 OUT = Path(__file__).resolve().parent / "build" / "variants"
 SHAPE = (19968, 384, 256, 128, 5)      # E, cat, hid, F, heads
@@ -287,6 +311,9 @@ def use(lib: Path, source: str, name: str = "committed") -> None:
     if source == "mh_network":
         mk._fwd.cache_clear()
         mk._bwd.cache_clear()
+    elif source == "segment_attention":
+        sk._fwd.cache_clear()
+        sk._bwd.cache_clear()
     else:
         hk._entry.cache_clear()
 
@@ -733,6 +760,100 @@ def fwd_timed(gen):
     return calls
 
 
+SA_GATE = "  if (row_bytes % 16 == 0 && row_bytes / 16 <= bulk::MAX_GROUPS &&"
+SA_ADD = "        if (mine) run.add(at, at + tile_bytes, stop - r, row_bytes);\n"
+SA_BYTES = "  if (row_bytes / 4 <= MAX_GROUPS)\n"
+SA_RIGHT = ("committed", "per_node", "cols16", "ring_160k", "stage_20k")
+
+
+def sa_sources() -> dict[str, dict[str, str]]:
+    cu = (build.CSRC / "segment_attention.cu").read_text()
+    return {"committed": {},
+            "per_node": {"segment_attention.cu": patch(
+                cu, SA_GATE, "  if (false && row_bytes / 16 <= "
+                             "bulk::MAX_GROUPS &&")},
+            "cols16": {"segment_attention.cu": patch(
+                patch(cu, SA_BYTES, "  if (false)\n"),
+                "  if (row_bytes / 8 <= MAX_GROUPS)\n", "  if (false)\n")},
+            "ring_160k": {"segment_attention.cu": patch(
+                cu, "constexpr int RING_BYTES = 80 * 1024;",
+                "constexpr int RING_BYTES = 160 * 1024;")},
+            "stage_20k": {"segment_attention.cu": patch(
+                cu, "constexpr int STAGE_BYTES = 40 * 1024;",
+                "constexpr int STAGE_BYTES = 20 * 1024;")},
+            "loads_only": {"segment_attention.cu": patch(
+                cu, SA_ADD, "        (void)at;\n")}}
+
+
+def sa_shapes(gen) -> dict[str, tuple]:
+    """#1's shapes in ``measure_kernels``: per label the arguments (seeded
+    random bf16 rows at H*F = 640), whether it writes the stats, and its
+    work."""
+    dev = torch.device("cuda")
+    shapes = {}
+    for label, batch, stats in (
+            (" at request 0", roofline.request_batch(dev), False),
+            (" at the training step, stats", roofline.training_batch(dev),
+             True),
+            (" at a GP batch", roofline.gp_batch(dev), False)):
+        n, e = int(batch.num_node_slots), int(batch.num_edge_slots)
+        real = batch.edge_mask.sum(dtype=torch.int32)
+        args = ((torch.randn(e, 640, generator=gen, device=dev)
+                 * 3).bfloat16(),
+                torch.randn(e, 640, generator=gen, device=dev).bfloat16(),
+                batch.edge_dst_offn, real, n)
+        shapes[label] = (args, stats, roofline.segment_attention_work(
+            int(real), 640, n, stats))
+    return shapes
+
+
+def sa_check(name, gen) -> None:
+    """Out, the exact max and den against the plain version at the three
+    shapes and on ``segment_layout``'s layouts."""
+    from cgat_tpu_torch.data.synthetic import SEGMENT_LAYOUTS, segment_layout
+    cases = [args for args, _, _ in sa_shapes(gen).values()]
+    for kind in SEGMENT_LAYOUTS:
+        offn, n_real, n = segment_layout(kind)
+        e = int(offn[-1])
+        cases.append((
+            (torch.randn(e, 640, generator=gen, device="cuda")
+             * 3).bfloat16(),
+            torch.randn(e, 640, generator=gen, device="cuda").bfloat16(),
+            torch.from_numpy(offn).cuda(),
+            torch.tensor(n_real, dtype=torch.int32, device="cuda"), n))
+    for args in cases:
+        out, mx, den = sk.segment_attention(*args, return_stats=True)
+        p_out, p_mx, p_den = sk.segment_attention_plain(*args)
+        cs.compare(name, out, p_out)
+        if not (torch.equal(mx, p_mx)
+                and torch.allclose(den, p_den, rtol=1e-4, atol=1e-6)):
+            raise SystemExit(f"chip_variants: {name}: max or den differs "
+                             f"from the plain version's")
+
+
+def sa_study() -> None:
+    """Check the variants that compute #1, then time each at the three
+    shapes cold in HBM, in mirrored turns, beside the bound."""
+    libs = build_all(sa_sources(), "segment_attention")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, lib in libs.items():
+        if name in SA_RIGHT:
+            use(lib, "segment_attention", name)
+            sa_check(name, gen)
+    shapes = sa_shapes(gen)
+    for name in list(libs) + list(libs)[::-1]:
+        use(libs[name], "segment_attention", name)
+        for label, (args, stats, work) in shapes.items():
+            ms, events = roofline._device_time(
+                lambda a, m, rest=args[2:], stats=stats: sk.segment_attention(
+                    a, m, *rest, return_stats=stats), args[:2], 20)
+            b_ms, b_by = roofline.bound(*work, roofline.F32_FLOPS)
+            print(f"[variants] segment_attention {name}{label}: device "
+                  f"{ms:.4f} ms cold ({events:.2f} events a call), bound "
+                  f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.3f}",
+                  flush=True)
+
+
 # per study: its source, its variants, which of them are held against the
 # plain version, how, and the calls to time (by label)
 STUDIES = {
@@ -822,11 +943,14 @@ def main() -> int:
         fwd_timeline()
     elif study == "profiler_window":
         profiler_window()
+    elif study == "segment_attention":
+        sa_study()
     elif study in STUDIES:
         run_study(study)
     else:
         print(f"chip_variants: no study {study!r}; one of "
-              f"{[*STUDIES, 'hyper_apply_timeline', 'profiler_window']}",
+              f"{[*STUDIES, 'segment_attention', 'hyper_apply_timeline',
+                   'profiler_window']}",
               file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from cgat_tpu_torch.data import collate, host_offsets
-from cgat_tpu_torch.data.synthetic import random_graphs
+from cgat_tpu_torch.data.synthetic import (SEGMENT_LAYOUTS, random_graphs,
+                                           segment_layout)
 from cgat_tpu_torch.models import CGATConfig, CGAtNet, init_state_dict
 from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, dropout,
                                         hyper_apply, mh_network,
@@ -54,26 +55,49 @@ def _seg_case(rng, hf, num_nodes=300, n_pad=40):
     return alpha, m, host_offsets(dst, num_nodes + 8), n_real
 
 
+def _layout_case(rng, hf, layout):
+    """``_seg_case`` (``hub``) or one of ``segment_layout``'s layouts, with
+    random rows of width ``hf``."""
+    if layout == "hub":
+        return (*_seg_case(rng, hf), 300)
+    offn, n_real, num_nodes = segment_layout(layout)
+    e = int(offn[-1])
+    alpha = rng.standard_normal((e, hf), dtype=np.float32) * 3
+    m = rng.standard_normal((e, hf), dtype=np.float32)
+    return alpha, m, offn, n_real, num_nodes
+
+
+@pytest.mark.parametrize("layout", ["hub", *SEGMENT_LAYOUTS])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hf", [640, 6])     # 4-wide vector path, scalar path
-def test_segment_attention_kernel(dev, dtype, hf):
-    alpha, m, offn, n_real = _seg_case(np.random.default_rng(0), hf)
+@pytest.mark.parametrize("hf", [640, 6, 13])
+def test_segment_attention_kernel(dev, dtype, hf, layout):
+    """Each layout against the plain version: out, the exact max, den.
+    Rows of whole 16-byte groups (640) take the stream kernel, 6 and 13
+    (odd) the per-node kernel, each counted under its own counter; the
+    same bits twice, and without the stats."""
+    alpha, m, offn, n_real, n = _layout_case(np.random.default_rng(0), hf,
+                                             layout)
     args = (torch.tensor(alpha, dtype=dtype, device=dev),
             torch.tensor(m, dtype=dtype, device=dev),
             torch.from_numpy(offn).to(dev),
-            torch.tensor(n_real, dtype=torch.int32, device=dev), 300)
-    before = segment_attention.segment_attention.launches
-    out, mx, den = segment_attention.segment_attention(*args,
-                                                       return_stats=True)
-    assert segment_attention.segment_attention.launches == before + 1
+            torch.tensor(n_real, dtype=torch.int32, device=dev), n)
+    sk = segment_attention.segment_attention
+    before = (sk.launches, sk.stream_launches, sk.per_node_launches)
+    out, mx, den = sk(*args, return_stats=True)
+    stream = hf == 640
+    assert (sk.launches, sk.stream_launches, sk.per_node_launches) == (
+        before[0] + 1, before[1] + stream, before[2] + (not stream))
     p_out, p_mx, p_den = segment_attention.segment_attention_plain(*args)
     assert out.dtype == dtype and mx.dtype == den.dtype == torch.float32
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), p_out.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(mx, p_mx, rtol=0, atol=0)
     torch.testing.assert_close(den, p_den, rtol=1e-5, atol=1e-6)
-    empty = torch.from_numpy(np.diff(np.minimum(offn[:301], n_real)) == 0)
+    empty = torch.from_numpy(np.diff(np.minimum(offn[:n + 1], n_real)) == 0)
     assert empty.any() and not out[empty.to(dev)].float().abs().any()
+    again = sk(*args, return_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, mx, den)))
+    assert torch.equal(sk(*args), out)
 
 
 @pytest.mark.parametrize("rows,cat,hid,f,heads",
@@ -797,14 +821,15 @@ def test_a_trace_of_replayed_steps_holds_every_kernel(dev, tmp_path):
 
 
 def test_measured_kernels_stay_under_their_rooflines(dev):
-    """``utils.roofline``'s measurements at the main path's shapes: no
-    kernel reads above 1.05 of the bound its work sets."""
+    """``utils.roofline``'s measurements at the main path's shapes (#1 also
+    with its stats at the training step's and at a GP batch): no kernel
+    reads above 1.05 of the bound its work sets."""
     from cgat_tpu_torch.utils import roofline
 
     rows = {**roofline.measure_kernels(iters=5),
             **roofline.measure_mh_kernels(iters=5),
             **roofline.measure_hyper_kernels(iters=5)}
-    assert len(rows) == 9
+    assert len(rows) == 11
     for name, r in rows.items():
         assert 0 < r["share"] <= 1.05, (name, r)
         assert r["share"] == pytest.approx(max(r["bytes_share"],

@@ -5,6 +5,7 @@ the port's wrappers run their plain PyTorch versions because the tensors
 lie on the CPU. The CUDA kernels themselves are checked on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import re
 import sys
 
 import numpy as np
@@ -18,6 +19,7 @@ from cgat_tpu.ops.pallas import hyper_apply as jhyper
 from cgat_tpu.ops.pallas import mh_network as jmh
 from cgat_tpu.ops.pallas import segment_attention as jsa
 from cgat_tpu_torch.data import host_offsets
+from cgat_tpu_torch.data.synthetic import SEGMENT_LAYOUTS, segment_layout
 from cgat_tpu_torch.ops import attention, segment
 from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, build, hyper_apply,
                                         mh_network, segment_attention)
@@ -365,6 +367,57 @@ def test_mh_network_bwd_plan_covers_every_row_once(rows, cat, hid, f, heads,
     for u in units:
         load[u[0]] += u[5]
     assert load.max() <= load.sum() / plan["blocks"] + -(-hh // step)
+
+
+@pytest.mark.parametrize("blocks", [1, 114, 132])
+@pytest.mark.parametrize("kind", SEGMENT_LAYOUTS)
+def test_stream_spans_write_every_node_once(kind, blocks):
+    """The forward's stream kernel partition (``stream_spans``, the device
+    count in torch ops): every node slot is written by exactly one block; a
+    block's streamed nodes are those whose start lies in its span of the
+    real rows, and their rows lie within [0, n_real); the blocks' rows
+    cover every real row from the first node's start once (the bytes a
+    block streams: its span, and its last node's overrun); the nodes that
+    start at n_real are spread evenly."""
+    offn, n_real, num_nodes = segment_layout(kind)
+    n_lo, n_hi, r0, r1, e_lo, e_hi = (
+        x.numpy() for x in segment_attention.stream_spans(
+            torch.from_numpy(offn), torch.tensor(n_real, dtype=torch.int32),
+            num_nodes, blocks))
+    starts = np.minimum(offn[:num_nodes + 1], n_real)
+    per, extra = divmod(n_real, blocks)
+    ends = np.arange(blocks + 1) * per + np.minimum(np.arange(blocks + 1),
+                                                    extra)
+    assert ends[-1] == n_real
+    written = np.zeros(num_nodes, int)
+    rows = np.zeros(n_real, int)
+    for b in range(blocks):
+        written[n_lo[b]:n_hi[b]] += 1
+        written[e_lo[b]:e_hi[b]] += 1
+        assert (starts[e_lo[b]:e_hi[b]] == n_real).all()
+        if n_lo[b] == n_hi[b]:
+            continue
+        own = starts[n_lo[b]:n_hi[b]]
+        assert ((own >= ends[b]) & (own < ends[b + 1])).all()
+        assert (r0[b], r1[b]) == (starts[n_lo[b]], starts[n_hi[b]])
+        assert 0 <= r0[b] <= r1[b] <= n_real
+        rows[r0[b]:r1[b]] += 1
+    assert (written == 1).all()
+    assert (rows[starts[0]:] == 1).all() and not rows[:starts[0]].any()
+    assert (e_hi - e_lo).max() <= -(-(starts[:num_nodes] == n_real).sum()
+                                    // blocks)
+    if kind in ("request", "training", "gp") and blocks > 1:
+        # balanced by bytes: no block streams more than its span and a node
+        assert (r1 - r0).max() <= -(-n_real // blocks) + 24
+
+
+def test_stream_gate_matches_the_source():
+    """The wrapper's copy of the widths the stream kernel takes is the
+    source's."""
+    src = (build.CSRC / "segment_attention.cu").read_text()
+    threads = int(re.search(r"MAX_THREADS = (\d+);", src).group(1))
+    assert "MAX_GROUPS = MAX_THREADS - 32;" in src
+    assert segment_attention.STREAM_MAX_GROUPS == threads - 32
 
 
 def _bwd_units(plan: dict, out_ch: int):

@@ -117,6 +117,29 @@ def test_bounds_reproduce_the_table():
     assert s["bound_by"] == "operations" and s["bytes_share"] < 1
 
 
+def test_segment_attention_bounds_at_each_shape():
+    """#1's bound (ms) at the three shapes ``measure_kernels`` times it at:
+    request 0's without stats (the table's), the first training step's
+    with the f32 max and exp-sum written (2 x N x H*F x 4 bytes more), and
+    the first GP batch's (phase 11's: 5,952 node and 142,848 edge slots)."""
+    req = roofline.request_batch("cpu")
+    tr = roofline.training_batch("cpu")
+    gp = roofline.gp_batch("cpu")
+    assert (int(gp.num_node_slots), int(gp.num_edge_slots)) == (5952, 142848)
+    got = {}
+    for name, b, stats in (("request", req, False), ("training", tr, True),
+                           ("gp", gp, False)):
+        n, real = int(b.num_node_slots), int(b.edge_mask.sum())
+        work = roofline.segment_attention_work(real, 640, n, stats)
+        plain = roofline.segment_attention_work(real, 640, n)
+        assert work[0] - plain[0] == (8.0 * n * 640 if stats else 0)
+        assert work[1] == plain[1] == 6.0 * real * 640
+        ms, by = roofline.bound(*work, roofline.PEAKS["segment_attention"])
+        got[name] = (round(ms, 4), by)
+    assert got == {"request": (0.0145, "bytes"),
+                   "training": (0.0149, "bytes"), "gp": (0.111, "bytes")}
+
+
 @pytest.mark.parametrize("e,cat,hid,f,heads", [(8448, 384, 256, 128, 5),
                                                (18432, 384, 256, 128, 5),
                                                (37, 48, 32, 16, 2)])
@@ -133,6 +156,10 @@ NAMES = {
     "void (anonymous namespace)::segment_attention_fwd<__nv_bfloat16, 4>"
     "(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*, int const*, "
     "int, int, __nv_bfloat16*, float*, float*)": "#1 segment_attention",
+    "void (anonymous namespace)::bulk::segment_attention_fwd_stream<"
+    "__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*, "
+    "int const*, int, int, int, int, __nv_bfloat16*, float*, float*)":
+        "#1 segment_attention",
     "void (anonymous namespace)::segment_attention_bwd<__nv_bfloat16>"
     "(__nv_bfloat16 const*)": "#2 segment_attention_bwd",
     "void sm90::gemm_kernel<(sm90::Epilogue)1>(CUtensorMap_st, "
