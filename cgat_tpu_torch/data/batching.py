@@ -21,11 +21,14 @@ pointers (the JAX package's ``edge_shards`` collate, field for field).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..utils.profiling import annotate, annotated
 
 
 @dataclasses.dataclass
@@ -93,16 +96,28 @@ class CrystalBatch:
             else fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
     def to(self, device) -> "CrystalBatch":
-        """The same batch with every tensor on ``device``."""
-        return self.map(lambda t: t.to(device))
+        """The same batch with every tensor on ``device`` (the span
+        ``h2d`` from the host to a card)."""
+        with _h2d(self.nodes.device, device):
+            return self.map(lambda t: t.to(device))
 
     def copy_(self, src: "CrystalBatch") -> "CrystalBatch":
         """Copy ``src``'s tensors, of the same shapes, into this batch's
-        (in place, in stream order on a card)."""
-        for f in dataclasses.fields(self):
-            if getattr(self, f.name) is not None:
-                getattr(self, f.name).copy_(getattr(src, f.name))
+        (in place, in stream order on a card; the span ``h2d`` from the
+        host to a card)."""
+        with _h2d(src.nodes.device, self.nodes.device):
+            for f in dataclasses.fields(self):
+                if getattr(self, f.name) is not None:
+                    getattr(self, f.name).copy_(getattr(src, f.name))
         return self
+
+
+def _h2d(src, dst):
+    """The span ``h2d`` of a copy from device ``src`` to ``dst`` that goes
+    from the host to a card; no span for any other copy."""
+    if torch.device(src).type == "cpu" and torch.device(dst).type == "cuda":
+        return annotate("h2d")
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -325,6 +340,7 @@ def _sharded_edges(src, dst, shell, N, S, max_nbr, cap, cap_h, halo_slots):
     return out
 
 
+@annotated("collate")
 def collate(graphs: Sequence[CrystalGraph],
             *,
             num_graphs: int | None = None,

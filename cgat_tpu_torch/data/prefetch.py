@@ -7,12 +7,16 @@ loader in :class:`PrefetchLoader` moves the collation (numpy, and the CPU
 tensors it ends in) onto a background thread that stays ``depth``
 batches ahead, as the reference's torch DataLoader workers did
 (lightning_module.py:357-411). The thread launches no work on the card:
-the consumer copies each batch there itself.
+the consumer copies each batch there itself. The consumer's wait on the
+queue is the span ``prefetch_wait``; the thread's collates are not in a
+trace (``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import queue
 import threading
+
+from ..utils.profiling import annotate
 
 _DONE, _ERR = object(), object()
 
@@ -55,7 +59,8 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with annotate("prefetch_wait"):
+                    item = q.get()
                 if item is _DONE:
                     break
                 if item[0] is _ERR:

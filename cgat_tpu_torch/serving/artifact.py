@@ -43,6 +43,7 @@ from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.convert import flat_from_state_dict, state_dict_from_jax
 from ..training.dispatch import signature
+from ..utils.profiling import annotate, annotated
 
 _MANIFEST = "manifest.json"
 _PARAMS = "params.npz"
@@ -154,9 +155,11 @@ class ServingGraphs:
         key = signature(batch)
         g = self.graphs.get(key)
         if g is None:
-            return self._first(key, batch, forward)
+            with annotate("capture"):
+                return self._first(key, batch, forward)
         g.static.copy_(batch)
-        g.graph.replay()
+        with annotate("replay"):
+            g.graph.replay()
         return g.outputs
 
     def _first(self, key, batch: CrystalBatch, forward) -> tuple:
@@ -218,6 +221,7 @@ class ServingModel:
             return self.forward(batch.to(self.device))
         return self.graphs.run(batch, self.forward)
 
+    @annotated("predict")
     @torch.inference_mode()
     def predict(self, graphs, *, return_embeddings: bool = False):
         """Denormalised predictions and ``log_std`` (and graph embeddings)
@@ -238,10 +242,11 @@ class ServingModel:
                             orig_fea=col["orig_fea"])
             pred, log_std, emb = self._run(batch)
             n = len(chunk)            # real graphs fill the leading slots
-            preds.append(pred[:n].cpu().numpy())
-            log_stds.append(log_std[:n].cpu().numpy())
-            if return_embeddings:
-                embs.append(emb[:n].cpu().numpy())
+            with annotate("readback"):
+                preds.append(pred[:n].cpu().numpy())
+                log_stds.append(log_std[:n].cpu().numpy())
+                if return_embeddings:
+                    embs.append(emb[:n].cpu().numpy())
         cat = (lambda xs: np.concatenate(xs) if xs
                else np.zeros((0,), np.float32))
         if return_embeddings:

@@ -39,6 +39,7 @@ import time
 import torch
 
 from ..data.batching import CrystalBatch
+from ..utils.profiling import annotate
 
 
 def signature(batch: CrystalBatch) -> tuple:
@@ -96,9 +97,11 @@ class StepGraphs:
         key = (signature(batch), phase)
         g = self.graphs.get(key)
         if g is None:
-            return self._first_step(key, batch, step_fn, advance)
+            with annotate("capture"):
+                return self._first_step(key, batch, step_fn, advance)
         g.static.copy_(batch)
-        g.graph.replay()
+        with annotate("replay"):
+            g.graph.replay()
         advance()
         return {k: v.clone() for k, v in g.metrics.items()}
 

@@ -60,7 +60,7 @@ host thread while the card works.
 ``torch.profiler`` trace under ``<run>/profile`` (``utils.profiling.trace``;
 one file a rank, named by it), on every path: eager, replayed, grouped,
 streaming and on a mesh. Each training step is an ``annotate`` span
-``train_step`` in it.
+``cgat.train_step`` in it (``utils/profiling.py`` lists the others).
 """
 from __future__ import annotations
 

@@ -44,6 +44,7 @@ from ..data.dataset import GraphLoader, load_dataset_dir, split_dataset
 from ..device import resolve_device
 from ..training.dispatch import StepGraphs
 from ..training.optim import Adam
+from ..utils.profiling import annotated
 
 
 def softplus(x):
@@ -212,6 +213,7 @@ class GPFit:
         self.opt.apply()
         return {"loss": loss.detach()}
 
+    @annotated("gp_step")
     def step(self, batch) -> torch.Tensor:
         if self.graphs is None:
             return self._step_on_device(batch)["loss"]

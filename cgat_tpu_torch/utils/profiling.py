@@ -2,12 +2,37 @@
 
 ``trace`` records a Chrome/TensorBoard trace of a scope with
 ``torch.profiler`` (the trainer wraps ``TrainerConfig.profile_epoch``'s
-epoch in it), ``annotate`` names a span in it, ``device_ms`` profiles a
-function's runs and sums the card's time by kernel name (what
-``chip_smoke.py``, ``utils/roofline.py`` and ``tools/step_trace.py`` read
-device time from), ``trace_kernels`` sums a written trace's device
-kernels the same way, and ``ThroughputMeter`` is the step-throughput meter
-the trainer logs each epoch.
+epoch in it), ``annotate`` names a span in it (``annotated``: around each
+call of a function), ``device_ms`` profiles a function's runs and sums
+the card's time by kernel name (what ``chip_smoke.py``,
+``utils/roofline.py`` and ``tools/step_trace.py`` read device time
+from), ``trace_kernels`` sums a written trace's device kernels the same
+way, and ``ThroughputMeter`` is the step-throughput meter the trainer
+logs each epoch.
+
+The port's spans, each ``cgat.<name>`` in a trace, one a step, request,
+batch or copy (never one a crystal, field or kernel); a leaf inside an
+entry on the same thread belongs to that step or request:
+
+* entries: ``train_step`` (``Trainer.train_step``), ``gp_step``
+  (``GPFit.step``), ``predict`` (``ServingModel.predict``);
+* leaves: ``prefetch_wait`` (``PrefetchLoader``'s consumer blocked on its
+  queue), ``collate`` (``data.batching.collate``), ``h2d``
+  (``CrystalBatch.to`` and ``.copy_`` from the host to a card),
+  ``replay`` (a CUDA graph's ``replay()`` in ``StepGraphs`` and
+  ``ServingGraphs``), ``capture`` (a new key's eager first step or
+  forward and its capture), ``readback`` (a served chunk's answers read
+  to the host, waiting for its replay).
+
+The profiler records a span only on a thread it traces: on the thread
+that started it, not on ``PrefetchLoader``'s, whose collates it does not
+see. Where no profiler traces the calling thread, ``annotate`` checks
+that once and returns a shared empty context (tracing off). A span that
+a profiler records is also kept, with its thread and its ends on the Unix
+clock, in a bounded record that ``recorded_spans`` returns: for a reader
+that has a profile's events without the program's spans. The profiler
+stamps its host events on the same clock, relative to its start, so one
+offset maps the record onto a profile's times.
 
 The profiler can drop the first device records of a profile: the first 5
 to 7 kernels of an eager forward (``python3 chip_variants.py
@@ -20,16 +45,27 @@ out, and runs ``fn`` ``PROFILE_PAD_S`` inside the window at each end;
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import json
 import os
+import threading
 import time
+from collections import deque
 
 import torch
 
 PROFILE_PAD_S = 0.005          # host pause at each end of a profiled window
 PRIMER_LAUNCHES = 64           # empty kernels that open a device_ms window
 PRIMER_KERNEL = "spin_kernel"  # their name (``torch.cuda._sleep``)
+SPAN_NAMESPACE = "cgat."       # what ``annotate`` puts before a span's name
+_NO_SPAN = contextlib.nullcontext()
+# whether a profiler records the calling thread (bound once: the off path
+# of ``annotate`` is this one call)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+RECORDED_SPANS = 1 << 16       # the record's bound: the newest spans kept
+# (thread, name, start_ns, end_ns) of each span a profiler recorded
+_RECORD: deque = deque(maxlen=RECORDED_SPANS)
 
 
 def _profile(**kwargs):
@@ -75,8 +111,53 @@ def trace(log_dir: str | None):
 
 
 def annotate(name: str):
-    """A named span in the trace of an enclosing :func:`trace`."""
-    return torch.profiler.record_function(name)
+    """The span ``cgat.<name>`` in the trace of an enclosing profiler
+    (:func:`trace`, or any ``torch.profiler.profile``) that records this
+    thread; where none does, a shared empty context, and no
+    ``record_function`` is made (the off path: one check)."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _Span(name)
+
+
+class _Span:
+    """An on span: the profiler's ``record_function`` range, inside the
+    Unix-clock ends that it adds to the record when it closes."""
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.time_ns()
+        self.rf = torch.profiler.record_function(SPAN_NAMESPACE + self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        _RECORD.append((threading.get_ident(), self.name, self.t0,
+                        time.time_ns()))
+        return False
+
+
+def recorded_spans() -> list[tuple[int, str, int, int]]:
+    """The newest spans that a profiler recorded (at most
+    ``RECORDED_SPANS``), oldest closed first: (``threading.get_ident()``
+    of the thread, name without the namespace, start ns, end ns), on the
+    Unix clock, each enclosing its event in the profile."""
+    return list(_RECORD)
+
+
+def annotated(name: str):
+    """Decorator: each call of the function inside ``annotate(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def trace_files(log_dir: str) -> list[str]:
@@ -86,7 +167,8 @@ def trace_files(log_dir: str) -> list[str]:
 
 def trace_kernels(path: str) -> dict[str, list[float]]:
     """Device time (ms) and count of each kernel name in a written trace,
-    and of each ``annotate`` span under ``span:<name>`` (its host time)."""
+    and of each ``annotate`` span under ``span:<name>``, without its
+    namespace (its host time)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     out: dict[str, list[float]] = {}
@@ -95,7 +177,7 @@ def trace_kernels(path: str) -> dict[str, list[float]]:
         if cat == "kernel":
             name = e["name"]
         elif cat == "user_annotation":
-            name = f"span:{e['name']}"
+            name = f"span:{e['name'].removeprefix(SPAN_NAMESPACE)}"
         else:
             continue
         ms, count = out.get(name, (0.0, 0))

@@ -1,9 +1,14 @@
 """The port's tracing and rooflines (``cgat_tpu_torch/utils/profiling.py``,
 ``utils/roofline.py``, ``tools/step_trace.py``) on the CPU.
 
-``trace`` writes a trace that loads and holds an ``annotate`` span, and
-nothing without a directory; ``Trainer.fit`` traces ``profile_epoch``'s
-epoch only, one ``train_step`` span a step, eager and grouped. The work
+``trace`` writes a trace that loads and holds an ``annotate`` span (as
+``cgat.<name>``, keyed without the namespace), and nothing without a
+directory; ``Trainer.fit`` traces ``profile_epoch``'s epoch only, one
+``train_step`` span a step, eager and grouped. A served request, a GP step
+and a prefetched loader record their spans on the calling thread, in the
+profile and in the program's record (its Unix-clock ends around the
+profile's), and with no profiler none of them makes a
+``record_function`` or adds to the record. The work
 functions at the main path's shapes give PERF.md §6's bound column, and
 the MH kernels' operations are cgat_tpu's ``mh_*_accounting`` MXU FLOPs.
 The step trace's categoriser sorts a fixed list of H100 kernel names; the
@@ -11,18 +16,25 @@ measurements raise without a card.
 """
 import json
 import os
+import threading
 
+import numpy as np
 import pytest
 import torch
 
 from cgat_tpu.utils import roofline as jroofline
+from cgat_tpu_torch.data.dataset import GraphLoader
+from cgat_tpu_torch.data.prefetch import PrefetchLoader
 from cgat_tpu_torch.data.synthetic import random_graphs
-from cgat_tpu_torch.models import CGATConfig
+from cgat_tpu_torch.models import CGATConfig, CGAtNet
+from cgat_tpu_torch.models.init import init_state_dict
+from cgat_tpu_torch.serving import ServingModel
 from cgat_tpu_torch.tools import step_trace
 from cgat_tpu_torch.training import Trainer, TrainerConfig
+from cgat_tpu_torch.uncertainty import gp
 from cgat_tpu_torch.utils import roofline
-from cgat_tpu_torch.utils.profiling import (annotate, trace, trace_files,
-                                            trace_kernels)
+from cgat_tpu_torch.utils.profiling import (annotate, recorded_spans, trace,
+                                            trace_files, trace_kernels)
 
 TINY = dict(orig_elem_fea_len=16, elem_fea_len=16, n_graph=2,
             nbr_embedding_size=8, neighbor_number=6, msg_heads=2,
@@ -50,6 +62,8 @@ def test_trace_holds_an_annotate_span(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert [e["name"] for e in events
+            if e.get("cat") == "user_annotation"] == ["cgat.my_span"]
     assert trace_kernels(path)["span:my_span"][1] == 1
 
 
@@ -77,6 +91,104 @@ def test_fit_traces_its_profile_epoch_only(tmp_path, k):
     steps = len(t.train_graphs) // 4 // k * k
     assert t.step == 2 * steps
     assert trace_kernels(path)["span:train_step"][1] == steps
+
+
+def _serve():
+    """A CPU server (a tiny model, signatures of 6 graph slots) answering
+    one request of 10 crystals: two chunks."""
+    cfg = CGATConfig(**TINY)
+    model = CGAtNet(cfg)
+    model.load_state_dict(init_state_dict(model, seed=0), strict=True)
+    sigs = [{"key": f"c6_n{n}", "num_graphs": 6, "num_node_slots": n,
+             "num_edge_slots": n * 6, "num_comp_slots": 8} for n in (64,)]
+    server = ServingModel({"mean": 0.5, "std": 2.0, "signatures": sigs,
+                           "collate": {"max_nbr": 6, "orig_fea": 16}}, model)
+    server.predict(random_graphs(5, 10, **GRAPHS), return_embeddings=True)
+
+
+def _gp_step():
+    """One eager GP step on fixed embeddings."""
+    rng = np.random.default_rng(0)
+    cfg = gp.GPConfig()
+    x = torch.as_tensor(rng.normal(size=(8, 4)), dtype=torch.float32)
+    fit = gp.GPFit(gp.init_gp(x[:3].numpy(), cfg), cfg, 1e-2,
+                   lambda p, b: gp.elbo(p, b.x, b.y, 8, cfg),
+                   torch.device("cpu"))
+    fit.step(gp._Rows(x, torch.zeros(8)))
+
+
+def _prefetch():
+    """Three batches through a ``PrefetchLoader``, collated on its
+    thread."""
+    loader = GraphLoader(random_graphs(6, 12, **GRAPHS), 4, max_nbr=6,
+                         node_bucket=8)
+    assert len(list(PrefetchLoader(loader))) == 3
+
+
+# each call, and the program's spans it records in start order: a request
+# holds each chunk's collate and readback; the prefetch thread's collates
+# are not recorded, the consumer's three waits and its wait for the end
+# are
+SPANS = {"predict": (_serve, ["predict", "collate", "readback", "collate",
+                              "readback"]),
+         "gp_step": (_gp_step, ["gp_step"]),
+         "prefetch_wait": (_prefetch, ["prefetch_wait"] * 4)}
+
+
+@pytest.mark.parametrize("entry", sorted(SPANS))
+def test_calls_record_their_spans_on_the_calling_thread(entry):
+    from torch.profiler import ProfilerActivity, profile
+
+    call, want = SPANS[entry]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("caller"):
+            call()
+    spans = sorted(((e.name, e.thread, e.time_range.start,
+                     e.time_range.end) for e in prof.events()
+                    if e.is_user_annotation), key=lambda x: x[2])
+    caller = spans[0]
+    assert caller[0] == "caller"
+    got = spans[1:]
+    assert [n for n, _, _, _ in got] == ["cgat." + n for n in want]
+    assert all(t == caller[1] for _, t, _, _ in got)
+    if entry != "prefetch_wait":
+        _, _, lo, hi = got[0]
+        assert all(lo <= s <= e <= hi for _, _, s, e in got[1:])
+
+
+@pytest.mark.parametrize("entry", sorted(SPANS))
+def test_the_record_encloses_the_profiles_spans(entry):
+    """``recorded_spans`` holds each span the profile holds, on the calling
+    thread, its Unix-clock ends around the profiler's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call, want = SPANS[entry]
+    before = len(recorded_spans())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    got = sorted(recorded_spans()[before:], key=lambda r: r[2])
+    assert [n for _, n, _, _ in got] == want
+    assert {t for t, _, _, _ in got} == {threading.get_ident()}
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    seen = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.is_user_annotation)
+    for (_, _, s, e), (ps, pe) in zip(got, seen):
+        # microseconds from the trace's start; the clocks agree to ~1 us
+        assert s <= start_ns + ps * 1e3 + 2e3
+        assert start_ns + pe * 1e3 <= e + 2e3
+
+
+@pytest.mark.parametrize("entry", sorted(SPANS))
+def test_without_a_profiler_no_record_function_is_made(monkeypatch, entry):
+    def made(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", made)
+    before = recorded_spans()
+    SPANS[entry][0]()
+    with annotate("train_step"):
+        pass
+    assert recorded_spans() == before
 
 
 def test_bounds_reproduce_the_table():
