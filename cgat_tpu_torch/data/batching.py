@@ -1,8 +1,8 @@
 """Static-shape batched crystal graphs as torch tensors (single shard).
 
-Counterpart of ``cgat_tpu/data/batching.py``. The host-side layout is the
-same numpy code, so a batch collated here equals the JAX package's batch
-field for field:
+Counterpart of ``cgat_tpu/data/batching.py``: the same host-side layout,
+computed by the native core ``native/collate.cc``, so a batch collated here
+equals the JAX package's batch field for field:
 
 * nodes and edges of all crystals are concatenated with index offsetting;
 * edges are sorted by destination node, so every node's in-edges form one
@@ -28,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.profiling import annotate, annotated
 
 
@@ -357,17 +358,23 @@ def collate(graphs: Sequence[CrystalGraph],
             halo_slots: int | None = None) -> CrystalBatch:
     """Build a static-shape :class:`CrystalBatch` (CPU tensors) from host
     graphs: index offsetting as the reference collate does, then a stable
-    sort of the edges by destination and False-suffix padding.
+    sort of the edges by destination and False-suffix padding. The native
+    core (``native/collate.cc``) reads each crystal's arrays where they lie,
+    sorts its edges by counting and writes every field once; a crystal
+    whose edges leave its own atoms raises ``ValueError``.
 
     ``edge_shards`` S > 1 gives a :class:`HaloBatch` instead: N a multiple
     of S, and per node slice a local block of ``edge_slots_per_shard`` and
     a halo block of ``halo_edge_slots`` edge slots with ``halo_slots``
     boundary rows a shard pair (each picked from the batch when None)."""
-    C = num_graphs if num_graphs is not None else len(graphs)
-    if len(graphs) > C:
-        raise ValueError(f"{len(graphs)} graphs > {C} graph slots")
-    n_real_nodes = sum(g.n_atoms for g in graphs)
-    n_real_edges = sum(len(g.edge_src) for g in graphs)
+    graphs = graphs if isinstance(graphs, list) else list(graphs)
+    G = len(graphs)
+    C = num_graphs if num_graphs is not None else G
+    if G > C:
+        raise ValueError(f"{G} graphs > {C} graph slots")
+    n_atoms, n_edges, n_comp = native.graph_counts(graphs)
+    n_real_nodes = int(n_atoms.sum())
+    n_real_edges = int(n_edges.sum())
     N = num_node_slots if num_node_slots is not None else pad_to_bucket(
         n_real_nodes, node_bucket * edge_shards)
     if n_real_nodes > N:
@@ -385,83 +392,25 @@ def collate(graphs: Sequence[CrystalGraph],
         E = min(N * max_nbr, pad_to_bucket(n_real_edges, 8 * max_nbr))
     if n_real_edges > E:
         raise ValueError(f"{n_real_edges} edges > {E} edge slots")
-    R = num_comp_slots if num_comp_slots is not None else max(
-        (g.comp_fea.shape[0] for g in graphs), default=1)
+    r_max = int(n_comp.max()) if G else 1
+    R = num_comp_slots if num_comp_slots is not None else r_max
     F = orig_fea if orig_fea is not None else (
         graphs[0].atom_fea.shape[1] if graphs else 200)
+    if r_max > R:
+        raise ValueError(f"crystal has {r_max} distinct elements > {R} slots")
 
-    nodes = np.zeros((N, F), np.float32)
-    node_mask = np.zeros((N,), bool)
-    node2graph = np.full((N,), C - 1, np.int32)
-    src_l, dst_l, shell_l = [], [], []
-    comp_fea = np.zeros((C, R, F), np.float32)
-    comp_weight = np.zeros((C, R), np.float32)
-    comp_mask = np.zeros((C, R), bool)
-    target = np.zeros((C,), np.float32)
-    graph_mask = np.zeros((C,), bool)
-
-    base = 0
-    for gi, g in enumerate(graphs):
-        n = g.n_atoms
-        nodes[base:base + n] = g.atom_fea
-        node_mask[base:base + n] = True
-        node2graph[base:base + n] = gi
-        src_l.append(g.edge_src.astype(np.int64) + base)
-        dst_l.append(g.edge_dst.astype(np.int64) + base)
-        shell_l.append(g.edge_shell)
-        r = g.comp_fea.shape[0]
-        if r > R:
-            raise ValueError(f"crystal has {r} distinct elements > {R} slots")
-        comp_fea[gi, :r] = g.comp_fea
-        comp_weight[gi, :r] = g.comp_weight
-        comp_mask[gi, :r] = True
-        target[gi] = g.target
-        graph_mask[gi] = True
-        base += n
-
-    if src_l:
-        src = np.concatenate(src_l)
-        dst = np.concatenate(dst_l)
-        shell = np.concatenate(shell_l).astype(np.int64)
-        order = np.argsort(dst, kind="stable")
-        src, dst, shell = src[order], dst[order], shell[order]
-    else:
-        src = dst = shell = np.zeros((0,), np.int64)
+    # edge-sharded batches take the dst-sorted real edges, unpadded
+    fields = native.collate_native(
+        graphs, N=N, E=n_real_edges if edge_shards > 1 else E, C=C, R=R,
+        F=F, margin=OFFN_MARGIN)
 
     t = torch.from_numpy
-    common = dict(nodes=t(nodes), node_mask=t(node_mask),
-                  node2graph=t(node2graph), comp_fea=t(comp_fea),
-                  comp_weight=t(comp_weight), comp_mask=t(comp_mask),
-                  target=t(target), graph_mask=t(graph_mask))
-    if edge_shards > 1:
-        fields = _sharded_edges(src, dst, shell, N, edge_shards, max_nbr,
-                                edge_slots_per_shard, halo_edge_slots,
-                                halo_slots)
-        return HaloBatch(**common, node2graph_offn=None,
-                         **{k: t(np.ascontiguousarray(v))
-                            for k, v in fields.items()})
-
-    e = len(src)
-    edge_src = np.full((E,), N - 1, np.int32)
-    edge_dst = np.full((E,), N - 1, np.int32)
-    edge_shell = np.zeros((E,), np.int32)
-    edge_mask = np.zeros((E,), bool)
-    edge_src[:e] = src
-    edge_dst[:e] = dst
-    edge_shell[:e] = shell
-    edge_mask[:e] = True
-
-    src_perm = np.argsort(edge_src, kind="stable").astype(np.int32)
-    src_sorted = edge_src[src_perm]
-    return CrystalBatch(
-        **common,
-        edge_src=t(edge_src),
-        edge_dst=t(edge_dst),
-        edge_shell=t(edge_shell),
-        edge_mask=t(edge_mask),
-        edge_src_perm=t(src_perm),
-        edge_dst_offn=t(host_offsets(edge_dst, N + OFFN_MARGIN)),
-        edge_src_offn=t(host_offsets(src_sorted, N + OFFN_MARGIN)),
-        edge_src_sorted=t(np.ascontiguousarray(src_sorted)),
-        node2graph_offn=t(host_offsets(node2graph, C + OFFN_MARGIN)),
-    )
+    batch = {k: t(v) for k, v in fields.items()}
+    if edge_shards == 1:
+        return CrystalBatch(**batch)
+    out = _sharded_edges(fields["edge_src"], fields["edge_dst"],
+                         fields["edge_shell"], N, edge_shards, max_nbr,
+                         edge_slots_per_shard, halo_edge_slots, halo_slots)
+    batch.update(node2graph_offn=None,
+                 **{k: t(np.ascontiguousarray(v)) for k, v in out.items()})
+    return HaloBatch(**batch)

@@ -1,9 +1,10 @@
-"""Build the port's native C++ featurizer core with g++ and name it by hash.
+"""Build the port's native C++ core (the featurizer's periodic kNN and the
+collate) with g++ into one library named by hash.
 
-    g++ -O3 -march=native -shared -fPIC -std=c++17 \\
-        -o build/torch_native/libcgat_native-<hash>.so neighbors.cc
+    g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread \\
+        -o build/torch_native/libcgat_native-<hash>.so neighbors.cc collate.cc
 
-The hash covers the source, the flags and the host CPU's model and feature
+The hash covers the sources, the flags and the host CPU's model and feature
 flags: ``-march=native`` code runs only on a CPU like the one that built it,
 so a checkout copied to another machine builds its own library there rather
 than loading one that may hold instructions that CPU lacks. Nothing is built
@@ -17,10 +18,11 @@ import os
 import subprocess
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent / "neighbors.cc"
+HERE = Path(__file__).resolve().parent
+SRCS = (HERE / "neighbors.cc", HERE / "collate.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 CXX = "g++"
-FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def _cpu_identity() -> bytes:
@@ -34,9 +36,10 @@ def _cpu_identity() -> bytes:
 
 
 def library_path() -> Path:
-    """Where the library for the current source, flags and CPU lives."""
+    """Where the library for the current sources, flags and CPU lives."""
     h = hashlib.sha256(" ".join((CXX, *FLAGS)).encode())
-    h.update(SRC.read_bytes())
+    for src in SRCS:
+        h.update(src.read_bytes())
     h.update(_cpu_identity())
     return BUILD_DIR / f"libcgat_native-{h.hexdigest()[:16]}.so"
 
@@ -49,15 +52,15 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [CXX, *FLAGS, "-o", str(tmp), str(SRC)]
+    cmd = [CXX, *FLAGS, "-o", str(tmp), *map(str, SRCS)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError(f"native featurizer build failed: {e}") from e
+        raise RuntimeError(f"native build failed: {e}") from e
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"native featurizer build failed ({' '.join(cmd)}, exit "
+            f"native build failed ({' '.join(cmd)}, exit "
             f"{res.returncode}):\n{res.stderr}")
     os.replace(tmp, lib)    # atomic: concurrent builds see whole files
     return lib

@@ -16,6 +16,7 @@ from cgat_tpu.training import meters as jmeters
 from cgat_tpu.utils import profiling as jprofiling
 from cgat_tpu_torch import native
 from cgat_tpu_torch.data import dataset, embedding, featurizer, structures
+from cgat_tpu_torch.data.batching import collate
 from cgat_tpu_torch.data.synthetic import random_graphs
 from cgat_tpu_torch.native import build as native_build
 from cgat_tpu_torch.training import meters
@@ -126,11 +127,14 @@ def test_native_equals_numpy_on_prototypes():
 @pytest.mark.parametrize("fault", ["source", "compiler"])
 def test_failed_native_build_raises(fault, tmp_path, monkeypatch):
     """A build that fails raises with the compiler's message, and the
-    default neighbor search raises with it rather than dropping to numpy."""
+    default neighbor search and the collate raise with it rather than
+    dropping to numpy. The library holds both sources: a fault in either
+    fails it."""
     if fault == "source":
-        bad = tmp_path / "neighbors.cc"
-        bad.write_text("extern \"C\" int cgat_periodic_knn( { }\n")
-        monkeypatch.setattr(native_build, "SRC", bad)
+        bad = tmp_path / "collate.cc"
+        bad.write_text("extern \"C\" int cgat_collate( { }\n")
+        monkeypatch.setattr(native_build, "SRCS",
+                            (native_build.SRCS[0], bad))
         match = "error"
     else:
         monkeypatch.setattr(native_build, "CXX", "no-such-c++-compiler")
@@ -140,8 +144,10 @@ def test_failed_native_build_raises(fault, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match=match):
         native_build.build()
     lattice, frac, _ = _CELLS["bcc_tie"]
-    with pytest.raises(RuntimeError, match="native featurizer build failed"):
+    with pytest.raises(RuntimeError, match="native build failed"):
         featurizer.periodic_neighbors(lattice, frac)
+    with pytest.raises(RuntimeError, match="native build failed"):
+        collate(random_graphs(0, 2, max_nbr=4, orig_fea=8), max_nbr=4)
     assert featurizer.periodic_neighbors(lattice, frac,
                                          use_native=False) is not None
     assert not list((tmp_path / "build").glob("*.so"))
