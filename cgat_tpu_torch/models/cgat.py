@@ -58,17 +58,34 @@ from ..data.batching import OFFN_MARGIN, CrystalBatch, HaloBatch
 from ..ops.attention import (edge_softmax_aggregate,
                              edge_softmax_aggregate_pair)
 from ..ops.gather import GatherPlan, gather_rows
+from ..ops.kernels.build import launch_scope
 from ..ops.kernels.dropout import Dropout, site_key
 from ..ops.segment import (NEG_BIG, SOFTMAX_EPS, segment_max,
                            segment_softmax, segment_softmax_pair,
                            segment_sum, take_rows)
 from ..parallel.collectives import all_gather, all_reduce, all_to_all
+from ..utils import counters
+from ..utils.profiling import annotate
 from .blocks import (MultiHeadNetwork, ResidualNetwork, SimpleNetwork,
                      TorchLinear)
 from .hyper import HNet, HNet0, HyperLinear
 from .roost import Roost
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the live edge updates run so far: [layers, edge rows through them]
+_EDGE_UPDATES = counters.counter("edge_update", 2)
+
+
+def edge_update_stats() -> dict[str, int]:
+    """The live (``no_hyper=False``) edge updates this process has run, as
+    ``native.collate_stats`` counts collates: ``layers``, the
+    ``GATConvEdges`` forwards on the live path, and ``rows``, the edge
+    slots through them. Counted as the forward runs on the host (under
+    ``remat`` a layer's forward runs again in the backward and counts
+    twice); a replay of a ``training.dispatch.StepGraphs`` graph adds
+    what its capture counted (``utils.counters``)."""
+    return {"layers": _EDGE_UPDATES[0], "rows": _EDGE_UPDATES[1]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,7 +330,10 @@ class GATConvEdges(nn.Module):
     across heads (no segment softmax, no max subtracted, in the compute
     dtype, as in the JAX package), dropped under training dropout, and
     weights the messages; their head mean conditions HNet0 (first layer)
-    or HNet on the edge feature."""
+    or HNet on the edge feature. The live update runs inside the span
+    ``edge_update`` (``utils.profiling.annotate``) and the launch scope of
+    that name (``ops.kernels.build.launch_scope``), and counts itself in
+    :func:`edge_update_stats`."""
 
     def __init__(self, in_channels, out_channels, nbr_channels, heads,
                  vector_attention, first=False, no_hyper=True, dropout=0.0):
@@ -345,21 +365,25 @@ class GATConvEdges(nn.Module):
         block's [local nodes | received rows])."""
         if self.no_hyper:
             return self.Pooling_NN(edge_attr)
-        src_rows = (take_rows(x, edge_src, plans and plans[1])
-                    if src_table is None else src_table[edge_src.long()])
-        m_cat = torch.cat([src_rows, edge_attr,
-                           take_rows(x, edge_dst, plans and plans[0])],
-                          dim=-1)
-        alpha = torch.exp(self.MH_A(m_cat))
-        alpha = alpha / alpha.sum(dim=1, keepdim=True)      # across heads
-        if dropout_key is not None:
-            alpha = dropout(alpha, self.dropout, dropout_key)
-        m = self.MH_M(m_cat)
-        aggr = (m.reshape(-1, self.heads, self.out_channels)
-                * alpha).mean(dim=1)
-        if self.first:
-            return self.Pooling_NN(edge_attr, aggr)
-        return self.Pooling_NN(edge_attr_0, edge_attr, aggr)
+        with annotate("edge_update"), launch_scope("edge_update"):
+            _EDGE_UPDATES[0] += 1
+            _EDGE_UPDATES[1] += edge_attr.shape[0]
+            src_rows = (take_rows(x, edge_src, plans and plans[1])
+                        if src_table is None
+                        else src_table[edge_src.long()])
+            m_cat = torch.cat([src_rows, edge_attr,
+                               take_rows(x, edge_dst, plans and plans[0])],
+                              dim=-1)
+            alpha = torch.exp(self.MH_A(m_cat))
+            alpha = alpha / alpha.sum(dim=1, keepdim=True)  # across heads
+            if dropout_key is not None:
+                alpha = dropout(alpha, self.dropout, dropout_key)
+            m = self.MH_M(m_cat)
+            aggr = (m.reshape(-1, self.heads, self.out_channels)
+                    * alpha).mean(dim=1)
+            if self.first:
+                return self.Pooling_NN(edge_attr, aggr)
+            return self.Pooling_NN(edge_attr_0, edge_attr, aggr)
 
 
 class GraphLayer(nn.Module):

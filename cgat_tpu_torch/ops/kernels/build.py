@@ -13,9 +13,20 @@ one ``nvcc`` per source, all at once, and keeps each compiler log (with
 ptxas' register and spill report) beside its library. Nothing is built or
 loaded when this module is imported. ``run`` makes each launch on its
 tensors' device.
+
+The launch record, for readers of a profile that must tell one kernel's
+launches apart by what they ran on (the benchmark tells a hypernetwork's
+edge-row launches from its node-row ones by their order in a replayed
+step): ``record_launches(True)`` switches it on; a ``recording(list)``
+scope then collects (C entry, rows, scope) of each launch, the scope the
+innermost open ``launch_scope(name)`` (a ``GATConvEdges`` live update
+opens ``"edge_update"``). ``training.dispatch.StepGraphs`` opens one
+around each capture while the record is on and keeps it by the graph's
+key. Off, ``run`` and ``launch_scope`` each cost one check.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -36,6 +47,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+# the launch record: while a list is open (``recording``), each launch
+# adds (C entry, rows, the innermost launch scope's name or None) to it
+_record: list | None = None
+_scopes: list[str] = []
+_recording_on = False
+_NO_SCOPE = contextlib.nullcontext()
 
 
 def _nvcc() -> str:
@@ -135,13 +153,17 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def run(fn, device, *args) -> int:
+def run(fn, device, *args, rows: int | None = None) -> int:
     """Call the C entry ``fn(*args, stream)`` on ``device``'s current
     stream with ``device`` the current CUDA device, as the kernel's launch
     and its per-device settings need, and return its code. The device is
     switched only when it is not the current one, and switched back after;
     on one card this costs one ``current_device`` call and nothing else.
-    A device without an index (no card named) is left as it is."""
+    A device without an index (no card named) is left as it is. ``rows``:
+    the rows the launch runs on, for the launch record (:func:`recording`;
+    while none is open, one check)."""
+    if _record is not None:
+        _record.append((fn.__name__, rows, _scopes[-1] if _scopes else None))
     index = device.index
     current = None if index is None else torch.cuda.current_device()
     if current == index:
@@ -159,3 +181,42 @@ def check(name: str, code: int) -> None:
         msg = load(name).cgat_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{code} ({msg})")
+
+
+def record_launches(on: bool = True) -> None:
+    """Switch the launch record on or off: while it is on, a
+    ``StepGraphs`` keeps the launches of each capture."""
+    global _recording_on
+    _recording_on = bool(on)
+
+
+def recording_launches() -> bool:
+    """Whether the launch record is switched on."""
+    return _recording_on
+
+
+@contextlib.contextmanager
+def recording(out: list):
+    """Append each launch of the scope to ``out`` as (C entry, rows,
+    launch scope or None)."""
+    global _record
+    outer, _record = _record, out
+    try:
+        yield out
+    finally:
+        _record = outer
+
+
+def launch_scope(name: str):
+    """A scope whose launches the open record marks with ``name``; a
+    shared empty context where none is open (one check)."""
+    return _NO_SCOPE if _record is None else _scope(name)
+
+
+@contextlib.contextmanager
+def _scope(name: str):
+    _scopes.append(name)
+    try:
+        yield
+    finally:
+        _scopes.pop()

@@ -131,7 +131,7 @@ def hyper_apply(hidden, k, bias, x, out_ch):
     code = build.run(_entry("cgat_hyper_apply_fwd", 5, 6, 0), dev,
                      hidden.data_ptr(), k.data_ptr(), bias.data_ptr(),
                      x.data_ptr(), out.data_ptr(), n, c_dim, in_ch, out_ch,
-                     groups, per)
+                     groups, per, rows=n)
     build.check("hyper_apply", code)
     hyper_apply.launches += 1
     return out
@@ -196,7 +196,8 @@ def hyper_apply_bwd_dhdx(hidden, k, bias, x, g, out_ch):
                      hidden.data_ptr(), k.data_ptr(), bias.data_ptr(),
                      x.data_ptr(), g.data_ptr(), n, c_dim, in_ch, out_ch,
                      groups, per, part_dx.data_ptr(),
-                     part_dh.data_ptr(), dh.data_ptr(), dx.data_ptr())
+                     part_dh.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+                     rows=n)
     build.check("hyper_apply", code)
     hyper_apply_bwd_dhdx.launches += 1
     return dh, dx
@@ -226,7 +227,7 @@ def hyper_apply_bwd_dk(hidden, x, g, out_ch):
     code = build.run(_entry("cgat_hyper_apply_bwd_dk", 3, 4, 2),
                      hidden.device, hidden.data_ptr(), x.data_ptr(),
                      g.data_ptr(), n, c_dim, in_ch, out_ch, dk.data_ptr(),
-                     db.data_ptr())
+                     db.data_ptr(), rows=n)
     build.check("hyper_apply", code)
     hyper_apply_bwd_dk.launches += 1
     return dk, db

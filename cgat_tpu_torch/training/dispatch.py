@@ -30,15 +30,25 @@ boundary exchange and the pool's) are captured with it; the key's eager
 first step has initialised the communicators. Every rank of a group
 collates to the same shapes, so all ranks capture and replay the same keys
 in step. A gloo world is never captured (``Trainer.train_step``).
+
+A replay runs no Python, so what the forward counts on the host in a
+``utils.counters`` counter is counted at the capture, taken back there
+(the capture computes nothing) and added on each replay of the graph,
+only for a graph whose capture counted something. While the launch
+record is on (``ops.kernels.build.record_launches``) each capture's
+launches are kept in ``launches`` by the graph's key.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
 import torch
 
 from ..data.batching import CrystalBatch
+from ..ops.kernels import build
+from ..utils import counters
 from ..utils.profiling import annotate
 
 
@@ -55,6 +65,9 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     static: CrystalBatch      # inputs, copied in before each replay
     metrics: dict             # outputs, cloned out after each replay
+    # what its capture counted on the host (``utils.counters``), added on
+    # each replay; None where it counted nothing
+    counted: dict | None = None
 
 
 # the side stream of each card, shared by every StepGraphs on it: cuBLAS
@@ -77,15 +90,17 @@ def side_stream(device) -> torch.cuda.Stream:
 class StepGraphs:
     """The CUDA graphs of a training step on ``device``, by key (batch
     signature, optimizer phase); ``capture_s`` holds each key's capture
-    seconds. It keeps no reference to the trainer (whose work comes with
-    each call), so a trainer that is dropped frees its graphs' memory at
-    once; the eager first steps run on the card's one side stream
-    (:func:`side_stream`)."""
+    seconds and, while the launch record is on, ``launches`` each key's
+    captured launches. It keeps no reference to the trainer (whose work
+    comes with each call), so a trainer that is dropped frees its graphs'
+    memory at once; the eager first steps run on the card's one side
+    stream (:func:`side_stream`)."""
 
     def __init__(self, device):
         self.device = device
         self.graphs: dict[tuple, _Graph] = {}
         self.capture_s: dict[tuple, float] = {}
+        self.launches: dict[tuple, list] = {}
         self.pool = torch.cuda.graph_pool_handle()
         self.side = side_stream(device)
 
@@ -102,6 +117,8 @@ class StepGraphs:
         g.static.copy_(batch)
         with annotate("replay"):
             g.graph.replay()
+        if g.counted:
+            counters.add(g.counted)
         advance()
         return {k: v.clone() for k, v in g.metrics.items()}
 
@@ -115,9 +132,13 @@ class StepGraphs:
         current.wait_stream(self.side)
         static = batch.map(torch.clone)
         graph = torch.cuda.CUDAGraph()
+        launches = [] if build.recording_launches() else None
+        before = counters.snapshot()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with (build.recording(launches) if launches is not None
+                  else contextlib.nullcontext()), \
+                    torch.cuda.graph(graph, pool=self.pool):
                 out = step_fn(static)
         except RuntimeError as e:
             raise RuntimeError(
@@ -125,6 +146,10 @@ class StepGraphs:
                 f"shapes {key[0][:2]}, optimizer phase {key[1]}); the card "
                 f"does not fall back to eager steps") from e
         self.capture_s[key] = time.perf_counter() - t0
-        self.graphs[key] = _Graph(graph, static, out)
+        counted = counters.since(before)
+        counters.add(counted, -1)
+        self.graphs[key] = _Graph(graph, static, out, counted or None)
+        if launches is not None:
+            self.launches[key] = launches
         advance()
         return metrics

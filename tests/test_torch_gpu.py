@@ -680,6 +680,54 @@ def test_hyper_edge_train_step_launch_counts(dev):
                                atol=5e-2)
 
 
+def test_replayed_hyper_edge_steps_count_their_edge_updates(dev):
+    """The replay half of the live edge update's counter and the launch
+    record: a replayed step of the 2-layer hyper-edge model counts its one
+    live edge layer on the batch's edge slots (the capture counts none),
+    the capture keeps its launches by key while the record is on, with the
+    4 edge-row #5 launches in the ``edge_update`` scope and 4 #6 and 4 #7
+    on the same rows; the default model's graphs count nothing."""
+    from cgat_tpu_torch.models.cgat import edge_update_stats
+    from cgat_tpu_torch.ops.kernels import build
+
+    graphs = random_graphs(2, 30, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    cfg = TrainerConfig(batch_size=6, node_bucket=16, max_nbr=16,
+                        moment_dtype="bfloat16")
+    build.record_launches(True)
+    try:
+        for no_hyper in (False, True):
+            mcfg = CGATConfig(**SMALL, compute_dtype="bfloat16",
+                              no_hyper=no_hyper)
+            t = Trainer(cfg, mcfg, graphs, device=dev)
+            t.init_state(init_state_dict(t.init_state(), seed=0))
+            batch = next(iter(t.loader(t.train_graphs, shuffle=True)))
+            before = edge_update_stats()
+            for _ in range(3):
+                t.train_step(batch)
+            torch.cuda.synchronize()
+            after = edge_update_stats()
+            live = 0 if no_hyper else mcfg.n_graph - 1
+            E = batch.num_edge_slots
+            assert after["layers"] - before["layers"] == 3 * live
+            assert after["rows"] - before["rows"] == 3 * live * E
+            (key, g), = t.step_graphs.graphs.items()
+            assert g.counted == (None if no_hyper
+                                 else {"edge_update": (live, live * E)})
+            launches = t.step_graphs.launches[key]
+            hyper = [(k, rows, scope) for k, rows, scope in launches
+                     if k.startswith("cgat_hyper_apply")]
+            edge = [h for h in hyper if h[1] == E]
+            assert [h for h in hyper if h[2] == "edge_update"] == \
+                [("cgat_hyper_apply_fwd", E, "edge_update")] * 4 * live
+            assert sorted(k for k, _, _ in edge) == sorted(
+                ["cgat_hyper_apply_fwd", "cgat_hyper_apply_bwd_dhdx",
+                 "cgat_hyper_apply_bwd_dk"] * 4 * live)
+            assert len(hyper) == 12 * mcfg.n_graph + len(edge)
+    finally:
+        build.record_launches(False)
+
+
 def _dispatch_pair(dev, tkw, mkw):
     """An eager and a graph trainer (``steps_per_dispatch`` 2 unless
     ``tkw`` says otherwise) of the bf16 2-layer model from one state, and
