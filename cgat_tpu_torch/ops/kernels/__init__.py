@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels of the port (sources in ``cgat_tpu_torch/csrc``),
 each module holding its kernels' wrappers, their launch counts, their plain
 PyTorch versions and the autograd Function that joins a forward kernel to
-its backward. Importing builds nothing."""
-from . import dropout, hyper_apply, mh_network, segment_attention, segment_sum
+its backward; ``adamw`` holds the optimizer's fused update, which counts
+its launches in a ``utils.counters`` counter that CUDA graph replays keep
+(``adamw.stats``), so it is not among ``KERNEL_WRAPPERS``, whose counts
+are of eager calls alone. Importing builds nothing."""
+from . import (adamw, dropout, hyper_apply, mh_network, segment_attention,
+               segment_sum)
 
 # the launch wrappers, the TPU kernels' forwards first, then their
 # backwards, then the port's own dropout; each with its ``launches`` count
@@ -14,5 +18,5 @@ KERNEL_WRAPPERS = (segment_attention.segment_attention,
                    hyper_apply.hyper_apply_bwd_dk, segment_sum.segment_sum,
                    dropout.dropout, dropout.dropout_bwd)
 
-__all__ = ["KERNEL_WRAPPERS", "dropout", "hyper_apply", "mh_network",
+__all__ = ["KERNEL_WRAPPERS", "adamw", "dropout", "hyper_apply", "mh_network",
            "segment_attention", "segment_sum"]

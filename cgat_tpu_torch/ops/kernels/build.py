@@ -39,7 +39,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ("segment_attention", "mh_network", "hyper_apply", "segment_sum",
-           "dropout")
+           "dropout", "adamw")
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"

@@ -52,10 +52,24 @@ weight decay) stay Python scalars: a 0-dim f32 tensor multiplied into a
 bf16 first moment could round it first. ``step`` is ``apply`` (the work on
 the device) then ``advance`` (the host's bookkeeping: ``MultiSteps``'
 mini-step); ``phase`` is what the device work branches on, on the host.
+
+On the card AdamW's update is one hand-written pass
+(``ops/kernels/adamw.py``, ``csrc/adamw.cu``) that reads g, p, mu and nu
+once and writes p, mu and nu once, with the ``_foreach`` sequence's f32
+operations in its order, so the same bits; the ``_foreach`` sequence
+(``AdamW.update_plain``) is its plain version and the path of CPU
+tensors. :func:`fused_stats` counts the pass's launches and the elements
+they updated (a replayed CUDA graph counts what its capture launched).
+Adam, SGD and LAMB stay ``_foreach`` code on every device.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.kernels import adamw as fused_adamw
+
+# the fused AdamW pass's launches and the elements they updated so far
+fused_stats = fused_adamw.stats
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
@@ -205,15 +219,18 @@ class _AdamBase(_Optimizer):
                        for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
 
-    def _adam(self, grads):
-        """The Adam direction u for ``grads``, and mu's new f32 value (to
-        be stored once the update is formed). The bias corrections
-        ``1 - decay**count`` are f32 on the device, as optax computes
+    def _bias_corrections(self):
+        """The update count advanced, and the bias corrections
+        ``1 - decay**count`` for it, f32 on the device, as optax computes
         them."""
         self._count.add_(1)
         count = self._count.to(torch.float32)
-        bc1 = 1.0 - torch.pow(self.b1, count)
-        bc2 = 1.0 - torch.pow(self.b2, count)
+        return 1.0 - torch.pow(self.b1, count), 1.0 - torch.pow(self.b2, count)
+
+    def _adam(self, grads):
+        """The Adam direction u for ``grads``, and mu's new f32 value (to
+        be stored once the update is formed)."""
+        bc1, bc2 = self._bias_corrections()
         torch._foreach_mul_(self.mu, self.b1)
         mu = torch._foreach_mul(grads, 1 - self.b1)
         torch._foreach_add_(mu, self.mu)
@@ -239,12 +256,33 @@ class AdamW(_AdamBase):
 
     @torch.no_grad()
     def update(self, grads) -> None:
+        """The update for ``grads``: the fused pass for CUDA tensors, the
+        ``_foreach`` sequence for CPU ones."""
+        if self._count.device.type == "cpu":
+            self.update_plain(grads)
+        else:
+            self.update_fused(grads)
+
+    @torch.no_grad()
+    def update_plain(self, grads) -> None:
+        """The update as ``_foreach`` passes: the fused pass's plain
+        version."""
         update, mu = self._adam(grads)
         torch._foreach_add_(update,
                             torch._foreach_mul(self.params, self.weight_decay))
         torch._foreach_mul_(update, self._neg_lr)
         torch._foreach_add_(self.params, update)
         torch._foreach_copy_(self.mu, mu)
+
+    @torch.no_grad()
+    def update_fused(self, grads) -> None:
+        """The update as one pass of the CUDA kernel over the lists, or
+        an error for lists it does not take; counted by
+        :func:`fused_stats`."""
+        bc1, bc2 = self._bias_corrections()
+        fused_adamw.adamw(self.params, grads, self.mu, self.nu, bc1, bc2,
+                          self._neg_lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                          weight_decay=self.weight_decay)
 
 
 class Adam(_AdamBase):

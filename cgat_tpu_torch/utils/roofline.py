@@ -55,7 +55,8 @@ PEAKS = {"segment_attention": F32_FLOPS, "segment_attention_bwd": F32_FLOPS,
          "hyper_apply": BF16_TENSOR_FLOPS,
          "hyper_apply_bwd_dhdx": BF16_TENSOR_FLOPS,
          "hyper_apply_bwd_dk": BF16_TENSOR_FLOPS, "segment_sum": F32_FLOPS,
-         "dropout": F32_FLOPS, "pair": F32_FLOPS, "pair_bwd": F32_FLOPS}
+         "dropout": F32_FLOPS, "pair": F32_FLOPS, "pair_bwd": F32_FLOPS,
+         "adamw": F32_FLOPS}
 
 
 def bound(n_bytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -135,6 +136,13 @@ def dropout_work(n: int) -> tuple[float, float]:
     """The dropout kernel on ``n`` bf16 elements: x read, out written; a
     multiply an element (Philox's integer work not counted)."""
     return 2.0 * 2 * n, float(n)
+
+
+def adamw_work(elements: int, mu_bytes: int) -> tuple[float, float]:
+    """The fused AdamW pass over ``elements`` parameters with a first
+    moment of ``mu_bytes`` bytes an element: g, p and nu (f32) and mu read,
+    p, mu and nu written; 16 f32 operations an element."""
+    return float(elements) * (20 + 2 * mu_bytes), 16.0 * elements
 
 
 def pair_work(local_edges: int, halo_edges: int, hf: int,

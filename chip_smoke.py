@@ -102,9 +102,13 @@ failure exits non-zero:
    step: the replayed steps' losses equal eager steps' bit for bit on the
    same groups; the flat AdamW every run uses and AdamW on the parameters
    as they are give the same bits after one update from the same
-   gradients; a replayed step launches
+   gradients, and the fused AdamW pass the ``_foreach`` sequence's bits
+   over 20 updates at the step's gradients (mu bf16 and f32), its device
+   ms beside its bound; a replayed step launches
    exactly 10/6/20 forward and 10/6/20/20/11 backward kernels (device
-   events by kernel name, from the profiler: a replay calls no wrapper);
+   events by kernel name, from the profiler: a replay calls no wrapper)
+   and 1 to 3 fused AdamW launches over every parameter (the only
+   ``multi_tensor_apply`` events, ``training.optim.fused_stats``);
    eager and replayed step times, the card's busy time, idle share and
    device events a step, the optimizers' host ms and
    ``multi_tensor_apply`` launches, capture seconds and peak memory; the
@@ -276,6 +280,8 @@ ENSEMBLE_MEMORY_TOL = 4 << 20  # bytes member 2 may hold above member 1
 TRACE_BUCKET = 768             # phase 13's traced runs: one batch shape
 SHARE_LIMIT = 1.05             # a kernel's share of its roofline, at most
 STEP_TRACE_TOL = 0.05          # step_trace's total against phase 7's busy ms
+N_FUSED_CHECKED = 20           # updates the fused AdamW is held bit-equal over
+FUSED_ADAMW = "adamw_multi_tensor_apply_kernel"  # its device kernel's name
 # a substring of the name of the device kernel each wrapper launches (a
 # fixed number of times a call): phase 7 counts a replayed step's launches
 # by these names
@@ -380,13 +386,15 @@ REPLACES = {
     "segment_sum": "cgat_tpu/ops/pallas/segment_sum.py:38",
     # no TPU kernel: cgat_tpu drops with flax's nn.Dropout (XLA's RNG)
     "dropout": "none (cgat_tpu/models/cgat.py:253 nn.Dropout)",
+    # nor for the update: cgat_tpu leaves optax's AdamW to XLA
+    "adamw": "none (cgat_tpu/training/trainer.py:141 optax.adamw, XLA's)",
 }
 SOURCES = {"segment_attention": "segment_attention", "mh_network": "mh_network",
            "hyper_apply": "hyper_apply",
            "segment_attention_bwd": "segment_attention",
            "mh_network_bwd": "mh_network", "hyper_apply_bwd_dhdx": "hyper_apply",
            "hyper_apply_bwd_dk": "hyper_apply", "segment_sum": "segment_sum",
-           "dropout": "dropout"}
+           "dropout": "dropout", "adamw": "adamw"}
 
 
 def fail(msg: str) -> None:
@@ -492,12 +500,13 @@ def route_counts() -> dict[str, int]:
 
 
 def reset_counts() -> None:
-    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS, adamw
     from cgat_tpu_torch.ops.kernels.segment_attention import \
         segment_attention as sa
     for k in KERNEL_WRAPPERS:
         k.launches = 0
     sa.stream_launches = sa.per_node_launches = 0
+    adamw.reset_stats()
 
 
 def compare(name: str, got, want) -> dict:
@@ -2210,13 +2219,53 @@ def timed_ms(fn, n: int) -> list[float]:
     return ms
 
 
+def fused_against_foreach(tcfg, params, grads) -> dict[str, int]:
+    """The fused AdamW pass against the ``_foreach`` sequence
+    (``AdamW.update_plain``) on ``make_optimizer``'s flat layout from the
+    same parameters, at one real step's gradients 20 times over, with the
+    first moment in bf16 and in f32: p, mu and nu the same bits after 1
+    and after 20 updates. Returns the updates checked a dtype."""
+    from cgat_tpu_torch.training import make_optimizer
+
+    checked = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(tcfg, moment_dtype=dtype)
+        pair = []
+        for plain in (False, True):
+            ps = [p.detach().clone().requires_grad_() for p in params]
+            opt = make_optimizer(cfg, ps)
+            if plain:
+                opt.inner.update = opt.inner.update_plain
+            pair.append((ps, opt))
+        for i in range(N_FUSED_CHECKED):
+            for ps, opt in pair:
+                for p, g in zip(ps, grads):
+                    p.grad = g
+                opt.step()
+            if i in (0, N_FUSED_CHECKED - 1):
+                torch.cuda.synchronize()
+                a, b = (opt.inner for _, opt in pair)
+                if not all(torch.equal(x, y) for x, y in zip(
+                        [*a.params, *a.mu, *a.nu],
+                        [*b.params, *b.mu, *b.nu])):
+                    fail(f"the fused AdamW pass and the _foreach sequence "
+                         f"differ after {i + 1} updates ({dtype} mu)")
+        checked[dtype] = N_FUSED_CHECKED
+    return checked
+
+
 def flat_against_plain(tcfg, eager, batch) -> dict:
     """Flat AdamW (``make_optimizer``'s, as in every AdamW run) and AdamW
     on the parameters as they are (bf16 first moment both) from the same
     parameters and the same gradients of one real step: the same bits
-    after one update (parameters and state); then each optimizer's host ms
-    to issue an update and wall ms with it done, and its device events a
-    step (``multi_tensor_apply`` launches among them)."""
+    after one update (parameters and state); the fused pass against the
+    ``_foreach`` sequence (:func:`fused_against_foreach`); then each
+    optimizer's host ms to issue an update and wall ms with it done, its
+    device events a step (``multi_tensor_apply`` launches among them) and
+    the fused pass's device ms beside its bound, at most ``SHARE_LIMIT``
+    of it, and its launches an eager update; the flat layout's
+    ``_foreach`` sequence (the fused pass's plain version) beside them."""
+    from cgat_tpu_torch.ops.kernels import adamw
     from cgat_tpu_torch.training import make_optimizer
     from cgat_tpu_torch.training.flatten import FlatOptimizer
     from cgat_tpu_torch.training.optim import AdamW
@@ -2236,17 +2285,32 @@ def flat_against_plain(tcfg, eager, batch) -> dict:
         for p, g in zip(ps, grads):
             p.grad = g
         opt.step()
-        runs[flat] = ps, opt
+        runs["flat" if flat else "plain"] = ps, opt
     torch.cuda.synchronize()
-    (pp, popt), (fp, fopt) = runs[False], runs[True]
+    (pp, popt), (fp, fopt) = runs["plain"], runs["flat"]
     pstate, fstate = popt.state_dict(), fopt.state_dict()
     if not (all(torch.equal(a, b) for a, b in zip(pp, fp))
             and all(torch.equal(a, b) for name in ("mu", "nu")
                     for a, b in zip(pstate[name], fstate[name]))):
         fail("flat and plain AdamW differ after one update from the same "
              "gradients")
-    res = {"tensors": len(params), "bit_equal": True}
-    for flat, (ps, opt) in runs.items():
+    res = {"tensors": len(params), "bit_equal": True,
+           "fused_vs_foreach_updates": fused_against_foreach(tcfg, params,
+                                                              grads)}
+    ps = [p.detach().clone().requires_grad_() for p in params]
+    foreach = make_optimizer(tcfg, ps)
+    foreach.inner.update = foreach.inner.update_plain
+    for p, g in zip(ps, grads):
+        p.grad = g
+    runs["foreach"] = ps, foreach
+    n = sum(p.numel() for p in params)
+    res["bound_ms"], res["bound_by"] = bound(
+        *roofline.adamw_work(n, fopt.inner.mu[0].element_size()),
+        roofline.PEAKS["adamw"])
+    for key, (ps, opt) in runs.items():
+        adamw.reset_stats()
+        opt.step()
+        fused_launches = adamw.stats()["launches"]
         issue = []
         for _ in range(10):
             torch.cuda.synchronize()
@@ -2255,15 +2319,21 @@ def flat_against_plain(tcfg, eager, batch) -> dict:
             issue.append((time.perf_counter() - t0) * 1e3)
         wall = timed_ms(opt.step, 10)
         per_name = device_ms(opt.step, 3)
-        key = "flat" if flat else "plain"
         res[key] = {
-            "inner_tensors": len(opt.layout.inner) if flat else len(ps),
+            "inner_tensors": (len(ps) if key == "plain"
+                              else len(opt.layout.inner)),
             "host_issue_ms_median": float(np.median(issue)),
             "wall_ms_median": float(np.median(wall)),
             "device_busy_ms": sum(v[0] for v in per_name.values()),
             "device_events": sum(v[1] for v in per_name.values()),
             "multi_tensor_apply": sum(v[1] for k, v in per_name.items()
-                                      if "multi_tensor_apply" in k)}
+                                      if "multi_tensor_apply" in k),
+            "fused_device_ms": sum(v[0] for k, v in per_name.items()
+                                   if FUSED_ADAMW in k),
+            "fused_launches": fused_launches}
+    res["share"] = res["bound_ms"] / res["flat"]["fused_device_ms"]
+    if res["share"] > SHARE_LIMIT:
+        fail(f"the fused AdamW pass reads {res['share']:.3f} of its bound")
     eager.opt.zero_grad()
     return res
 
@@ -2401,12 +2471,16 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
        eager, step): the losses must be the same bits; the largest
        parameter difference is printed.
     2. Flat and plain AdamW take one update from the same gradients: the
-       same bits; their host ms, device events and ``multi_tensor_apply``
-       launches a step.
+       same bits; the fused pass and the ``_foreach`` sequence the same
+       bits over 20 updates, mu in bf16 and in f32; their host ms, device
+       events and ``multi_tensor_apply`` launches a step, and the fused
+       pass's device ms beside its bound.
     3. The launches a replayed step: each kernel's device events from the
        profiler, divided by its events a call in an eager step (whose
        wrapper counts are exact), must be 10/6/20 forward and
-       10/6/20/20/11 backward; a replay calls no wrapper.
+       10/6/20/20/11 backward; a replay calls no wrapper; its optimizer
+       is the fused pass alone, 1 to 3 ``multi_tensor_apply`` launches,
+       which ``fused_stats`` counts over the model's parameters.
     4. Eager and replayed steps on a resident batch (median and minimum
        of ``N_DISPATCH_TIMED``), and each path's ms a step over groups
        collated on the host; the card's busy ms, idle share and device
@@ -2420,6 +2494,7 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     from cgat_tpu_torch.cli import train as cli_train
     from cgat_tpu_torch.data.synthetic import random_graphs
     from cgat_tpu_torch.training import Trainer, TrainerConfig
+    from cgat_tpu_torch.training.optim import fused_stats
 
     allocated = settled_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2474,17 +2549,21 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     progress("phase 7: flat optimizer")
     batch = gdev.map(lambda t: t[0])
     stats["optimizer"] = opt = flat_against_plain(tcfg, eager, batch)
-    for key in ("plain", "flat"):
+    for key in ("plain", "flat", "foreach"):
         r = opt[key]
         print(f"[dispatch] AdamW {key} over {r['inner_tensors']} tensors: "
               f"host issue {r['host_issue_ms_median']:.2f} ms, wall "
               f"{r['wall_ms_median']:.2f} ms, device busy "
               f"{r['device_busy_ms']:.3f} ms in {r['device_events']:.0f} "
-              f"events ({r['multi_tensor_apply']:.0f} multi_tensor_apply) "
-              f"a step ({card})")
+              f"events ({r['multi_tensor_apply']:.0f} multi_tensor_apply), "
+              f"the fused pass {r['fused_device_ms']:.4f} ms in "
+              f"{r['fused_launches']} launches (bound {opt['bound_ms']:.4f} "
+              f"ms, {opt['bound_by']}) a step ({card})")
     print(f"[dispatch] flat and plain AdamW (bf16 first moment) give the "
           f"same bits after one update of {opt['tensors']} parameter "
-          f"tensors")
+          f"tensors; the fused pass and the _foreach sequence the same "
+          f"bits after 1 and {N_FUSED_CHECKED} updates at the step's "
+          f"gradients, mu in bf16 and in f32")
 
     # 3. the launches of a replayed step, from the profiler
     progress("phase 7: launches under replay")
@@ -2499,6 +2578,7 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     per_call = events_a_call(eager_prof, calls)
     reset_counts()
     replay_prof = device_ms(lambda: graph.train_step(batch), 3)
+    fused = {k: v / 3 for k, v in fused_stats().items()}
     if any(launch_counts().values()):
         fail(f"a replay called kernel wrappers: {launch_counts()}")
     replayed = replayed_launches(replay_prof, per_call)
@@ -2508,6 +2588,20 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     stats["device_events_a_call"] = per_call
     print(f"[dispatch] a replayed step launches {stats['replay_launches']} "
           f"(device events by kernel name, {per_call} a call)")
+    # the optimizer of a replayed step: the fused pass alone, counted
+    n_params = sum(p.numel() for p in graph.model.parameters())
+    mta = sum(v[1] for k, v in replay_prof.items()
+              if "multi_tensor_apply" in k)
+    if not (1 <= mta <= 3 and fused == {"launches": mta,
+                                        "elements": n_params}):
+        fail(f"a replayed step's optimizer made {mta} multi_tensor_apply "
+             f"launches and counted {fused}, not 1 to 3 fused launches "
+             f"over its {n_params} parameters")
+    stats["replay_optimizer"] = {"multi_tensor_apply": mta, **fused}
+    print(f"[dispatch] a replayed step's optimizer: {mta:.0f} "
+          f"multi_tensor_apply launches, the fused AdamW pass counting "
+          f"{fused['launches']:.0f} launches over {fused['elements']:.0f} "
+          f"elements ({n_params} parameters)")
 
     stats["dropout"] = dropout_groups(tcfg, cfg, state_dict, graphs, want,
                                       per_call, losses["graph"], card)
@@ -3942,6 +4036,30 @@ def main() -> int:
             "shape", "max_abs_err", "rel_norm_err", "checks",
             "deterministic", "kept_share", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")}})
+    # the port's own optimizer pass, on every AdamW step's path: its
+    # launches an eager update of phase 7's flat layout and of the
+    # parameters as they are, and in a replayed step (``fused_stats``);
+    # ms and device ms of the flat update, plain ms the device time of
+    # the flat layout's _foreach sequence
+    a_opt, a_replay = disp_stats["optimizer"], disp_stats["replay_optimizer"]
+    kernels.append({
+        "name": "adamw", "route": "cuda",
+        "source": f"cgat_tpu_torch/csrc/{SOURCES['adamw']}.cu",
+        "replaces": REPLACES["adamw"],
+        "launches": a_opt["flat"]["fused_launches"],
+        "inner_tensors": a_opt["flat"]["inner_tensors"],
+        "launches_unflattened": a_opt["plain"]["fused_launches"],
+        "unflattened_tensors": a_opt["plain"]["inner_tensors"],
+        "replay_launches": a_replay["launches"],
+        "replay_elements": a_replay["elements"],
+        "replay_multi_tensor_apply": a_replay["multi_tensor_apply"],
+        "bit_equal_updates": a_opt["fused_vs_foreach_updates"],
+        "ms": a_opt["flat"]["wall_ms_median"],
+        "device_ms": a_opt["flat"]["fused_device_ms"],
+        "plain_ms": a_opt["foreach"]["device_busy_ms"],
+        "plain_multi_tensor_apply": a_opt["foreach"]["multi_tensor_apply"],
+        "bound_ms": a_opt["bound_ms"], "bound_by": a_opt["bound_by"],
+        "share": a_opt["share"]})
     if not all(k["launches"] for k in kernels):
         fail(f"a kernel was never launched on its path: "
              f"{[k['name'] for k in kernels if not k['launches']]}")

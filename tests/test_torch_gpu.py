@@ -686,7 +686,9 @@ def test_replayed_hyper_edge_steps_count_their_edge_updates(dev):
     live edge layer on the batch's edge slots (the capture counts none),
     the capture keeps its launches by key while the record is on, with the
     4 edge-row #5 launches in the ``edge_update`` scope and 4 #6 and 4 #7
-    on the same rows; the default model's graphs count nothing."""
+    on the same rows; the default model's graphs count no edge update.
+    Every graph counts its optimizer's fused AdamW pass, whose launch
+    joins the record."""
     from cgat_tpu_torch.models.cgat import edge_update_stats
     from cgat_tpu_torch.ops.kernels import build
 
@@ -712,9 +714,12 @@ def test_replayed_hyper_edge_steps_count_their_edge_updates(dev):
             assert after["layers"] - before["layers"] == 3 * live
             assert after["rows"] - before["rows"] == 3 * live * E
             (key, g), = t.step_graphs.graphs.items()
-            assert g.counted == (None if no_hyper
-                                 else {"edge_update": (live, live * E)})
+            n_params = sum(p.numel() for p in t.model.parameters())
+            assert g.counted == {"adamw_fused": (1, n_params),
+                                 **({} if no_hyper else
+                                    {"edge_update": (live, live * E)})}
             launches = t.step_graphs.launches[key]
+            assert [k for k, _, _ in launches].count("cgat_adamw") == 1
             hyper = [(k, rows, scope) for k, rows, scope in launches
                      if k.startswith("cgat_hyper_apply")]
             edge = [h for h in hyper if h[1] == E]
@@ -1333,3 +1338,208 @@ def test_dropped_trainers_and_gp_fits_leave_no_memory(dev):
     for _ in range(5):
         owners()
     assert abs(settled() - before) <= 1 << 20
+
+
+# ---------------------------------------------- the fused AdamW pass
+
+def _at(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    buffer (at offset 1 no 16-byte load reaches it)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _adamw_shapes(case):
+    """The tensors of each case: the default model's flat layout at full
+    width (the flat vector, then its 72 big tensors; shapes from the meta
+    device), lengths that are not a multiple of 4 and one of a few
+    elements, more tensors than a launch's table holds (3 launches)."""
+    from cgat_tpu_torch.training.flatten import FlatLayout
+
+    if case == "flat":
+        with torch.device("meta"):
+            model = CGAtNet(CGATConfig(compute_dtype="bfloat16"))
+        return [t.shape for t in FlatLayout(
+            [p.detach() for p in model.parameters()]).inner]
+    odd = [(3,), (1,), (4097,), (65537,), (129, 7), (10001,), (2,)]
+    return odd * (25 if case == "many" else 1)
+
+
+def _adamw_pair(dev, shapes, mu_dtype, offset=0):
+    """The fused AdamW and its plain ``_foreach`` twin (``update`` set to
+    ``update_plain``) over the same random parameters on the card; the
+    fused one's parameters and moments start ``offset`` elements into
+    their buffers."""
+    from cgat_tpu_torch.training import AdamW
+
+    gen = torch.Generator(dev).manual_seed(0)
+    params = [torch.randn(s, generator=gen, device=dev) * 0.05
+              for s in shapes]
+    pair = []
+    for plain in (False, True):
+        opt = AdamW([_at(p, 0 if plain else offset) for p in params], 1e-3,
+                    weight_decay=1e-4, mu_dtype=mu_dtype)
+        if plain:
+            opt.update = opt.update_plain
+        else:
+            opt.mu = [_at(m, offset) for m in opt.mu]
+            opt.nu = [_at(v, offset) for v in opt.nu]
+        pair.append(opt)
+    return pair, gen
+
+
+def _adamw_grads(gen, shapes, dev):
+    """Gradients over some 13 decades, a tenth of them zero."""
+    out = []
+    for s in shapes:
+        g = torch.randn(s, generator=gen, device=dev)
+        g *= torch.exp(torch.randn(s, generator=gen, device=dev) * 3)
+        g *= torch.rand(s, generator=gen, device=dev) > 0.1
+        out.append(g)
+    return out
+
+
+def _same_state(a, b):
+    return all(torch.equal(x, y) for x, y in zip(
+        [*a.params, *a.mu, *a.nu], [*b.params, *b.mu, *b.nu]))
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case,offset", [("flat", 0), ("odd", 0),
+                                         ("odd", 1), ("many", 0)])
+def test_fused_adamw_equals_the_foreach_sequence(dev, mu_dtype, case,
+                                                 offset):
+    """The fused pass and the ``_foreach`` sequence on the same CUDA
+    tensors: p, mu and nu the same bits after 1 and after 20 updates of
+    fresh gradients, the learning rate changed half way; on the default
+    model's flat layout, on lengths not a multiple of 4 (the tail), on
+    tensors 1 element off 16-byte alignment (one element a thread), and
+    over 3 launches; the counter counts each launch and element."""
+    from cgat_tpu_torch.ops.kernels import adamw as fused_adamw
+    from cgat_tpu_torch.training.optim import fused_stats
+
+    shapes = _adamw_shapes(case)
+    (fused, plain), gen = _adamw_pair(dev, shapes, mu_dtype, offset)
+    numels = [torch.Size(s).numel() for s in shapes]
+    before = fused_stats()
+    for i in range(20):
+        grads = _adamw_grads(gen, shapes, dev)
+        fused.lr = plain.lr = 1e-3 if i < 10 else 3e-4
+        fused.update([_at(g, offset) for g in grads])
+        plain.update(grads)
+        if i in (0, 19):
+            torch.cuda.synchronize()
+            assert _same_state(fused, plain), f"update {i + 1}"
+    after = fused_stats()
+    assert after["elements"] - before["elements"] == 20 * sum(numels)
+    assert after["launches"] - before["launches"] == \
+        20 * len(fused_adamw.plan(numels))
+    assert fused.count == plain.count == 20
+
+
+def test_fused_adamw_wrapper_counts_its_own_launches(dev):
+    """The wrapper called without an optimizer counts each launch it
+    makes and the elements it updates, as the plan lays them out (3
+    launches over 175 tensors), and ``reset_stats`` zeroes the counts."""
+    from cgat_tpu_torch.ops.kernels import adamw as fused_adamw
+
+    shapes = _adamw_shapes("many")
+    numels = [torch.Size(s).numel() for s in shapes]
+    (fused, _), gen = _adamw_pair(dev, shapes, torch.bfloat16)
+    one = torch.ones((), device=dev)
+    fused_adamw.reset_stats()
+    fused_adamw.adamw(fused.params, _adamw_grads(gen, shapes, dev),
+                      fused.mu, fused.nu, one, one, -1e-3 * one, b1=0.9,
+                      b2=0.999, eps=1e-8, weight_decay=1e-4)
+    torch.cuda.synchronize()
+    assert len(fused_adamw.plan(numels)) == 3
+    assert fused_adamw.stats() == {"launches": 3, "elements": sum(numels)}
+    fused_adamw.reset_stats()
+    assert fused_adamw.stats() == {"launches": 0, "elements": 0}
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, torch.float32])
+def test_fused_adamw_under_multisteps_equals_the_foreach_sequence(
+        dev, mu_dtype):
+    """``MultiSteps(AdamW, k=2)``: the fused inner update against the
+    ``_foreach`` one, the same bits after each of 10 updates."""
+    from cgat_tpu_torch.training import MultiSteps
+
+    shapes = _adamw_shapes("odd")
+    pair, gen = _adamw_pair(dev, shapes, mu_dtype)
+    multi = [MultiSteps(opt, 2) for opt in pair]
+    for i in range(20):
+        grads = _adamw_grads(gen, shapes, dev)
+        for m in multi:
+            for p, g in zip(m.params, grads):
+                p.grad = g.clone()
+            m.step()
+        torch.cuda.synchronize()
+        assert _same_state(*pair), f"mini-step {i + 1}"
+    assert pair[0].count == pair[1].count == 10
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, torch.float32])
+def test_replayed_fused_adamw_reads_its_step_on_the_device(dev, mu_dtype):
+    """A CUDA graph of the fused update, replayed 20 times on fresh
+    gradients with the learning rate changed between replays, against
+    eager ``_foreach`` updates: the same bits, so each replay read the
+    count's bias corrections and the learning rate from the device; the
+    capture counts its launch and the layout's elements once."""
+    from cgat_tpu_torch.training.optim import fused_stats
+
+    shapes = _adamw_shapes("odd")
+    (fused, plain), gen = _adamw_pair(dev, shapes, mu_dtype)
+    static = [torch.zeros(s, device=dev) for s in shapes]
+    for s, g in zip(static, _adamw_grads(gen, shapes, dev)):
+        s.copy_(g)
+    fused.update(static)           # loads the kernel before the capture
+    plain.update([s.clone() for s in static])
+    graph = torch.cuda.CUDAGraph()
+    before = fused_stats()
+    with torch.cuda.graph(graph):
+        fused.update(static)
+    after = fused_stats()
+    assert after["launches"] - before["launches"] == 1
+    assert after["elements"] - before["elements"] == sum(
+        torch.Size(s).numel() for s in shapes)
+    for i in range(20):
+        fused.lr = plain.lr = 1e-3 * (0.8 ** i)
+        grads = _adamw_grads(gen, shapes, dev)
+        for s, g in zip(static, grads):
+            s.copy_(g)
+        graph.replay()
+        plain.update(grads)
+    torch.cuda.synchronize()
+    assert fused.count == plain.count == 21
+    assert _same_state(fused, plain)
+
+
+def test_replayed_steps_count_the_fused_adamw_pass(dev):
+    """Every AdamW step of a trainer on the card takes the fused pass:
+    the eager first step and each replay count one launch and the model's
+    parameter count of elements (the capture, which computes nothing,
+    none); SGD's steps count nothing."""
+    from cgat_tpu_torch.training.optim import fused_stats
+
+    graphs = random_graphs(2, 30, n_atoms_range=(5, 9), max_nbr=16,
+                           orig_fea=16, full_degree=True)
+    for optim, launches in (("AdamW", 1), ("SGD", 0)):
+        t = Trainer(TrainerConfig(batch_size=6, node_bucket=16, max_nbr=16,
+                                  moment_dtype="bfloat16", optim=optim),
+                    CGATConfig(**SMALL, compute_dtype="bfloat16"),
+                    graphs, device=dev)
+        t.init_state(init_state_dict(t.init_state(), seed=0))
+        batch = next(iter(t.loader(t.train_graphs, shuffle=True)))
+        n_params = sum(p.numel() for p in t.model.parameters())
+        before = fused_stats()
+        for _ in range(3):
+            t.train_step(batch)
+        torch.cuda.synchronize()
+        after = fused_stats()
+        assert len(t.step_graphs.graphs) == 1
+        assert after["launches"] - before["launches"] == 3 * launches
+        assert after["elements"] - before["elements"] == \
+            3 * launches * n_params
