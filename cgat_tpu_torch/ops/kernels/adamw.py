@@ -15,11 +15,10 @@ default model's flat layout, 73 tensors, takes one) and numbers each
 tensor's chunks of ``CHUNK`` elements through its launch; the blocks, one
 wave of ``BLOCKS_PER_SM`` an SM, take the chunks grid-stride.
 
-Each launch is counted where it is made, in the ``utils.counters``
-counter "adamw_fused" (launches, elements updated; :func:`stats`): a
-replayed CUDA graph adds what its capture counted, so a replayed training
-step counts its update, which the wrappers' ``launches`` of
-``KERNEL_WRAPPERS`` (eager calls alone) cannot.
+``build.run`` counts each launch under the C entry's name, and the
+wrapper counts the elements it updated in the ``utils.counters`` counter
+"adamw_fused" (:func:`stats`); a replayed CUDA graph adds what its
+capture counted to both, so a replayed training step counts its update.
 """
 from __future__ import annotations
 
@@ -38,19 +37,15 @@ PARAM_BYTES = 4096     # kernel parameters every CUDA toolkit takes
 
 _P = ctypes.c_void_p
 _MU_DTYPES = (torch.float32, torch.bfloat16)
-# launches made, elements updated
-_FUSED = counters.counter("adamw_fused", 2)
+# elements updated
+_ELEMENTS = counters.counter("adamw_fused", 1)
 
 
 def stats() -> dict[str, int]:
     """The launches made so far in this process, and the elements they
     updated."""
-    return {"launches": _FUSED[0], "elements": _FUSED[1]}
-
-
-def reset_stats() -> None:
-    """Set :func:`stats`'s counts to zero."""
-    _FUSED[:] = [0, 0]
+    return {"launches": build.launch_counts().get("cgat_adamw", 0),
+            "elements": _ELEMENTS[0]}
 
 
 class _Entry(ctypes.Structure):
@@ -165,5 +160,4 @@ def adamw(params, grads, mu, nu, bc1, bc2, neg_lr, *, b1: float, b2: float,
                          ctypes.sizeof(table), mu_bf16,
                          min(chunks, grid_max), rows=rows)
         build.check("adamw", code)
-        _FUSED[0] += 1
-        _FUSED[1] += rows
+        _ELEMENTS[0] += rows

@@ -14,6 +14,14 @@ ptxas' register and spill report) beside its library. Nothing is built or
 loaded when this module is imported. ``run`` makes each launch on its
 tensors' device.
 
+Every launch goes through ``run``, which counts it under its C entry's
+name in a ``utils.counters`` counter (:func:`launch_counts`). A CUDA
+graph's replay runs no Python, but ``training.dispatch.StepGraphs`` adds
+what its capture counted on each replay, so the count holds one launch
+for each time a kernel ran, eager or replayed in a ``StepGraphs`` graph
+(``utils.roofline``'s timing graphs take their captures' counts back and
+count no replay).
+
 The launch record, for readers of a profile that must tell one kernel's
 launches apart by what they ran on (the benchmark tells a hypernetwork's
 edge-row launches from its node-row ones by their order in a replayed
@@ -38,6 +46,8 @@ from pathlib import Path
 
 import torch
 
+from ...utils import counters
+
 KERNELS = ("segment_attention", "mh_network", "hyper_apply", "segment_sum",
            "dropout", "adamw")
 
@@ -47,6 +57,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# each C entry's launch count, by its name (a ``utils.counters`` counter
+# made at the entry's first launch)
+_launches: dict[str, list[int]] = {}
 
 # the launch record: while a list is open (``recording``), each launch
 # adds (C entry, rows, the innermost launch scope's name or None) to it
@@ -159,11 +172,17 @@ def run(fn, device, *args, rows: int | None = None) -> int:
     and its per-device settings need, and return its code. The device is
     switched only when it is not the current one, and switched back after;
     on one card this costs one ``current_device`` call and nothing else.
-    A device without an index (no card named) is left as it is. ``rows``:
+    A device without an index (no card named) is left as it is. The launch
+    is counted under ``fn.__name__`` (:func:`launch_counts`). ``rows``:
     the rows the launch runs on, for the launch record (:func:`recording`;
     while none is open, one check)."""
+    name = fn.__name__
+    count = _launches.get(name)
+    if count is None:
+        count = _launches[name] = counters.counter(name, 1)
+    count[0] += 1
     if _record is not None:
-        _record.append((fn.__name__, rows, _scopes[-1] if _scopes else None))
+        _record.append((name, rows, _scopes[-1] if _scopes else None))
     index = device.index
     current = None if index is None else torch.cuda.current_device()
     if current == index:
@@ -173,6 +192,12 @@ def run(fn, device, *args, rows: int | None = None) -> int:
         return fn(*args, stream(device))
     finally:
         torch.cuda.set_device(current)
+
+
+def launch_counts() -> dict[str, int]:
+    """The launches of each C entry so far in this process, by its name:
+    eager launches and those of every replayed CUDA graph."""
+    return {name: count[0] for name, count in _launches.items()}
 
 
 def check(name: str, code: int) -> None:

@@ -21,8 +21,9 @@ masks bit for bit. The backward (:func:`dropout_bwd`) is the same kernel
 on the incoming gradient, which recomputes the mask: nothing is stored.
 
 CPU tensors go through :func:`dropout_plain` (Philox in int64 tensor
-arithmetic); CUDA tensors launch the kernel or raise. Each wrapper counts
-its launches in ``launches``.
+arithmetic); CUDA tensors launch the kernel or raise. Both wrappers
+launch the one C entry ``cgat_dropout``, which counts their launches
+together (``build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -133,7 +134,6 @@ def dropout(x, rate: float, key: tuple[int, int], step):
                          keep_threshold(rate), keep_scale(rate),
                          x.dtype is torch.bfloat16, 0)
         build.check("dropout", code)
-        dropout.launches += 1
     return out
 
 
@@ -150,12 +150,7 @@ def dropout_bwd(g, rate: float, key: tuple[int, int], step):
                          keep_threshold(rate), keep_scale(rate),
                          g.dtype is torch.bfloat16, 1)
         build.check("dropout", code)
-        dropout_bwd.launches += 1
     return out
-
-
-dropout.launches = 0
-dropout_bwd.launches = 0
 
 
 class Dropout(torch.autograd.Function):

@@ -133,11 +133,7 @@ def hyper_apply(hidden, k, bias, x, out_ch):
                      x.data_ptr(), out.data_ptr(), n, c_dim, in_ch, out_ch,
                      groups, per, rows=n)
     build.check("hyper_apply", code)
-    hyper_apply.launches += 1
     return out
-
-
-hyper_apply.launches = 0
 
 
 def _dp_w(g, x):
@@ -199,11 +195,7 @@ def hyper_apply_bwd_dhdx(hidden, k, bias, x, g, out_ch):
                      part_dh.data_ptr(), dh.data_ptr(), dx.data_ptr(),
                      rows=n)
     build.check("hyper_apply", code)
-    hyper_apply_bwd_dhdx.launches += 1
     return dh, dx
-
-
-hyper_apply_bwd_dhdx.launches = 0
 
 
 def hyper_apply_bwd_dk_plain(hidden, x, g, out_ch):
@@ -229,11 +221,7 @@ def hyper_apply_bwd_dk(hidden, x, g, out_ch):
                      g.data_ptr(), n, c_dim, in_ch, out_ch, dk.data_ptr(),
                      db.data_ptr(), rows=n)
     build.check("hyper_apply", code)
-    hyper_apply_bwd_dk.launches += 1
     return dk, db
-
-
-hyper_apply_bwd_dk.launches = 0
 
 
 class HyperApply(torch.autograd.Function):

@@ -128,11 +128,7 @@ def mh_network(x, win, b_in, wout, b_out, heads, *, return_hidden=False):
                      b_in.data_ptr(), wout.data_ptr(), b_out.data_ptr(),
                      out.data_ptr(), h.data_ptr(), n, cat, hid, f, heads)
     build.check("mh_network", code)
-    mh_network.launches += 1
     return (out, h) if return_hidden else out
-
-
-mh_network.launches = 0
 
 
 def mh_network_bwd_plain(x, h, g, win, wout, heads):
@@ -273,11 +269,7 @@ def mh_network_bwd(x, h, g, win, wout, heads):
                      dwin.data_ptr(), dbin.data_ptr(), dwout.data_ptr(),
                      dbout.data_ptr())
     build.check("mh_network", code)
-    mh_network_bwd.launches += 1
     return dx, dwin, dbin, dwout, dbout
-
-
-mh_network_bwd.launches = 0
 
 
 class MHNetwork(torch.autograd.Function):

@@ -20,8 +20,8 @@ kernel (a persistent grid, each block streaming the rows of the nodes that
 start in its equal span of the real rows and writing its share of the
 nodes with none, :func:`stream_spans`) for rows of
 whole 16-byte groups on 16-byte aligned arrays (:func:`streams`), and the
-per-node kernel for the rest; ``segment_attention.stream_launches`` and
-``segment_attention.per_node_launches`` count each, ``launches`` both.
+per-node kernel for the rest. Both count under the entry point's name
+(``build.launch_counts``); ``streams`` tells which one a call takes.
 
 The pair path (:class:`SegmentAttentionPair`, the JAX package's
 ``_pair_fwd_impl`` / ``_pair_vjp_bwd``) is the same softmax over the union
@@ -183,17 +183,7 @@ def segment_attention(alpha, m, offn, n_real, num_nodes, *,
                      None if mx is None else mx.data_ptr(),
                      None if den is None else den.data_ptr())
     build.check("segment_attention", code)
-    segment_attention.launches += 1
-    if streams(hf, alpha.element_size(), alpha, m, out, mx, den):
-        segment_attention.stream_launches += 1
-    else:
-        segment_attention.per_node_launches += 1
     return (out, mx, den) if return_stats else out
-
-
-segment_attention.launches = 0
-segment_attention.stream_launches = 0
-segment_attention.per_node_launches = 0
 
 
 def segment_attention_bwd_plain(alpha, m, ids, n_real, g, out, mx, den):
@@ -245,11 +235,7 @@ def segment_attention_bwd(alpha, m, ids, n_real, g, out, mx, den):
                      hf, int(alpha.dtype == torch.bfloat16),
                      dalpha.data_ptr(), dm.data_ptr())
     build.check("segment_attention", code)
-    segment_attention_bwd.launches += 1
     return dalpha, dm
-
-
-segment_attention_bwd.launches = 0
 
 
 class SegmentAttention(torch.autograd.Function):
@@ -306,11 +292,8 @@ class SegmentAttentionPair(torch.autograd.Function):
     """The union softmax-aggregate of a local and a halo edge block, each
     dst-sorted with a False-suffix padding: :func:`segment_attention` on
     each block, :func:`merge_pair`, and :func:`segment_attention_bwd` on
-    each block against the merged arrays. ``fwd_launches`` and
-    ``bwd_launches`` count the kernel launches made on this path (two a
-    call each), a part of the wrappers' own counts."""
-    fwd_launches = 0
-    bwd_launches = 0
+    each block against the merged arrays: two launches of each kernel a
+    call."""
 
     @staticmethod
     def forward(ctx, alpha_l, m_l, ids_l, offn_l, n_l, alpha_h, m_h, ids_h,
@@ -319,8 +302,6 @@ class SegmentAttentionPair(torch.autograd.Function):
                                                 num_nodes, return_stats=True)
         out_h, max_h, den_h = segment_attention(alpha_h, m_h, offn_h, n_h,
                                                 num_nodes, return_stats=True)
-        if alpha_l.is_cuda:
-            SegmentAttentionPair.fwd_launches += 2
         out, gmax, den = merge_pair(out_l, max_l, den_l, out_h, max_h, den_h)
         out = out.to(alpha_l.dtype)
         ctx.save_for_backward(alpha_l, m_l, ids_l, n_l, alpha_h, m_h, ids_h,
@@ -336,7 +317,5 @@ class SegmentAttentionPair(torch.autograd.Function):
                                            gmax, den)
         da_h, dm_h = segment_attention_bwd(alpha_h, m_h, ids_h, n_h, g, out,
                                            gmax, den)
-        if alpha_l.is_cuda:
-            SegmentAttentionPair.bwd_launches += 2
         return (da_l, dm_l, None, None, None, da_h, dm_h, None, None, None,
                 None)

@@ -17,7 +17,8 @@ denormalised, on the card unless the caller asks for the CPU.
 
 On the card each signature's forward (embed and head, returning the
 prediction, ``log_std`` and the graph embedding) is a CUDA graph, the
-counterpart of the JAX package's pre-lowered executable a signature: the
+counterpart of the JAX package's pre-lowered executable a signature, kept
+in the port's one graph cache (``training.dispatch.StepGraphs``): the
 first request of a signature runs eagerly (the warm-up, whose result is
 kept), then the forward is captured once into static input buffers;
 every later request of that signature copies its collated batch into the
@@ -32,7 +33,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from typing import Sequence
 
 import numpy as np
@@ -42,7 +42,7 @@ from ..data.batching import CrystalBatch, collate
 from ..device import resolve_device
 from ..models.cgat import CGATConfig, CGAtNet
 from ..models.convert import flat_from_state_dict, state_dict_from_jax
-from ..training.dispatch import signature
+from ..training.dispatch import StepGraphs
 from ..utils.profiling import annotate, annotated
 
 _MANIFEST = "manifest.json"
@@ -125,61 +125,6 @@ def export_artifact(run_dir: str, out_dir: str, *, tag: str = "best",
     return manifest
 
 
-@dataclasses.dataclass
-class _Graph:
-    graph: torch.cuda.CUDAGraph
-    static: CrystalBatch      # inputs, copied in before each replay
-    outputs: tuple            # prediction, log_std, embedding
-
-
-class ServingGraphs:
-    """The CUDA graphs of a forward on ``device``, one per batch shape
-    signature, in one memory pool; ``capture_s`` holds each key's capture
-    seconds. Like ``training.dispatch.StepGraphs`` it keeps no reference
-    to the model, whose forward comes with each call. It makes no stream
-    of its own: an inference forward needs no side stream for its
-    warm-up, and a new stream would keep its cuBLAS workspace after the
-    model is dropped."""
-
-    def __init__(self, device):
-        self.device = device
-        self.graphs: dict[tuple, _Graph] = {}
-        self.capture_s: dict[tuple, float] = {}
-        self.pool = torch.cuda.graph_pool_handle()
-
-    def run(self, batch: CrystalBatch, forward) -> tuple:
-        """``forward`` on ``batch`` (host tensors): a replay of its
-        signature's graph, or for a new signature the eager warm-up and
-        then the capture. The outputs are the graph's own buffers, valid
-        until the next replay of that signature."""
-        key = signature(batch)
-        g = self.graphs.get(key)
-        if g is None:
-            with annotate("capture"):
-                return self._first(key, batch, forward)
-        g.static.copy_(batch)
-        with annotate("replay"):
-            g.graph.replay()
-        return g.outputs
-
-    def _first(self, key, batch: CrystalBatch, forward) -> tuple:
-        static = batch.to(self.device)
-        outputs = forward(static)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                captured = forward(static)
-        except RuntimeError as e:
-            raise RuntimeError(
-                f"capturing the serving forward as a CUDA graph failed (batch "
-                f"shapes {key[:2]}); the card does not fall back to eager "
-                f"serving") from e
-        self.capture_s[key] = time.perf_counter() - t0
-        self.graphs[key] = _Graph(graph, static, captured)
-        return outputs
-
-
 class ServingModel:
     """A model ready to serve: bucketed, batched, denormalised prediction.
 
@@ -198,7 +143,7 @@ class ServingModel:
                                  key=lambda s: s["num_node_slots"])
         self.mean = float(manifest["mean"])
         self.std = float(manifest["std"])
-        self.graphs = (ServingGraphs(self.device)
+        self.graphs = (StepGraphs(self.device)
                        if self.device.type == "cuda" else None)
 
     def _pick(self, n_atoms: int) -> dict:
@@ -219,7 +164,7 @@ class ServingModel:
     def _run(self, batch: CrystalBatch) -> tuple:
         if self.graphs is None:
             return self.forward(batch.to(self.device))
-        return self.graphs.run(batch, self.forward)
+        return self.graphs.run(self.forward, batch)
 
     @annotated("predict")
     @torch.inference_mode()

@@ -557,9 +557,10 @@ class Trainer:
                     and (self.mesh is None or self.mesh.backend == "nccl"):
                 if self.step_graphs is None:
                     self.step_graphs = StepGraphs(self.device)
-                return self.step_graphs.step(batch, self.opt.phase,
-                                             self._step_on_device,
-                                             self._advance)
+                metrics = self.step_graphs.run(self._step_on_device, batch,
+                                               self.opt.phase)
+                self._advance()
+                return {k: v.clone() for k, v in metrics.items()}
             metrics = self._step_on_device(batch)
             self._advance()
             return metrics

@@ -217,8 +217,7 @@ class GPFit:
     def step(self, batch) -> torch.Tensor:
         if self.graphs is None:
             return self._step_on_device(batch)["loss"]
-        return self.graphs.step(batch, 0, self._step_on_device,
-                                lambda: None)["loss"]
+        return self.graphs.run(self._step_on_device, batch)["loss"].clone()
 
     def result(self) -> GPParams:
         return self.params.map(lambda t: t.detach())

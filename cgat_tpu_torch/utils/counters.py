@@ -4,9 +4,9 @@ A forward that counts on the host what it runs counts nothing when its
 graph is replayed, since a replay runs no Python. A counter made by
 :func:`counter` is one that ``training.dispatch.StepGraphs`` moves: what a
 capture counted is taken back there (a capture computes nothing) and
-added on each replay of that graph, only for a graph whose capture
-counted something, so a model that counts nothing costs a replay one
-check. ``models.cgat.edge_update_stats`` reads one such counter.
+added on each replay of that graph. ``ops.kernels.build.launch_counts``
+(every kernel launch, by C entry), ``models.cgat.edge_update_stats`` and
+``ops.kernels.adamw.stats`` read such counters.
 """
 from __future__ import annotations
 
@@ -35,6 +35,12 @@ def since(before: dict) -> dict[str, tuple[int, ...]]:
         if any(moved):
             out[name] = moved
     return out
+
+
+def reset() -> None:
+    """Set every counter's counts to 0, in place."""
+    for c in _COUNTERS.values():
+        c[:] = [0] * len(c)
 
 
 def add(counts: dict, sign: int = 1) -> None:

@@ -19,10 +19,10 @@ entry on the same thread belongs to that step or request:
 * leaves: ``prefetch_wait`` (``PrefetchLoader``'s consumer blocked on its
   queue), ``collate`` (``data.batching.collate``), ``h2d``
   (``CrystalBatch.to`` and ``.copy_`` from the host to a card),
-  ``replay`` (a CUDA graph's ``replay()`` in ``StepGraphs`` and
-  ``ServingGraphs``), ``capture`` (a new key's eager first step or
-  forward and its capture), ``readback`` (a served chunk's answers read
-  to the host, waiting for its replay).
+  ``replay`` (a CUDA graph's ``replay()`` in
+  ``training.dispatch.StepGraphs``), ``capture`` (a new key's eager
+  first step or forward and its capture), ``readback`` (a served
+  chunk's answers read to the host, waiting for its replay).
 
 The profiler records a span only on a thread it traces: on the thread
 that started it, not on ``PrefetchLoader``'s, whose collates it does not

@@ -43,6 +43,8 @@ import math
 
 import torch
 
+from . import counters
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -252,9 +254,11 @@ def _device_time(fn, args, iters: int) -> tuple[float, float]:
         fn(*a)
     torch.cuda.synchronize()
     graph, outs = torch.cuda.CUDAGraph(), []
+    before = counters.snapshot()
     with torch.cuda.graph(graph):
         for i in range(iters):
             outs.append(fn(*sets[i % n]))
+    counters.add(counters.since(before), -1)    # a capture runs nothing
     graph.replay()
     torch.cuda.synchronize()
     per_name = device_ms(graph.replay, 1)

@@ -9,15 +9,15 @@ failure exits non-zero:
 1. build the CUDA kernels from ``cgat_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold each forward kernel against its plain PyTorch version on the card
    at the shapes the serving forward gives it, and time both with CUDA
-   events; segment_attention through its stream kernel (its own launch
-   counter and its device kernel's name), timed beside scatter_reduce's
+   events; segment_attention through its stream kernel (``streams`` and
+   its device kernel's name), timed beside scatter_reduce's
    amax, the exp, two index_add_ sums and the divide (PyTorch calls, a
    yardstick the port never calls), and on ``segment_layout``'s edge
    layouts (empty nodes, an empty tail, one node holding every row, no
    real row, every row real, a 2,000-row node, the request, training and
    GP shapes) in bf16 at H*F = 640 (the stream kernel) and f32 at 13 (the
    per-node kernel), each within the tolerances, its max bit-equal, the
-   same bits twice and counted under its kernel's counter;
+   same bits twice and one launch through the kernel ``streams`` names;
    mh_network in both forms (out, and out with h), bit-identical in
    two launches, and timed beside addmm, leaky ReLU and baddbmm (cuBLAS
    calls, a yardstick the port never calls); hyper_apply bit-identical in
@@ -34,14 +34,14 @@ failure exits non-zero:
    equal the plain version's bit for bit, twice, timed beside its bound;
 3. serve: the reference-default CGAtNet in bf16 (seeded random weights)
    answers 3 requests of 64 crystals through ``ServingModel.predict``,
-   each signature's forward a CUDA graph: a signature's first request (the
-   eager warm-up, then the capture) must call mh_network x10,
-   segment_attention x6 and hyper_apply x20 twice and no backward kernel,
-   a later one none, every segment_attention launch through its stream
-   kernel (its own counter); it is timed with its capture and peak
-   memory. A
+   each signature's forward a CUDA graph: every request must count
+   mh_network x10, segment_attention x6 and hyper_apply x20 and no
+   backward kernel, a signature's first (the eager warm-up; its capture's
+   counts taken back) and each replay (its capture's counts added); the
+   first is timed with its capture and peak memory. A
    replayed request must give the eager warm-up's bits on the same batch
-   and launch 10/6/20 (the profiler's device events by kernel name); the
+   and launch 10/6/20 (the profiler's device events by kernel name),
+   every segment_attention launch through its stream kernel; the
    steady replayed requests are timed beside an eager ServingModel's on
    the same requests. The forward agrees with the port's own bf16 forward
    on the CPU; then one eager request's time is broken down into collate,
@@ -72,18 +72,19 @@ failure exits non-zero:
    epochs of 4 steps), ``cli.evaluate``, ``cli.predict`` with and without
    ``--embeddings``, then ``cli.train --ckp <run> --epochs 3``, which must
    start at epoch 2. Each training step on the card replays its batch
-   shape's CUDA graph, and a shape's first step runs eagerly and is then
-   captured, each calling every kernel wrapper once: each call must
-   launch each kernel exactly the count its captures (``cli_graph_keys``)
-   and evaluation batches imply, every metric and output must be finite, and ``best`` and ``last`` must load; it prints the
+   shape's CUDA graph (a shape's first step runs eagerly and is then
+   captured), and counts one step's launches either way: each call must
+   launch each kernel exactly the count its steps (``cli_steps``) and
+   evaluation batches imply, every metric and output must be finite, and
+   ``best`` and ``last`` must load; it prints the
    featurisation ms per structure, each epoch's wall time and graphs/s
    (``metrics.jsonl``) and the checkpoint's save and load ms;
 6. variants: the hyper-edge model (``no_hyper=False``, the reference
    width and depth, bf16) takes 3 checked steps of 64 crystals in a
    ``Trainer`` (``train_step``), each launching exactly 10/6/36 forward
-   and 10/6/36/36/19 backward kernels twice when it captures a graph and
-   never when it replays one (the last layer's edge update feeds nothing
-   and is skipped); the card's busy time and device events of one of
+   and 10/6/36/36/19 backward kernels, captured or replayed (the last
+   layer's edge update feeds nothing and is skipped); the card's busy
+   time and device events of one of
    its steps; hyper_apply and its two backward kernels held against their
    plain versions on an edge HNet's recorded inputs (at least 18,432 edge
    rows), bit-identical in two launches and timed beside their bounds and
@@ -104,9 +105,9 @@ failure exits non-zero:
    as they are give the same bits after one update from the same
    gradients, and the fused AdamW pass the ``_foreach`` sequence's bits
    over 20 updates at the step's gradients (mu bf16 and f32), its device
-   ms beside its bound; a replayed step launches
-   exactly 10/6/20 forward and 10/6/20/20/11 backward kernels (device
-   events by kernel name, from the profiler: a replay calls no wrapper)
+   ms beside its bound; a replayed step counts and launches
+   exactly 10/6/20 forward and 10/6/20/20/11 backward kernels (its
+   capture's counts, and device events by kernel name from the profiler)
    and 1 to 3 fused AdamW launches over every parameter (the only
    ``multi_tensor_apply`` events, ``training.optim.fused_stats``);
    eager and replayed step times, the card's busy time, idle share and
@@ -124,7 +125,8 @@ failure exits non-zero:
    card (spawned processes; eager steps, gloo's collectives staged
    through the host), 3 steps each against one process on the same
    groups, each rank's launches a step exact (edge = 2: 20/10/20 and
-   20/10/20/20/19, the pair path 10 and 10) and the boundary exchange's
+   20/10/20/20/19, #1 and #2 all the pair path's) and the boundary
+   exchange's
    rows and bytes a layer; under edge = 2 each rank also takes a
    ``dropout=0.1`` forward and backward twice from the same state, whose
    loss and summed gradient must have the same bits (the halo layer's
@@ -133,21 +135,23 @@ failure exits non-zero:
    the collectives captured, against the one-card trainer; dp = 2 over
    NCCL when there are two cards, else a line saying it was skipped;
 9. export: ``cli.export`` on phase 5's run directory, ``load_artifact``
-   on the card, phase 3's requests served from it with exact launches (a
-   warm-up and a capture for each signature, replays after), the
+   on the card, phase 3's requests served from it with exact launches
+   (one forward's a request: a warm-up and a capture for each signature,
+   replays after), the
    predictions within phase 3's bf16 tolerance of that run's trainer's
    own ``predict``;
 10. streaming: phase 5's crystals in 4 shards (its validation split
    apart), ``cli.train --streaming --smoke-test`` with single steps and
    with ``--steps-per-dispatch 2``: finite metrics, exact launches for
-   the stream's captured keys, fewer keys than steps, graphs/s beside
+   the stream's steps, fewer captured keys than steps, graphs/s beside
    phase 5's in-memory epochs;
 11. gp: the GP head on phase 4's frozen model over 2,048 crystals at the
    reference GP's settings (500 inducing points, 512 crystals a step):
    #1, #3 and #5 against their plain versions at a 512-crystal batch's
    shapes; ``fit_gp_streaming`` for 2 epochs of 4 steps with exact
-   launches (each batch shape's eager first step and capture, replays
-   after); GP steps replayed against eager ones on the card bit for bit,
+   launches (one forward's a step: each batch shape's eager first step
+   and capture, replays after); GP steps replayed against eager ones on
+   the card bit for bit,
    a replayed step's launches (10/6/20 forward, no backward kernel), step
    ms, busy ms, idle share and peak memory; on 512 crystals, one batch an
    epoch, the on-the-fly history against ``Trainer.embeddings`` +
@@ -191,7 +195,8 @@ failure exits non-zero:
    ``serve_replay_launches``, phase 9's as ``export_launches``, phase
    10's as ``streaming_launches``, phase 11's fit as ``gp_launches``,
    phase 12's as ``al_launches`` and phase 13's as ``tools_launches``;
-   the dropout row's launches are phase 6's dropout steps'); the last
+   the dropout row's launches, forward and backward, are phase 6's
+   dropout steps'); the last
    line is ``{"ok": true, "device": {...}}``.
 
 Device time comes from ``cgat_tpu_torch.utils.profiling.device_ms`` and
@@ -226,7 +231,8 @@ import numpy as np
 import torch
 
 from cgat_tpu_torch.device import card_line
-from cgat_tpu_torch.utils import roofline
+from cgat_tpu_torch.ops.kernels import ENTRIES
+from cgat_tpu_torch.utils import counters, roofline
 from cgat_tpu_torch.utils.profiling import device_ms
 from cgat_tpu_torch.utils.roofline import (BF16_TENSOR_FLOPS, F32_FLOPS,
                                            bound, hyper_work)
@@ -282,9 +288,9 @@ SHARE_LIMIT = 1.05             # a kernel's share of its roofline, at most
 STEP_TRACE_TOL = 0.05          # step_trace's total against phase 7's busy ms
 N_FUSED_CHECKED = 20           # updates the fused AdamW is held bit-equal over
 FUSED_ADAMW = "adamw_multi_tensor_apply_kernel"  # its device kernel's name
-# a substring of the name of the device kernel each wrapper launches (a
-# fixed number of times a call): phase 7 counts a replayed step's launches
-# by these names
+# a substring (or substrings) of the name of the device kernel each entry
+# launches (a fixed number of times a call): phases 3, 7 and 11 count a
+# replay's device events by these names
 REPLAY_KERNELS = {"segment_attention": "segment_attention_fwd",
                   "mh_network": "sm90::gemm_kernel<",
                   "hyper_apply": "fwd::kernel(",
@@ -293,8 +299,7 @@ REPLAY_KERNELS = {"segment_attention": "segment_attention_fwd",
                   "hyper_apply_bwd_dhdx": "dhdx::bwd_kernel(",
                   "hyper_apply_bwd_dk": "dk::kernel(",
                   "segment_sum": "segment_sum_kernel",
-                  "dropout": "dropout_fwd_kernel",
-                  "dropout_bwd": "dropout_bwd_kernel"}
+                  "dropout": ("dropout_fwd_kernel", "dropout_bwd_kernel")}
 
 
 def dropout_backward(n: int) -> dict[str, int]:
@@ -306,7 +311,7 @@ def dropout_backward(n: int) -> dict[str, int]:
     its 2n gathers' backward)."""
     return {"mh_network_bwd": 0, "segment_attention_bwd": 1,
             "hyper_apply_bwd_dhdx": 4 * n, "hyper_apply_bwd_dk": 4 * n,
-            "segment_sum": 6 * n + 1, "dropout_bwd": n}
+            "segment_sum": 6 * n + 1, "dropout": n}
 
 
 def variant_launches(n: int):
@@ -487,26 +492,23 @@ def attention_yardstick(alpha, m, offn, n_real, num_nodes):
 
 
 def launch_counts() -> dict[str, int]:
-    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS
-    return {k.__name__: k.launches for k in KERNEL_WRAPPERS}
+    """Each kernel's launches since the counts were last set to 0
+    (``counters.reset()``), by its wrapper's name (``ENTRIES``): the eager
+    ones and, since a replay adds what its graph's capture counted, the
+    replayed ones."""
+    from cgat_tpu_torch.ops.kernels import build
+    counts = build.launch_counts()
+    return {name: counts.get(entry, 0) for name, entry in ENTRIES.items()}
 
 
-def route_counts() -> dict[str, int]:
-    """segment_attention's launches by kernel: the stream kernel's and the
-    per-node kernel's."""
-    from cgat_tpu_torch.ops.kernels.segment_attention import \
-        segment_attention as sa
-    return {"stream": sa.stream_launches, "per_node": sa.per_node_launches}
-
-
-def reset_counts() -> None:
-    from cgat_tpu_torch.ops.kernels import KERNEL_WRAPPERS, adamw
-    from cgat_tpu_torch.ops.kernels.segment_attention import \
-        segment_attention as sa
-    for k in KERNEL_WRAPPERS:
-        k.launches = 0
-    sa.stream_launches = sa.per_node_launches = 0
-    adamw.reset_stats()
+def scaled(*tables) -> dict[str, int]:
+    """Each kernel's launches in (counts, times) pairs, summed: 0 for a
+    kernel no table names."""
+    out = dict.fromkeys(ENTRIES, 0)
+    for counts, times in tables:
+        for k, v in counts.items():
+            out[k] += v * times
+    return out
 
 
 def compare(name: str, got, want) -> dict:
@@ -669,11 +671,11 @@ def check_kernels(model, batch) -> list[dict]:
         # crystal pool's shape (nodes -> crystals)
         n_real = batch.edge_mask.sum(dtype=torch.int32)
         seg_args = (alpha, msg, batch.edge_dst_offn, n_real, n_nodes)
-        before = route_counts()
         out, mx, den = sk.segment_attention(*seg_args, return_stats=True)
-        if route_counts()["stream"] != before["stream"] + 1:
-            fail(f"segment_attention: the main path's call did not take the "
-                 f"stream kernel ({route_counts()} from {before})")
+        if not sk.streams(alpha.shape[1], alpha.element_size(), alpha, msg,
+                          out, mx, den):
+            fail("segment_attention: the main path's call does not take the "
+                 "stream kernel")
         p_out, p_mx, p_den = sk.segment_attention_plain(*seg_args)
         checks = [compare("segment_attention", out, p_out)]
         if not torch.equal(mx, p_mx):
@@ -760,7 +762,8 @@ def check_attention_layouts() -> dict:
     H*F = 640 (rows of whole 16-byte groups: the stream kernel) and f32 at
     13 (the per-node kernel), seeded random rows: within the tolerances of
     the plain version, its max bit-equal and its den within rtol 1e-4, the
-    same bits twice, and one launch under the right kernel's counter."""
+    same bits twice, and one launch, through the kernel ``streams``
+    names."""
     from cgat_tpu_torch.data.synthetic import SEGMENT_LAYOUTS, segment_layout
     from cgat_tpu_torch.ops.kernels import segment_attention as sk
 
@@ -780,12 +783,15 @@ def check_attention_layouts() -> dict:
                         torch.tensor(n_real, dtype=torch.int32,
                                      device="cuda"), n)
                 name = f"segment_attention {kind} {str(dtype)[6:]} {hf}"
-                before = route_counts()
+                counters.reset()
                 out, mx, den = sk.segment_attention(*args, return_stats=True)
-                got = {k: v - before[k] for k, v in route_counts().items()}
-                if got != {"stream": route == "stream",
-                           "per_node": route == "per_node"}:
-                    fail(f"{name}: launched {got}, not one {route} kernel")
+                got = launch_counts()["segment_attention"]
+                took = "stream" if sk.streams(hf, args[0].element_size(),
+                                              *args[:2], out, mx, den) \
+                    else "per_node"
+                if got != 1 or took != route:
+                    fail(f"{name}: {got} launches of the {took} kernel, not "
+                         f"one of the {route} kernel")
                 p_out, p_mx, p_den = sk.segment_attention_plain(*args)
                 check = compare(name, out, p_out)
                 if not torch.equal(mx, p_mx):
@@ -801,8 +807,8 @@ def check_attention_layouts() -> dict:
     print(f"[kernels] segment_attention on {len(SEGMENT_LAYOUTS)} edge "
           f"layouts x (bf16 640: stream, f32 13: per-node): each within "
           f"tolerance (worst norm-wise {worst['rel_norm_err']:.3e}), max "
-          f"bit-equal, the same bits twice, launches under each kernel's "
-          f"counter")
+          f"bit-equal, the same bits twice, one launch each through its "
+          f"kernel")
     return res
 
 
@@ -879,9 +885,8 @@ def settled_allocated() -> int:
 
 def forward_events_a_call(server, graphs) -> dict[str, float]:
     """Device events a wrapper call of each forward kernel, from the
-    profiler over eager requests (``server.graphs`` None), whose wrapper
-    counts are exact."""
-    reset_counts()
+    profiler over eager requests (``server.graphs`` None)."""
+    counters.reset()
     prof = device_ms(lambda: server.predict(graphs), 3)
     calls = {k: v / 3 for k, v in launch_counts().items() if v}
     if calls != PER_FORWARD:
@@ -897,37 +902,37 @@ def forward_events_a_call(server, graphs) -> dict[str, float]:
 
 def serve(model, requests, card: str) -> tuple[dict, dict]:
     """Phase 3: answer the requests through ``ServingModel.predict`` on the
-    card, each signature's forward a replayed CUDA graph. A signature's
-    first request (eager warm-up, then the capture) must call each
-    wrapper twice a forward, a later one never, and segment_attention's
-    through its stream kernel every time; a replay must give the
-    warm-up's bits on the same batch and, by the profiler's device events
-    by kernel name, launch 10/6/20. Each signature's first request is
-    timed with its capture and peak memory; the steady replayed requests
-    beside an eager ServingModel's on the same requests."""
+    card, each signature's forward a replayed CUDA graph. Every request
+    must count one forward's launches, a signature's first (the eager
+    warm-up; its capture's counts taken back) and each replay (its
+    capture's counts added); a replay must give the warm-up's bits on the
+    same batch and, by the profiler's device events by kernel name,
+    launch 10/6/20, segment_attention's through its stream kernel. Each
+    signature's first request is timed with its capture and peak memory;
+    the steady replayed requests beside an eager ServingModel's on the
+    same requests."""
     from cgat_tpu_torch.serving import ServingModel
 
     manifest = serving_manifest(requests)
     allocated = settled_allocated()
     server = ServingModel(manifest, model)
-    zero = dict.fromkeys(launch_counts(), 0)
-    capture = {**zero, **{k: 2 * v for k, v in PER_FORWARD.items()}}
-    reset_counts()
+    want = scaled((PER_FORWARD, 1))
+    launches = scaled()
     ms, first = [], {}
     for i, graphs in enumerate(requests):
         keys = len(server.graphs.graphs)
-        before = launch_counts()
+        counters.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         pred, log_std = server.predict(graphs)
         ms.append((time.perf_counter() - t0) * 1e3)
-        got = {k: v - before[k] for k, v in launch_counts().items()}
+        got = launch_counts()
         new = len(server.graphs.graphs) - keys
-        if new not in (0, 1) or got != (capture if new else zero):
+        if new not in (0, 1) or got != want:
             fail(f"request {i}: kernel launches {got} with {new} new "
-                 f"graphs; a signature's first request calls each wrapper "
-                 f"twice a forward, a replay never")
+                 f"graphs, not one forward's {want}")
+        launches = scaled((launches, 1), (got, 1))
         if pred.shape != (len(graphs),) or not (
                 np.isfinite(pred).all() and np.isfinite(log_std).all()):
             fail(f"request {i}: predictions not finite with shape "
@@ -935,7 +940,7 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
         n_atoms = sum(g.n_atoms for g in graphs)
         if new:
             key = list(server.graphs.graphs)[-1]
-            first[str(key[0][0])] = {
+            first[str(key[0][0][0])] = {
                 "request_ms": ms[-1],
                 "capture_ms": server.graphs.capture_s[key] * 1e3,
                 "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -947,11 +952,6 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
         print(f"[serve] signature of {n} node slots, first request: "
               f"{r['request_ms']:.2f} ms (capture {r['capture_ms']:.2f} ms), "
               f"peak device memory {r['peak_memory_gib']:.2f} GiB ({card})")
-    launches = launch_counts()
-    routes = route_counts()
-    if routes != {"stream": launches["segment_attention"], "per_node": 0}:
-        fail(f"segment_attention's serving launches by kernel {routes}: not "
-             f"all {launches['segment_attention']} through the stream kernel")
 
     # a replay against the eager warm-up on the same batch
     warm = server.predict(requests[0], return_embeddings=True)
@@ -963,14 +963,26 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
     eager = ServingModel(manifest, model)
     eager.graphs = None                      # the same forward, eagerly
     per_call = forward_events_a_call(eager, requests[1])
-    reset_counts()
+    counters.reset()
     prof = device_ms(lambda: server.predict(requests[1]), 3)
-    if any(launch_counts().values()):
-        fail(f"a replayed request called kernel wrappers: {launch_counts()}")
+    counted = {k: v / 3 for k, v in launch_counts().items()}
+    if counted != want:
+        fail(f"a replayed request counted {counted} launches, not its "
+             f"capture's {want}")
     replayed = {k: v / per_call[k] for k, v in kernel_events(prof).items()
                 if k in PER_FORWARD}
     if replayed != PER_FORWARD:
         fail(f"a replayed request launched {replayed}, not {PER_FORWARD}")
+    # every #1 forward of a replayed request through the stream kernel,
+    # by its device kernel's name (device events a request)
+    stream = "segment_attention_fwd_stream"
+    routes = {"stream": sum(v[1] for k, v in prof.items() if stream in k),
+              "per_node": sum(v[1] for k, v in prof.items()
+                              if "segment_attention_fwd" in k
+                              and stream not in k)}
+    if routes["per_node"] or not routes["stream"]:
+        fail(f"segment_attention's device events a replayed request by "
+             f"kernel {routes}: not all through the stream kernel")
     busy = sum(v[0] for v in prof.values())
     timed = {"replay": timed_ms(lambda: server.predict(requests[1]), N_TIMED),
              "eager": timed_ms(lambda: eager.predict(requests[1]), N_TIMED)}
@@ -989,8 +1001,9 @@ def serve(model, requests, card: str) -> tuple[dict, dict]:
     del server, eager
     stats["left_after_drop_bytes"] = settled_allocated() - allocated
     print(f"[serve] a replayed request equals the eager warm-up bit for bit; "
-          f"it launches {stats['replay_launches']} (device events by kernel "
-          f"name, {per_call} a call), device busy {busy:.2f} ms in "
+          f"it counts its capture's launches and launches "
+          f"{stats['replay_launches']} (device events by kernel name, "
+          f"{per_call} a call; #1 {routes}), device busy {busy:.2f} ms in "
           f"{stats['replay_device_events']:.0f} events; both servers "
           f"dropped, {stats['left_after_drop_bytes']} bytes stay allocated")
     print(f"[serve] steady state over {N_TIMED} requests of {N_GRAPHS}: "
@@ -1291,18 +1304,6 @@ def edge_launches(n: int) -> dict[str, int]:
             "hyper_apply_bwd_dk": 4 * n, "segment_sum": 3 * n + 4}
 
 
-def pair_counts() -> tuple[int, int]:
-    from cgat_tpu_torch.ops.kernels.segment_attention import \
-        SegmentAttentionPair as P
-    return P.fwd_launches, P.bwd_launches
-
-
-def reset_pair_counts() -> None:
-    from cgat_tpu_torch.ops.kernels.segment_attention import \
-        SegmentAttentionPair as P
-    P.fwd_launches = P.bwd_launches = 0
-
-
 def check_pair_path(model, graphs) -> dict:
     """Phase 2's pair-path row: #1 on each block, the f32 merge and #2 on
     each block against the merged arrays (``SegmentAttentionPair``), held
@@ -1405,8 +1406,7 @@ def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
     trainer.init_state(state_dict)
     loader = trainer.loader(trainer.train_graphs, shuffle=True)
     batches = iter(loader)
-    want = {**dict.fromkeys(launch_counts(), 0), **PER_FORWARD,
-            **PER_BACKWARD}
+    want = scaled((PER_FORWARD, 1), (PER_BACKWARD, 1))
 
     def next_batch():
         nonlocal batches
@@ -1449,25 +1449,26 @@ def train(cfg, state_dict) -> tuple[list[dict], dict, dict]:
         return res
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    launches = scaled()
     steps = []
     with capture_backward_inputs() as seen:
         for i in range(N_CHECKED_STEPS):
-            before = launch_counts()
+            counters.reset()
             steps.append(step(True))
-            got = {k: v - before[k] for k, v in launch_counts().items()}
+            got = launch_counts()
             if got != want:
                 fail(f"train step {i}: kernel launches {got} != {want}")
+            launches = scaled((launches, 1), (got, 1))
             print(f"[train] step {i}: loss {float(steps[-1]['loss']):.5f}, "
                   f"launches {got}")
+    counters.reset()
     timed = [step(False) for _ in range(N_TIMED_STEPS)]
-    launches = launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = launch_counts()
+    if got != scaled((want, N_TIMED_STEPS)):
+        fail(f"{N_TIMED_STEPS} timed training steps launched {got}")
+    launches = scaled((launches, 1), (got, 1))
     n_steps = N_CHECKED_STEPS + N_TIMED_STEPS
-    for name, count in want.items():
-        if launches[name] != count * n_steps:
-            fail(f"{name} launched {launches[name]} times in {n_steps} "
-                 f"training steps")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the first step's loss against the port's own bf16 step on the CPU
     t0 = time.perf_counter()
@@ -1549,7 +1550,7 @@ def cli_call(name: str, main, argv: list[str], want: dict[str, int],
     """One CLI entry point in this process: counts set to 0 just before,
     read just after and held to ``want``; returns them and its stdout."""
     progress(f"phase {phase}: {name}")
-    reset_counts()
+    counters.reset()
     out = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -1577,10 +1578,11 @@ def finite_metrics(path: str) -> list[dict]:
     return recs
 
 
-def cli_graph_keys(argv: list[str], epochs) -> tuple[int, int]:
-    """What ``cli.train argv`` does in ``epochs``: the CUDA graphs it
-    captures (one per batch shape signature among its training batches;
-    one optimizer phase) and the training steps it takes."""
+def cli_steps(argv: list[str], epochs) -> tuple[int, int]:
+    """What ``cli.train argv`` does in ``epochs``: the training steps it
+    takes, each counting one step's launches (eager or replayed), and the
+    batch shape signatures among them (one CUDA graph each; one optimizer
+    phase)."""
     import argparse
 
     from cgat_tpu_torch.cli import common as cli_common
@@ -1602,7 +1604,7 @@ def cli_graph_keys(argv: list[str], epochs) -> tuple[int, int]:
         for b in loader:
             sigs.add(signature(b.map(lambda t: t[0]) if k > 1 else b))
             steps += k
-    return len(sigs), steps
+    return steps, len(sigs)
 
 
 def eager_step(trainer, batch) -> dict:
@@ -1644,7 +1646,7 @@ def cli(tmp: str) -> tuple[dict, dict]:
             fail(f"structure {i}: native kNN differs from the numpy oracle")
     with gzip.open(os.path.join(tmp, "structures.pickle.gz"), "wb") as f:
         pickle.dump(entries, f)
-    zero = dict.fromkeys(launch_counts(), 0)
+    zero = scaled()
     total = dict(zero)
 
     def add(counts):
@@ -1670,19 +1672,18 @@ def cli(tmp: str) -> tuple[dict, dict]:
           f"{steps} steps an epoch")
 
     def want(fwd: int, bwd: int) -> dict[str, int]:
-        return {**zero, **{k: v * fwd for k, v in PER_FORWARD.items()},
-                **{k: v * bwd for k, v in PER_BACKWARD.items()}}
+        return scaled((PER_FORWARD, fwd), (PER_BACKWARD, bwd))
 
     logs = os.path.join(tmp, "logs")
     run = os.path.join(logs, "runs", "cli")
     argv = ["--data-path", data, "--target", "e_above_hull", "--smoke-test",
             "--ckpt-dir", logs, "--run-name", "cli"]
-    # each training step a replay of its shape's CUDA graph, each shape's
-    # first step eager and then captured: the wrappers count those two
-    keys, _ = cli_graph_keys(argv, range(2))
+    # each training step a replay of its shape's CUDA graph (a shape's
+    # first step eager, then captured), one step's launches either way
+    taken, keys = cli_steps(argv, range(2))
     # epochs 0 and 1, validated after epoch 1 (every second epoch)
     add(cli_call("cli.train --smoke-test", cli_train.main, argv,
-                 want(2 * keys + evals, 2 * keys))[0])
+                 want(taken + evals, taken))[0])
     epochs = [r for r in finite_metrics(os.path.join(run, "metrics.jsonl"))
               if "train_loss" in r]
     counts, out = cli_call("cli.evaluate", cli_evaluate.main, [run],
@@ -1706,10 +1707,10 @@ def cli(tmp: str) -> tuple[dict, dict]:
         fail(f"cli.predict --embeddings: embeddings not finite with shape "
              f"({n}, 640)")
     # epoch 2 only, not validated, in a new trainer with graphs of its own
-    keys_2, _ = cli_graph_keys(argv, [2])
+    taken_2, keys_2 = cli_steps(argv, [2])
     counts, out = cli_call("cli.train --ckp", cli_train.main,
                            ["--ckp", run, "--epochs", "3"],
-                           want(2 * keys_2, 2 * keys_2))
+                           want(taken_2, taken_2))
     add(counts)
     resumed = [r for r in finite_metrics(os.path.join(run, "metrics.jsonl"))
                if "train_loss" in r][len(epochs):]
@@ -1763,9 +1764,10 @@ def export(tmp, requests, card: str) -> tuple[dict, dict]:
     the node buckets of phase 3's requests), ``load_artifact`` on the card,
     and phase 3's requests served from it: each signature's first request
     the eager warm-up and the capture, the rest replays, with exact
-    launches; the predictions agree with that run's trainer's own
-    ``predict`` within the bf16 tolerance of phase 3's CPU check. Returns
-    the phase's numbers and the wrapper launches of the served requests."""
+    launches (one forward's a request); the predictions agree with that
+    run's trainer's own ``predict`` within the bf16 tolerance of phase 3's
+    CPU check. Returns the phase's numbers and the launches of the served
+    requests."""
     from cgat_tpu_torch.cli import export as cli_export
     from cgat_tpu_torch.data import pad_to_bucket
     from cgat_tpu_torch.serving import load_artifact
@@ -1775,11 +1777,10 @@ def export(tmp, requests, card: str) -> tuple[dict, dict]:
     out = os.path.join(tmp, "artifact")
     buckets = sorted({pad_to_bucket(sum(g.n_atoms for g in r), 64)
                       for r in requests})
-    zero = dict.fromkeys(launch_counts(), 0)
     t0 = time.perf_counter()
     _, text = cli_call("cli.export", cli_export.main,
                        [run, out, "--node-buckets", *map(str, buckets)],
-                       zero, phase=9)
+                       scaled(), phase=9)
     export_s = time.perf_counter() - t0
     with open(os.path.join(out, "manifest.json")) as f:
         manifest = json.load(f)
@@ -1788,7 +1789,7 @@ def export(tmp, requests, card: str) -> tuple[dict, dict]:
         fail(f"cli.export wrote signatures {manifest['signatures']} and "
              f"platforms {manifest['platforms']}")
     progress("phase 9: load_artifact and serve")
-    reset_counts()
+    counters.reset()
     t0 = time.perf_counter()
     server = load_artifact(out)
     load_s = time.perf_counter() - t0
@@ -1801,10 +1802,11 @@ def export(tmp, requests, card: str) -> tuple[dict, dict]:
         preds.append(server.predict(graphs)[0])
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
-    want = {**zero, **{k: 2 * v * len(buckets) for k, v in PER_FORWARD.items()}}
+    want = scaled((PER_FORWARD, len(requests)))
     if launches != want or len(server.graphs.graphs) != len(buckets):
-        fail(f"the artifact's requests launched {launches}, not {want} (a "
-             f"warm-up and a capture for each of {len(buckets)} signatures)")
+        fail(f"the artifact's {len(requests)} requests launched {launches}, "
+             f"not {want}, or captured {len(server.graphs.graphs)} graphs "
+             f"for {len(buckets)} signatures")
     with contextlib.redirect_stdout(io.StringIO()):
         trainer, meta = load_trainer(run, tag="best", device="cuda")
     errs = []
@@ -1845,10 +1847,10 @@ def streaming(tmp, data, card: str) -> tuple[dict, dict]:
     crystals are split into N_SHARDS shards (its validation split apart,
     as ``--val-path``); ``cli.train --streaming --smoke-test`` trains 2
     epochs from them with single steps and with ``--steps-per-dispatch
-    2``: finite metrics, the wrapper launches its captures (one a batch
-    shape of the stream) and validation imply, fewer captures than steps,
-    and its graphs/s beside phase 5's in-memory epochs. Returns the
-    phase's numbers and the launches of both calls."""
+    2``: finite metrics, the launches its steps and validation imply,
+    fewer captures (one a batch shape of the stream) than steps, and its
+    graphs/s beside phase 5's in-memory epochs. Returns the phase's
+    numbers and the launches of both calls."""
     from cgat_tpu_torch.cli import train as cli_train
     from cgat_tpu_torch.data.dataset import split_dataset
 
@@ -1866,8 +1868,7 @@ def streaming(tmp, data, card: str) -> tuple[dict, dict]:
             pickle.dump(subset_prepared(prepared, part), f)
     with gzip.open(os.path.join(val_dir, "val.pickle.gz"), "wb") as f:
         pickle.dump(subset_prepared(prepared, sorted(val)), f)
-    zero = dict.fromkeys(launch_counts(), 0)
-    total = dict(zero)
+    total = scaled()
     evals = -(-len(val) // N_GRAPHS)
     stats: dict = {"shards": N_SHARDS, "streamed": len(rest),
                    "val": len(val)}
@@ -1878,10 +1879,8 @@ def streaming(tmp, data, card: str) -> tuple[dict, dict]:
                 os.path.join(tmp, "logs"), "--run-name", name]
         if k > 1:
             argv += ["--steps-per-dispatch", str(k)]
-        keys, steps = cli_graph_keys(argv, range(2))
-        want = {**zero, **{w: v * (2 * keys + evals)
-                           for w, v in PER_FORWARD.items()},
-                **{w: v * 2 * keys for w, v in PER_BACKWARD.items()}}
+        steps, keys = cli_steps(argv, range(2))
+        want = scaled((PER_FORWARD, steps + evals), (PER_BACKWARD, steps))
         counts, _ = cli_call(f"cli.train --streaming --steps-per-dispatch {k}",
                              cli_train.main, argv, want, phase=10)
         for w, v in counts.items():
@@ -1964,35 +1963,25 @@ def check_hyper_kernels_at_edge_rows(rec) -> dict[str, dict]:
     return rows
 
 
-def graph_keys(trainer) -> int:
-    """The CUDA graphs of the step ``trainer`` has captured."""
-    return 0 if trainer.step_graphs is None else len(
-        trainer.step_graphs.graphs)
-
-
 def variant_steps(name, trainer, n_steps, want_fwd, want_bwd, seen=None
                   ) -> tuple[list[float], dict[str, int]]:
     """``n_steps`` training steps of ``trainer`` (``train_step``), each
-    with a finite loss and its kernel launches (counts set to 0 just
-    before the step, read just after) held to ``want_fwd`` and
-    ``want_bwd`` twice for a step whose key is new (its eager first step,
-    then the capture) and never for a replay. Returns the losses and the
-    launches of all the steps."""
+    with a finite loss and its kernel launches (counts read just before
+    the step and just after) held to ``want_fwd`` and ``want_bwd``, a
+    step whose key is new (its eager first step, then the capture) and a
+    replay alike. Returns the losses and the launches of all the
+    steps."""
     loader = trainer.loader(trainer.train_graphs, shuffle=True)
-    zero = dict.fromkeys(launch_counts(), 0)
-    total = dict(zero)
+    total = scaled()
+    want = scaled((want_fwd, 1), (want_bwd, 1))
     losses = []
     with (capture_backward_inputs() if seen is not None
           else contextlib.nullcontext({})) as rec:
         for i, batch in zip(range(n_steps), loader):
-            keys = graph_keys(trainer)
-            reset_counts()
+            counters.reset()
             loss = trainer.train_step(batch)["loss"]
             torch.cuda.synchronize()
             got = launch_counts()
-            times = 2 * (graph_keys(trainer) - keys)
-            want = {**zero, **{k: v * times for k, v in
-                               {**want_fwd, **want_bwd}.items()}}
             if got != want:
                 fail(f"{name}, step {i}: kernel launches {got} != {want}")
             if not torch.isfinite(loss):
@@ -2026,7 +2015,7 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
     from cgat_tpu_torch.models import CGAtNet
     from cgat_tpu_torch.training import Trainer, TrainerConfig
 
-    total = dict.fromkeys(launch_counts(), 0)
+    total = scaled()
 
     def add(counts):
         for key, v in counts.items():
@@ -2126,18 +2115,16 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
     evals_val = data["val_batches"]
 
     def want(fwd_n, bwd_n):
-        return {**dict.fromkeys(total, 0),
-                **{k: v * fwd_n for k, v in he_fwd.items()},
-                **{k: v * bwd_n for k, v in he_bwd.items()}}
+        return scaled((he_fwd, fwd_n), (he_bwd, bwd_n))
 
     logs = os.path.join(tmp, "logs")
     run = os.path.join(logs, "runs", "hyper_edges")
     argv = ["--data-path", data["data_path"], "--target", "e_above_hull",
             "--smoke-test", "--hyper-edges", "--ckpt-dir", logs,
             "--run-name", "hyper_edges"]
-    keys, _ = cli_graph_keys(argv, range(2))
+    steps, _ = cli_steps(argv, range(2))
     add(cli_call("cli.train --hyper-edges --smoke-test", cli_train.main,
-                 argv, want(2 * keys + evals_val, 2 * keys), phase=6)[0])
+                 argv, want(steps + evals_val, steps), phase=6)[0])
     finite_metrics(os.path.join(run, "metrics.jsonl"))
     counts, out = cli_call("cli.evaluate (hyper edges)", cli_evaluate.main,
                            [run], want(data["test_batches"], 0), phase=6)
@@ -2167,13 +2154,15 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
             add(counts)
             if tkw.get("version") and type(trainer.model).__module__ != PLUGIN:
                 fail(f"--version built {type(trainer.model).__module__}")
-            stats["variants"][name] = {"losses": losses,
-                                       "graph_keys": graph_keys(trainer),
+            keys = len(trainer.step_graphs.graphs)
+            stats["variants"][name] = {"losses": losses, "graph_keys": keys,
                                        "s": time.perf_counter() - t0}
-            print(f"[variants] {name}: {N_VARIANT_STEPS} steps "
-                  f"({graph_keys(trainer)} step graphs captured), losses "
+            per_step = {k: v for k, v in scaled((fwd, 1), (bwd, 1)).items()
+                        if v}
+            print(f"[variants] {name}: {N_VARIANT_STEPS} steps ({keys} step "
+                  f"graphs captured), losses "
                   f"{[round(v, 5) for v in losses]}, launches a step "
-                  f"{ {**fwd, **bwd} }")
+                  f"{per_step}")
             del trainer
             torch.cuda.empty_cache()
     finally:
@@ -2182,10 +2171,12 @@ def variants(tmp, cfg, state_dict, data) -> tuple[dict, dict]:
 
 
 def kernel_events(per_name: dict) -> dict[str, float]:
-    """Device events a run of each wrapper's kernel (``REPLAY_KERNELS``)
+    """Device events a run of each entry's kernels (``REPLAY_KERNELS``)
     in a ``device_ms`` result."""
-    return {w: round(sum(v[1] for k, v in per_name.items() if pat in k), 6)
-            for w, pat in REPLAY_KERNELS.items()}
+    def named(k, pat):
+        return any(p in k for p in ((pat,) if isinstance(pat, str) else pat))
+    return {w: round(sum(v[1] for k, v in per_name.items() if named(k, pat)),
+                     6) for w, pat in REPLAY_KERNELS.items()}
 
 
 def events_a_call(prof: dict, calls: dict) -> dict[str, float]:
@@ -2308,7 +2299,7 @@ def flat_against_plain(tcfg, eager, batch) -> dict:
         *roofline.adamw_work(n, fopt.inner.mu[0].element_size()),
         roofline.PEAKS["adamw"])
     for key, (ps, opt) in runs.items():
-        adamw.reset_stats()
+        counters.reset()
         opt.step()
         fused_launches = adamw.stats()["launches"]
         issue = []
@@ -2379,16 +2370,16 @@ def prefetched_steps(trainer, card: str) -> dict:
     return res
 
 
-def dropout_groups(tcfg, cfg, state_dict, graphs, want, per_call,
-                   plain_losses, card: str) -> dict:
+def dropout_groups(tcfg, cfg, state_dict, graphs, per_call, plain_losses,
+                   card: str) -> dict:
     """Phase 7's dropout groups: two ``dropout=DROPOUT`` trainers from one
     state take the same K = 4 groups, one eagerly step by step and one
     through ``train_group`` (replays after each shape's first step): the
     losses must be the same bits and differ from the dropout-free
-    model's on the same groups; a replayed dropout step launches exactly
-    what an eager one calls (device events by kernel name: the dropout
-    kernel once a node layer forward and once backward); eager and
-    replayed step times, busy ms, idle share."""
+    model's on the same groups; a replayed dropout step counts and
+    launches exactly what an eager one launches (device events by kernel
+    name: the dropout kernel once a node layer forward and once
+    backward); eager and replayed step times, busy ms, idle share."""
     from cgat_tpu_torch.training import Trainer
 
     progress("phase 7: dropout groups")
@@ -2407,7 +2398,7 @@ def dropout_groups(tcfg, cfg, state_dict, graphs, want, per_call,
         got["eager"] += [float(eager_step(eager, gdev.map(
             lambda t, i=i: t[i]))["loss"]) for i in range(N_DISPATCH)]
         got["graph"] += [float(m["loss"]) for m in graph.train_group(group)]
-    keys = graph_keys(graph)
+    keys = len(graph.step_graphs.graphs)
     if got["eager"] != got["graph"] or not all(map(math.isfinite,
                                                    got["graph"])):
         fail(f"replayed dropout steps' losses {got['graph']} differ from "
@@ -2417,18 +2408,20 @@ def dropout_groups(tcfg, cfg, state_dict, graphs, want, per_call,
     if got["graph"] == plain_losses:
         fail("dropout changed no loss")
     batch = gdev.map(lambda t: t[0])
-    d_want = {**want, "mh_network": 0, "segment_attention": 1,
-              "dropout": n, **dropout_backward(n)}
-    reset_counts()
+    d_want = scaled(({**PER_FORWARD, "mh_network": 0, "segment_attention": 1,
+                      "dropout": n}, 1), (dropout_backward(n), 1))
+    counters.reset()
     eager_prof = device_ms(lambda: eager_step(eager, batch), 3)
     calls = {k: v / 3 for k, v in launch_counts().items()}
     if calls != d_want:
         fail(f"eager dropout steps launched {calls} a step, not {d_want}")
     d_per_call = {**per_call, **events_a_call(eager_prof, calls)}
-    reset_counts()
+    counters.reset()
     replay_prof = device_ms(lambda: graph.train_step(batch), 3)
-    if any(launch_counts().values()):
-        fail(f"a dropout replay called kernel wrappers: {launch_counts()}")
+    counted = {k: v / 3 for k, v in launch_counts().items()}
+    if counted != d_want:
+        fail(f"a replayed dropout step counted {counted} launches, not "
+             f"{d_want}")
     replayed = replayed_launches(replay_prof, d_per_call)
     if replayed != d_want:
         fail(f"a replayed dropout step launched {replayed}, not {d_want}")
@@ -2475,21 +2468,20 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
        bits over 20 updates, mu in bf16 and in f32; their host ms, device
        events and ``multi_tensor_apply`` launches a step, and the fused
        pass's device ms beside its bound.
-    3. The launches a replayed step: each kernel's device events from the
-       profiler, divided by its events a call in an eager step (whose
-       wrapper counts are exact), must be 10/6/20 forward and
-       10/6/20/20/11 backward; a replay calls no wrapper; its optimizer
-       is the fused pass alone, 1 to 3 ``multi_tensor_apply`` launches,
-       which ``fused_stats`` counts over the model's parameters.
+    3. The launches a replayed step: its counts (its capture's, added by
+       the replay) and each kernel's device events from the profiler,
+       divided by its events a call in an eager step, must be 10/6/20
+       forward and 10/6/20/20/11 backward; its optimizer is the fused pass
+       alone, 1 to 3 ``multi_tensor_apply`` launches, which
+       ``fused_stats`` counts over the model's parameters.
     4. Eager and replayed steps on a resident batch (median and minimum
        of ``N_DISPATCH_TIMED``), and each path's ms a step over groups
        collated on the host; the card's busy ms, idle share and device
        events a step on each path; capture seconds per shape; peak
        memory.
     5. ``cli.train --steps-per-dispatch 2 --smoke-test`` on phase 5's data:
-       finite metrics, and the wrapper counts its eager steps and captures
-       imply (the first step of each shape runs eagerly and its capture
-       calls every wrapper once more; evaluation is eager).
+       finite metrics, and one step's launches a step, eager or replayed,
+       and one forward's a validation batch.
     Returns the phase's numbers and the launches a replayed step."""
     from cgat_tpu_torch.cli import train as cli_train
     from cgat_tpu_torch.data.synthetic import random_graphs
@@ -2567,20 +2559,21 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
 
     # 3. the launches of a replayed step, from the profiler
     progress("phase 7: launches under replay")
-    reset_counts()
+    counters.reset()
     eager_prof = device_ms(lambda: eager_step(eager, batch), 3)
     calls = {k: v / 3 for k, v in launch_counts().items()}
-    want = {**dict.fromkeys(calls, 0), **PER_FORWARD, **PER_BACKWARD}
+    want = scaled((PER_FORWARD, 1), (PER_BACKWARD, 1))
     if calls != want:
         fail(f"eager steps launched {calls} a step, not {want}")
     if not eager_prof:
         fail("the profiler recorded no device events")
     per_call = events_a_call(eager_prof, calls)
-    reset_counts()
+    counters.reset()
     replay_prof = device_ms(lambda: graph.train_step(batch), 3)
     fused = {k: v / 3 for k, v in fused_stats().items()}
-    if any(launch_counts().values()):
-        fail(f"a replay called kernel wrappers: {launch_counts()}")
+    counted = {k: v / 3 for k, v in launch_counts().items()}
+    if counted != want:
+        fail(f"a replayed step counted {counted} launches, not {want}")
     replayed = replayed_launches(replay_prof, per_call)
     if replayed != want:
         fail(f"a replayed step launched {replayed}, not {want}")
@@ -2603,8 +2596,8 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
           f"{fused['launches']:.0f} launches over {fused['elements']:.0f} "
           f"elements ({n_params} parameters)")
 
-    stats["dropout"] = dropout_groups(tcfg, cfg, state_dict, graphs, want,
-                                      per_call, losses["graph"], card)
+    stats["dropout"] = dropout_groups(tcfg, cfg, state_dict, graphs, per_call,
+                                      losses["graph"], card)
 
     # 4. step times, busy time, events, capture, memory
     progress("phase 7: timing")
@@ -2661,12 +2654,10 @@ def dispatch(tmp, cfg, state_dict, data, card: str) -> tuple[dict, dict]:
     argv = ["--data-path", data["data_path"], "--target", "e_above_hull",
             "--smoke-test", "--steps-per-dispatch", "2", "--ckpt-dir",
             os.path.join(tmp, "logs"), "--run-name", "dispatch"]
-    # 2 epochs; each shape's eager first step and capture call the wrappers
-    keys, steps = cli_graph_keys(argv, range(2))
-    cli_want = {**dict.fromkeys(launch_counts(), 0),
-                **{k: v * (2 * keys + data["val_batches"])
-                   for k, v in PER_FORWARD.items()},
-                **{k: v * 2 * keys for k, v in PER_BACKWARD.items()}}
+    # 2 epochs; each step one step's launches, eager or replayed
+    steps, keys = cli_steps(argv, range(2))
+    cli_want = scaled((PER_FORWARD, steps + data["val_batches"]),
+                      (PER_BACKWARD, steps))
     counts, _ = cli_call("cli.train --steps-per-dispatch 2 --smoke-test",
                          cli_train.main, argv, cli_want, phase=7)
     recs = [r for r in finite_metrics(os.path.join(
@@ -2715,7 +2706,7 @@ def _parallel_rank(rank: int, n: int, port: int, spec: dict) -> None:
                 CGATConfig(compute_dtype="bfloat16"), mean=spec["mean"],
                 std=spec["std"], device="cuda")
     t.init_state(torch.load(spec["state_dict"]))
-    rec = {"losses": [], "step_ms": [], "launches": [], "pair": [],
+    rec = {"losses": [], "step_ms": [], "launches": [],
            "backend": t.mesh.backend, "device": str(t.device)}
     for i, group in enumerate(t.mesh_loader(parallel_graphs(),
                                             shuffle=False)):
@@ -2723,8 +2714,7 @@ def _parallel_rank(rank: int, n: int, port: int, spec: dict) -> None:
             break
         batch = t.rank_batch(group)
         torch.cuda.synchronize()
-        reset_counts()
-        reset_pair_counts()
+        counters.reset()
         before = dict(collectives.calls)
         t0 = time.perf_counter()
         m = t.train_step(batch)
@@ -2733,7 +2723,6 @@ def _parallel_rank(rank: int, n: int, port: int, spec: dict) -> None:
         rec["collectives"] = {k: v - before[k]
                               for k, v in collectives.calls.items()}
         rec["launches"].append(launch_counts())
-        rec["pair"].append(pair_counts())
         rec["losses"].append(float(m["loss"]))
     rec["replayed"] = t.step_graphs is not None
     if spec["edge_shards"] > 1:
@@ -2761,7 +2750,7 @@ def dropout_twice(t, state_path: str, batch) -> dict:
                      torch.zeros((), dtype=torch.int64, device=t.device))
     runs, launches = [], None
     for _ in range(2):
-        reset_counts()
+        counters.reset()
         model.zero_grad(set_to_none=True)
         out = model(batch, edge_group=mesh.edge, dropout_key=key)
         loss, _ = global_loss_and_metrics(out, batch, t.mean, t.std,
@@ -2876,9 +2865,8 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
     stats = {"card": card, "crystals_per_replica": N_GRAPHS,
              "steps": N_PARALLEL_STEPS}
     n_layers = cfg.n_graph
-    zero = dict.fromkeys(launch_counts(), 0)
-    want_dp = {**zero, **PER_FORWARD, **PER_BACKWARD}
-    want_edge = {**zero, **edge_launches(n_layers)}
+    want_dp = scaled((PER_FORWARD, 1), (PER_BACKWARD, 1))
+    want_edge = scaled((edge_launches(n_layers), 1))
     launches = {}
     for label, n, shards, want in (("dp2_gloo", 2, 1, want_dp),
                                    ("edge2_gloo", 2, 2, want_edge)):
@@ -2898,10 +2886,6 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
                 if got != want:
                     fail(f"{label} rank {r} step {i}: launches {got} != "
                          f"{want}")
-            want_pair = (2 * n_layers, 2 * n_layers) if shards > 1 else (0, 0)
-            if any(tuple(p) != want_pair for p in rec["pair"]):
-                fail(f"{label} rank {r}: pair-path launches {rec['pair']} "
-                     f"!= {want_pair} a step")
         diff = rel_diff(ranks[0]["losses"], ref)
         if not diff <= MODEL_RTOL:
             fail(f"{label}: losses {ranks[0]['losses']} vs one process "
@@ -2924,6 +2908,12 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
                                                      for rec in ranks],
                         "collectives_per_step": ranks[0]["collectives"],
                         "launches_per_rank_step": want}
+        if shards > 1:
+            # the layers' #1 and #2 launches are the pair path's (the pool
+            # takes #8): what rank 0 counted in its last step
+            stats[label]["pair_launches_per_rank_step"] = {
+                k: ranks[0]["launches"][-1][k]
+                for k in ("segment_attention", "segment_attention_bwd")}
         launches[label] = want
         print(f"[parallel] {label}: losses {ranks[0]['losses']} vs one "
               f"process {ref}: largest relative difference {diff:.3e} (tol "
@@ -2931,9 +2921,6 @@ def parallel(tmp, cfg, state_dict, card: str) -> tuple[dict, dict]:
               f"{[[round(x, 2) for x in rec['step_ms']] for rec in ranks]}"
               f" (eager, gloo staged through the host); launches a rank "
               f"and step {want}; world {wall:.1f} s")
-    stats["edge2_gloo"]["pair_launches_per_rank_step"] = {
-        "segment_attention": 2 * n_layers,
-        "segment_attention_bwd": 2 * n_layers}
     stats["exchange"] = exchange_stats()
     print(f"[parallel] edge2 exchange: {stats['exchange']}")
 
@@ -3044,9 +3031,9 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
     (a) #1, #3 and #5 against their plain versions at a GP batch's shapes
         (phase 2's checks on the bf16 ``model``), the same bits twice.
     (b) ``fit_gp_streaming`` for ``GP_EPOCHS`` epochs of 4 steps: exact
-        wrapper launches (the inducing batch's forward, then each batch
-        shape's eager first step and capture: 10/6/20 each, no backward
-        kernel); then ``GP_CHECKED`` batches twice through a ``GPFit``
+        launches (the inducing batch's forward, then each step's, eager
+        or replayed: 10/6/20 each, no backward kernel); then
+        ``GP_CHECKED`` batches twice through a ``GPFit``
         whose steps replay and one whose steps are eager on the card: the
         same losses and parameters bit for bit; a replayed step's device
         events by kernel name (10/6/20 forward, no backward kernel); step
@@ -3079,9 +3066,8 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
         return len(keys), steps
 
     def forwards(k: int) -> dict[str, int]:
-        return {**zero, **{w: v * k for w, v in PER_FORWARD.items()}}
+        return scaled((PER_FORWARD, k))
 
-    zero = dict.fromkeys(launch_counts(), 0)
     stats: dict = {"pool": N_GP_GRAPHS, "batch": GP_BATCH,
                    "inducing": GP_INDUCING}
     pool = random_graphs(500, N_GP_GRAPHS, n_atoms_range=(8, 16),
@@ -3115,7 +3101,7 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
     torch._C._cuda_clearCublasWorkspaces()
     allocated = settled_allocated()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counters.reset()
     t0 = time.perf_counter()
     params, history = gp.fit_gp_streaming(
         backbone, pool, mean=mean, std=std, num_inducing=GP_INDUCING,
@@ -3124,9 +3110,9 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = launch_counts()
-    if fit_launches != forwards(1 + 2 * keys):
+    if fit_launches != forwards(1 + steps):
         fail(f"fit_gp_streaming ({keys} batch shapes in {steps} steps) "
-             f"launched {fit_launches}, not {forwards(1 + 2 * keys)}")
+             f"launched {fit_launches}, not {forwards(1 + steps)}")
     if not (np.isfinite(history).all()
             and all(torch.isfinite(t).all() for _, t in params.named())):
         fail(f"fit_gp_streaming: non-finite history {history} or params")
@@ -3136,7 +3122,7 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
           f"({keys} batch shapes, each eager then captured) in {fit_s:.2f} "
           f"s, -ELBO by epoch {[round(v, 5) for v in history]}, launches "
           f"{ {k: v for k, v in fit_launches.items() if v} } (the inducing "
-          f"batch's forward, then 2 a shape)")
+          f"batch's forward, then 1 a step)")
     del params
 
     progress("phase 11: replayed against eager GP steps")
@@ -3163,16 +3149,17 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
             fail(f"GP parameter {name}: replayed and eager steps differ")
     batch = batches[0]
     want = forwards(1)
-    reset_counts()
+    counters.reset()
     eager_prof = device_ms(lambda: fits["eager"].step(batch), 3)
     calls = {k: v / 3 for k, v in launch_counts().items()}
     if calls != want:
         fail(f"an eager GP step launched {calls}, not {want}")
     per_call = events_a_call(eager_prof, calls)
-    reset_counts()
+    counters.reset()
     replay_prof = device_ms(lambda: fits["graph"].step(batch), 3)
-    if any(launch_counts().values()):
-        fail(f"a GP replay called kernel wrappers: {launch_counts()}")
+    counted = {k: v / 3 for k, v in launch_counts().items()}
+    if counted != want:
+        fail(f"a replayed GP step counted {counted} launches, not {want}")
     replayed = replayed_launches(replay_prof, per_call)
     if replayed != want:
         fail(f"a replayed GP step launched {replayed}, not {want}")
@@ -3251,7 +3238,7 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
                               max_neighbor_number=tcfg.max_nbr,
                               target=tcfg.target)
     tr, va, _ = split_dataset(len(graphs), seed=0)
-    cli_keys, _ = signatures([graphs[i] for i in tr], GP_BATCH,
+    _, gp_steps = signatures([graphs[i] for i in tr], GP_BATCH,
                              GP_CLI_EPOCHS, max_nbr=tcfg.max_nbr,
                              node_bucket=tcfg.node_bucket,
                              num_comp_slots=tcfg.num_comp_slots)
@@ -3260,7 +3247,7 @@ def gp_head(tmp, model, cfg, state_dict, data, card: str
     for mode, flags, fwd in (
             ("precomputed", [], batches_of(len(graphs))),
             ("on_the_fly", ["--on-the-fly"],
-             1 + 2 * cli_keys + batches_of(len(va)))):
+             1 + gp_steps + batches_of(len(va)))):
         out = os.path.join(tmp, f"gp_{mode}.pickle.gz")
         t0 = time.perf_counter()
         counts, _ = cli_call(f"cli.train_gp {' '.join(flags)}".strip(),
@@ -3393,13 +3380,13 @@ def active_learning(tmp: str, card: str) -> tuple[dict, dict]:
                    "prepare_s": prepare_s,
                    "prepare_ms_per_structure": prepare_s / AL_POOL * 1e3,
                    "rounds": []}
-    total = dict.fromkeys(launch_counts(), 0)
+    total = scaled()
 
     def counted(fn):
         """Run ``fn`` with the counts set to 0 just before and read just
         after (added to the phase's); returns its result, seconds and
         launches."""
-        reset_counts()
+        counters.reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             out = fn()
@@ -3560,8 +3547,8 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
     full width.
 
     (a) ``tools.ensemble train`` of two seeds with phase 5's flags: each
-        member's exact launches (its captured keys and evaluation
-        batches) and the card's allocated bytes after each (member 2
+        member's exact launches (its steps and evaluation batches) and
+        the card's allocated bytes after each (member 2
         within 4 MiB of member 1); ``predict`` and ``summarize`` (finite
         columns, a nonzero spread); ``soup``, whose weights must be the
         f64 mean of the members' cast to f32 bit for bit, and
@@ -3593,14 +3580,13 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
                                          load_trainer)
     from cgat_tpu_torch.utils.profiling import trace_files, trace_kernels
 
-    zero = dict.fromkeys(launch_counts(), 0)
+    zero = scaled()
     total = dict(zero)
     stats: dict = {}
     phase_t0 = time.perf_counter()
 
     def want(fwd: int, bwd: int) -> dict[str, int]:
-        return {**zero, **{k: v * fwd for k, v in PER_FORWARD.items()},
-                **{k: v * bwd for k, v in PER_BACKWARD.items()}}
+        return scaled((PER_FORWARD, fwd), (PER_BACKWARD, bwd))
 
     def add(counts):
         for k, v in counts.items():
@@ -3620,15 +3606,15 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
 
     def member_main(argv):
         seed = argv[argv.index("--seed") + 1]
-        keys, _ = cli_graph_keys(base + ["--seed", seed], range(2))
-        reset_counts()
+        steps, keys = cli_steps(base + ["--seed", seed], range(2))
+        counters.reset()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = real_main(argv)
         torch.cuda.synchronize()
         got = launch_counts()
-        if got != want(2 * keys + evals, 2 * keys):
+        if got != want(steps + evals, steps):
             fail(f"ensemble member {seed}: launches {got} != "
-                 f"{want(2 * keys + evals, 2 * keys)}")
+                 f"{want(steps + evals, steps)}")
         add(got)
         members.append({"seed": int(seed), "graph_keys": keys,
                         "allocated": settled_allocated()})
@@ -3720,7 +3706,7 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
              f"({meta0['mean']}, {meta0['std']} -> {meta1['mean']}, "
              f"{meta1['std']})")
     graphs = load_prepared(data["data_path"], target="e_above_hull")
-    reset_counts()
+    counters.reset()
     with contextlib.redirect_stdout(io.StringIO()):
         t_orig, _ = load_trainer(run, device="cuda")
         want_pred = t_orig.predict(graphs)
@@ -3761,13 +3747,13 @@ def tools(tmp, data, rows, disp, card) -> tuple[dict, dict]:
         argv = base + ["--node-bucket", str(TRACE_BUCKET), "--ckpt-dir",
                        logs, "--run-name", name, "--profile-epoch",
                        str(epoch)]
-        keys, steps = cli_graph_keys(argv, range(2))
+        steps, keys = cli_steps(argv, range(2))
         if keys != 1:
             fail(f"{name}: {keys} batch shapes, not 1")
         t0 = time.perf_counter()
         counts, _ = cli_call(f"cli.train --profile-epoch {epoch}",
                              cli_train.main, argv,
-                             want(2 * keys + evals, 2 * keys), phase=13)
+                             want(steps + evals, steps), phase=13)
         train_s = time.perf_counter() - t0
         add(counts)
         files = trace_files(os.path.join(logs, "runs", name, "profile"))
@@ -3919,11 +3905,6 @@ def main() -> int:
     progress("phase 3: serve")
     launches, stats = serve(model, requests, card)
     stats["breakdown"] = breakdown(model, requests[1], rows)
-    # each signature's first request: the eager warm-up and the capture
-    n_keys = len(stats["first_request"])
-    for name, count in launches.items():
-        if count != PER_FORWARD.get(name, 0) * 2 * n_keys:
-            fail(f"{name} launched {count} times on the serving path")
     check_against_cpu(model, cpu_model, requests[0], n0)
     progress("phase 4: train")
     train_rows, train_stats, train_launches = train(cfg, state_dict)
@@ -3973,7 +3954,8 @@ def main() -> int:
     # and CLI calls, replay_launches in a replayed step of the dispatch
     # phase (from the profiler); edge_rows: #5 to #7 at the hyper-edge
     # model's edge rows; serve_replay_launches in a replayed request of
-    # phase 3 (from the profiler), export_launches in phase 9's served
+    # phase 3 (from the profiler), stream_launches its #1 device events
+    # through the stream kernel, export_launches in phase 9's served
     # requests, streaming_launches in phase 10's two CLI calls
     edge_rows = var_stats["hyper_edge"]["edge_rows"]
     kernels = [{"name": r["name"], "route": "cuda",
@@ -4017,20 +3999,17 @@ def main() -> int:
                    if r["name"] in edge_rows else {})}
                for r in rows + train_rows]
     # the port's own kernel, on the dropout training step's path: its
-    # launches in phase 6's dropout steps (forward and backward wrappers)
-    # and in a replayed dropout step of phase 7 (profiler)
-    d_replay = disp_stats["dropout"]["replay_launches"]
+    # launches (forward and backward, one C entry) in phase 6's dropout
+    # steps and in a replayed dropout step of phase 7 (profiler)
     kernels.append({
         "name": "dropout", "route": "cuda",
         "source": f"cgat_tpu_torch/csrc/{SOURCES['dropout']}.cu",
         "replaces": REPLACES["dropout"],
-        "launches": var_launches["dropout"] + var_launches["dropout_bwd"],
-        "launches_forward": var_launches["dropout"],
-        "launches_backward": var_launches["dropout_bwd"],
-        "replay_launches": d_replay["dropout"] + d_replay["dropout_bwd"],
-        "al_launches": al_launches["dropout"] + al_launches["dropout_bwd"],
-        "tools_launches": (tools_launches["dropout"]
-                           + tools_launches["dropout_bwd"]),
+        "launches": var_launches["dropout"],
+        "replay_launches": disp_stats["dropout"]["replay_launches"][
+            "dropout"],
+        "al_launches": al_launches["dropout"],
+        "tools_launches": tools_launches["dropout"],
         "masks_equal": dropout_row["masks_equal"],
         **{k: dropout_row[k] for k in (
             "shape", "max_abs_err", "rel_norm_err", "checks",

@@ -241,8 +241,9 @@ def test_launch_record_keeps_entries_rows_and_scope(monkeypatch):
 def test_counters_move_a_captures_count_to_its_replays():
     """What ``StepGraphs`` does with ``utils.counters``: a capture's counts
     (``since`` its snapshot) taken back, then added once a replay; the
-    model's ``edge_update`` counter is one of the registry's, and a
-    capture that counted nothing gives nothing to add."""
+    model's ``edge_update`` counter is one of the registry's, a capture
+    that counted nothing gives nothing to add, and ``reset`` sets every
+    count to 0 in the lists their owners hold."""
     assert "edge_update" in counters.snapshot()
     mine = counters.counter("test_replayed", 2)
     assert counters.counter("test_replayed", 2) is mine
@@ -260,3 +261,7 @@ def test_counters_move_a_captures_count_to_its_replays():
     assert tuple(mine) == (start[0] + 3, start[1] + 120)
     assert cgat.edge_update_stats() == dict(zip(
         ("layers", "rows"), counters.snapshot()["edge_update"]))
+    counters.reset()
+    assert mine == [0, 0] and counters.counter("test_replayed", 2) is mine
+    assert not any(any(c) for c in counters.snapshot().values())
+    assert cgat.edge_update_stats() == {"layers": 0, "rows": 0}

@@ -5,8 +5,8 @@ the port's wrappers run their plain PyTorch versions because the tensors
 lie on the CPU. The CUDA kernels themselves are checked on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import inspect
 import re
-import sys
 
 import numpy as np
 import jax.numpy as jnp
@@ -21,12 +21,28 @@ from cgat_tpu.ops.pallas import segment_attention as jsa
 from cgat_tpu_torch.data import host_offsets
 from cgat_tpu_torch.data.synthetic import SEGMENT_LAYOUTS, segment_layout
 from cgat_tpu_torch.ops import attention, segment
-from cgat_tpu_torch.ops.kernels import (KERNEL_WRAPPERS, adamw, build,
-                                        hyper_apply, mh_network,
+from cgat_tpu_torch.ops import kernels
+from cgat_tpu_torch.ops.kernels import (build, hyper_apply, mh_network,
                                         segment_attention)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def _entry_stub(symbol, calls):
+    """A stand-in for the C entry ``symbol`` (ctypes names an entry by its
+    symbol, and ``build.run`` counts it under that name): it records its
+    arguments and returns 0."""
+    def entry(*args):
+        calls.append(args)
+        return 0
+    entry.__name__ = symbol
+    return entry
+
+
+def _launched(entry: str) -> int:
+    """The launches ``build.run`` has counted of C entry ``entry``."""
+    return build.launch_counts().get(entry, 0)
 
 
 def _edges(rng, num_nodes=300, n_pad=40):
@@ -91,10 +107,10 @@ def test_segment_attention_plain_stats_and_flat_layout():
     m2 = torch.from_numpy(m.reshape(e, -1))
     offn = torch.from_numpy(host_offsets(dst, n))
     n_real = torch.tensor(int(mask.sum()), dtype=torch.int32)
-    before = segment_attention.segment_attention.launches
+    before = build.launch_counts()
     out, mx, den = segment_attention.segment_attention(
         a2, m2, offn, n_real, n, return_stats=True)
-    assert segment_attention.segment_attention.launches == before
+    assert build.launch_counts() == before        # CPU calls launch nothing
     # numpy reference with the exact per-node max
     for node in (0, 17, 299):
         rows = np.flatnonzero((dst == node) & mask)
@@ -206,17 +222,17 @@ def test_mh_network_wrapper_allocates_the_hidden_scratch(monkeypatch):
         return real_empty(shape, **kw)
 
     monkeypatch.setattr(mh_network, "_fwd",
-                        lambda: lambda *a: calls.append(a) or 0)
+                        lambda: _entry_stub("cgat_mh_network_fwd", calls))
     monkeypatch.setattr(build, "stream", lambda device: 0)
     monkeypatch.setattr(torch, "empty", empty)
     meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
     args = (meta(37, 48), meta(2 * 32, 48), meta(64), meta(2 * 16, 32),
             meta(32), 2)
-    before = mh_network.mh_network.launches
+    before = _launched("cgat_mh_network_fwd")
     out = mh_network.mh_network(*args)
     out2, h = mh_network.mh_network(*args, return_hidden=True)
     assert out.shape == out2.shape == (37, 32) and h.shape == (37, 64)
-    assert mh_network.mh_network.launches == before + 2
+    assert _launched("cgat_mh_network_fwd") == before + 2
     assert allocated == [(37, 32), (37, 64)] * 2
     assert [c[7:12] for c in calls] == [(37, 48, 32, 16, 2)] * 2
     assert all(c[6] is not None for c in calls)    # h, in both forms
@@ -256,12 +272,18 @@ def test_build_targets_hopper():
         assert (build.CSRC / f"{name}.cu").exists()
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and name in path.name
-    # every source holds the kernels of one wrapper module (the optimizer's
-    # fused update counts in a counter replays keep, adamw.stats, not in a
-    # wrapper's eager ``launches``)
-    assert {k.__module__.rsplit(".", 1)[-1]
-            for k in (*KERNEL_WRAPPERS, adamw.adamw)} == set(build.KERNELS)
-
+    # every source holds the kernels of one wrapper module, which loads
+    # its entry points from that source's library
+    assert set(kernels.__all__) == set(build.KERNELS)
+    for name in build.KERNELS:
+        source = inspect.getsource(getattr(kernels, name))
+        assert f'build.entry("{name}", ' in source
+    # ENTRIES names wrappers of these modules and C entries they load
+    sources = [inspect.getsource(getattr(kernels, m)) for m in build.KERNELS]
+    for wrapper, entry in kernels.ENTRIES.items():
+        assert any(callable(getattr(getattr(kernels, m), wrapper, None))
+                   for m in build.KERNELS)
+        assert any(f'"{entry}"' in s for s in sources)
 
 
 def test_library_path_covers_headers_and_flags(tmp_path, monkeypatch):
@@ -529,17 +551,17 @@ def test_hyper_apply_wrapper_passes_its_plan(monkeypatch):
         return real_empty(shape, **kw)
 
     monkeypatch.setattr(hyper_apply, "_entry",
-                        lambda *a: lambda *b: calls.append(b) or 0)
+                        lambda symbol, *a: _entry_stub(symbol, calls))
     monkeypatch.setattr(build, "stream", lambda device: 0)
     monkeypatch.setattr(build, "sm_count", lambda index: 114)
     monkeypatch.setattr(torch, "empty", empty)
     meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
     n, c, i, o = 300, 64, 32, 48
-    before = hyper_apply.hyper_apply.launches
+    before = _launched("cgat_hyper_apply_fwd")
     out = hyper_apply.hyper_apply(meta(n, c), meta(o * i + o, c),
                                   meta(o * i + o), meta(n, i), o)
     assert out.shape == (n, o) and out.dtype == torch.bfloat16
-    assert hyper_apply.hyper_apply.launches == before + 1
+    assert _launched("cgat_hyper_apply_fwd") == before + 1
     assert allocated == [(n, o)]
     groups, per = hyper_apply.fwd_plan(n, c, i, o, 114)["groups"]
     (call,) = calls
@@ -561,7 +583,7 @@ def test_hyper_apply_bwd_dhdx_wrapper_passes_its_plan(monkeypatch):
         return real_empty(shape, **kw)
 
     monkeypatch.setattr(hyper_apply, "_entry",
-                        lambda *a: lambda *b: calls.append(b) or 0)
+                        lambda symbol, *a: _entry_stub(symbol, calls))
     monkeypatch.setattr(build, "stream", lambda device: 0)
     monkeypatch.setattr(build, "sm_count", lambda index: 114)
     monkeypatch.setattr(torch, "empty", empty)
@@ -569,10 +591,10 @@ def test_hyper_apply_bwd_dhdx_wrapper_passes_its_plan(monkeypatch):
     n, c, i, o = 300, 64, 32, 48
     args = (meta(n, c), meta(o * i + o, c), meta(o * i + o), meta(n, i),
             meta(n, o), o)
-    before = hyper_apply.hyper_apply_bwd_dhdx.launches
+    before = _launched("cgat_hyper_apply_bwd_dhdx")
     dh, dx = hyper_apply.hyper_apply_bwd_dhdx(*args)
     assert dh.shape == (n, c) and dx.shape == (n, i)
-    assert hyper_apply.hyper_apply_bwd_dhdx.launches == before + 1
+    assert _launched("cgat_hyper_apply_bwd_dhdx") == before + 1
     groups, per = hyper_apply.bwd_plan(n, c, i, o, 114)["groups"]
     assert allocated == [(groups, n, i), (groups, n, c)]
     (call,) = calls
@@ -593,17 +615,17 @@ def test_hyper_apply_bwd_dk_wrapper_allocates_only_its_outputs(monkeypatch):
         return real_empty(shape, **kw)
 
     monkeypatch.setattr(hyper_apply, "_entry",
-                        lambda *a: lambda *b: calls.append(b) or 0)
+                        lambda symbol, *a: _entry_stub(symbol, calls))
     monkeypatch.setattr(build, "stream", lambda device: 0)
     monkeypatch.setattr(torch, "empty", empty)
     meta = lambda *s: real_empty(*s, dtype=torch.bfloat16, device="meta")
     n, c, i, o = 300, 256, 48, 32
-    before = hyper_apply.hyper_apply_bwd_dk.launches
+    before = _launched("cgat_hyper_apply_bwd_dk")
     dk, db = hyper_apply.hyper_apply_bwd_dk(meta(n, c), meta(n, i),
                                             meta(n, o), o)
     assert dk.shape == (o * i, c) and dk.dtype == torch.bfloat16
     assert db.shape == (o * i,) and db.dtype == torch.float32
-    assert hyper_apply.hyper_apply_bwd_dk.launches == before + 1
+    assert _launched("cgat_hyper_apply_bwd_dk") == before + 1
     assert allocated == [((o * i, c), torch.bfloat16),
                          ((o * i,), torch.float32)]
     (call,) = calls
@@ -614,7 +636,8 @@ def test_hyper_apply_bwd_dk_wrapper_allocates_only_its_outputs(monkeypatch):
 def test_launches_follow_the_tensors_device(monkeypatch):
     """build.run makes the tensor's device current for the launch only when
     it is not, and restores the previous one, also when the launch raises;
-    a device with no index is left alone."""
+    a device with no index is left alone; each call counts one launch of
+    its entry, on whichever device it runs."""
     current, switches, asked = [0], [], []
 
     def current_device():
@@ -634,6 +657,7 @@ def test_launches_follow_the_tensors_device(monkeypatch):
         seen.append((current[0], args))
         return 0
 
+    before = _launched("entry")
     assert build.run(entry, torch.device("cuda", 0), 7) == 0
     assert switches == [] and seen == [(0, (7, 100))]
     assert build.run(entry, torch.device("cuda", 1), 7) == 0
@@ -650,13 +674,13 @@ def test_launches_follow_the_tensors_device(monkeypatch):
     monkeypatch.setattr(build, "stream", lambda device: 0)
     build.run(entry, torch.device("meta"), 7)
     assert len(asked) == n_asked and switches == [1, 0, 2, 0]
+    assert _launched("entry") == before + 3
 
 
 def test_every_launch_goes_through_the_device_guard():
-    """Each kernel wrapper launches through build.run, one call a wrapper,
-    and none reads a stream by itself."""
-    import inspect
-    modules = {k.__module__ for k in KERNEL_WRAPPERS}
-    sources = [inspect.getsource(sys.modules[m]) for m in modules]
+    """Each kernel wrapper launches through build.run, one call a wrapper
+    (#1's, #3's and dropout's forward and backward, hyper_apply's three,
+    segment_sum's and adamw's: 11), and none reads a stream by itself."""
+    sources = [inspect.getsource(getattr(kernels, m)) for m in build.KERNELS]
     assert not any("build.stream(" in s for s in sources)
-    assert sum(s.count("build.run(") for s in sources) == len(KERNEL_WRAPPERS)
+    assert sum(s.count("build.run(") for s in sources) == 11

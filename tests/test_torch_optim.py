@@ -159,18 +159,27 @@ def test_cpu_adamw_takes_the_foreach_path(mu_dtype, acc):
                for x, y in zip(sa[name], sb[name]))
 
 
-def test_fused_counts_live_in_the_counter_replays_keep():
-    """The fused pass's counts are the ``utils.counters`` counter
-    "adamw_fused", which ``StepGraphs`` adds on each replay:
-    ``fused_stats`` reads it as it moves, and ``reset_stats`` zeroes it."""
+def test_fused_counts_live_in_the_counter_replays_keep(monkeypatch):
+    """The fused pass's launches are ``build.run``'s count of its C entry
+    ``cgat_adamw`` and its elements the ``utils.counters`` counter
+    "adamw_fused": counters that ``StepGraphs`` adds on each replay, which
+    ``fused_stats`` reads as they move."""
+    from cgat_tpu_torch.ops.kernels import build
     from cgat_tpu_torch.utils import counters
 
+    def cgat_adamw(*args):          # the C entry's name, as ctypes gives it
+        return 0
+
+    monkeypatch.setattr(build, "stream", lambda device: 0)
     start = fused_stats()
-    counters.add({"adamw_fused": (2, 125)})
-    assert fused_stats() == {"launches": start["launches"] + 2,
+    assert build.run(cgat_adamw, torch.device("meta")) == 0
+    assert fused_stats() == {"launches": start["launches"] + 1,
+                             "elements": start["elements"]}
+    counters.add({"cgat_adamw": (2,), "adamw_fused": (125,)})
+    assert fused_stats() == {"launches": start["launches"] + 3,
                              "elements": start["elements"] + 125}
-    assert counters.snapshot()["adamw_fused"] == tuple(fused_stats().values())
-    fused.reset_stats()
-    assert fused_stats() == {"launches": 0, "elements": 0}
-    counters.add({"adamw_fused": tuple(start.values())})
+    counts = counters.snapshot()
+    assert (counts["cgat_adamw"][0], counts["adamw_fused"][0]) == tuple(
+        fused_stats().values())
+    counters.add({"cgat_adamw": (-3,), "adamw_fused": (-125,)})
     assert fused_stats() == start
